@@ -1,0 +1,17 @@
+from .params import Param, ParamSet, gaussian_param
+from .pressure import GNFWPressure
+from .density import VikhlininDensity
+from .temperature import UPPTemperature
+from .mass import HSEMass
+from .sz import SZData, sz_log_like, sz_brightness
+from .xray import (XrayData, CountRateTable, predicted_counts, cash_log_like,
+                   xray_log_like)
+from .joint import JointModel, build_reference_params
+
+__all__ = [
+    "Param", "ParamSet", "gaussian_param", "GNFWPressure",
+    "VikhlininDensity", "UPPTemperature", "HSEMass", "SZData",
+    "sz_log_like", "sz_brightness", "XrayData", "CountRateTable",
+    "predicted_counts", "cash_log_like", "xray_log_like", "JointModel",
+    "build_reference_params",
+]

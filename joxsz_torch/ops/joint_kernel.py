@@ -1,0 +1,358 @@
+"""Kernel 1: the whole joint log-posterior of a batch of walkers.
+
+Replaces ``joxsz_tpu/ops/pallas_joint.py::make_joint_core`` and the body it
+wraps, ``ll_body`` (specialised by ``_build_spec``).  Per walker: box and
+Gaussian priors, the r_c <= r_s veto, gNFW P and dP/dr and the Vikhlinin
+n_e on the pressure grid, the HSE-mass monotonicity veto, the SZ chain
+(``pp @ L^T`` -> T-dependent y->mJy lerp x calibration -> ``@ G^T`` ->
+-chi^2/2, plus the integrated-Y term) and the X-ray chain (count-rate
+lookup per band and shell, ``ne^2``, shell->annulus projection through
+``vols_norm``, Cash with the positivity veto).
+
+Host-side constants follow ``_cluster_arrays``/``_build_spec`` without the
+TPU's 128-lane padding: the hat-basis MXU product the TPU uses for the
+count-rate lookup is computed here as its two non-zero taps
+``max(0, 1-|pos-k|)`` at k = floor(pos) and floor(pos)+1 (the tap past
+the last grid point is zero, not clamped).
+
+CUDA kernel: ``csrc/joint_ll.cu`` over the shared device function in
+``csrc/joint_ll.cuh``; a block of 128 threads evaluates a tile of
+``TILE_WALKERS`` walkers, profiles in shared memory, constants in global
+memory (L^T is 313 x 86 f32, ~108 KB, and stays in L2), plain FP32 FMAs.
+What bounds it on the card: L2 reads of L^T/G^T and the per-radius
+transcendentals (the data it must move from device memory is tiny).
+
+``joint_ll_plain`` is the same arithmetic in plain torch float32 (the
+mirror of ``ll_body``); the wrapper ``joint_ll`` runs it only for a CPU
+tensor and launches the kernel for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import constants as K
+
+# walkers per thread block (must match TILE_WALKERS in csrc/joint_ll.cuh)
+TILE_WALKERS = 4
+THREADS = 128
+MAX_D = 16
+
+# thawed-parameter roles in the order the kernel reads them (cix)
+ROLES = ("log(n_0)", r"\beta", "log(r_c)", "log(r_s)", r"\epsilon",
+         "log(T_X/T_{SZ})", "Z", "P_0", "a", "b", "r_p", "backscale",
+         "calibration")
+
+# float-buffer arrays, in buffer order
+_ARRAYS = ("r", "lnr", "LT", "GT", "flux", "wres", "wT0", "wint", "midr",
+           "lnmid", "LR0", "LR1", "volsT", "sigf", "bgf", "cmf", "ctf", "lo",
+           "hi", "wg", "mu", "convT", "convV", "convS")
+# scalar ints / floats handed to the launch, in the C struct's order
+_INTS = ("n_press", "sep", "n_pix", "n_data", "n_sh", "n_ann", "n_band",
+         "nT", "n_conv", "D", "mass_veto")
+_FLOATS = ("c_gnfw", "alpha", "gamma", "mass_C", "t0g", "inv_dtg", "pos_hi",
+           "mui")
+
+
+@dataclasses.dataclass
+class JointConsts:
+    """Float32 constants of the kernel for one session, on one device."""
+
+    arrays: dict          # name -> f32 tensor (views into ``buf``)
+    buf: torch.Tensor     # every array, packed (16-byte aligned offsets)
+    offsets: dict         # name -> float offset into ``buf``
+    ints: dict
+    floats: dict
+    cix: list             # thawed column of each of ROLES
+
+    @property
+    def device(self):
+        return self.buf.device
+
+    def __post_init__(self):
+        # what the C entry points read: ints, cix, then the offsets of
+        # _ARRAYS (int32); the floats (float32) — built once, passed by
+        # pointer on every launch
+        iv = ([self.ints[k] for k in _INTS] + list(self.cix)
+              + [self.offsets[k] for k in _ARRAYS])
+        fv = [self.floats[k] for k in _FLOATS]
+        self._iv = np.ascontiguousarray(iv, dtype=np.int32)
+        self._fv = np.ascontiguousarray(fv, dtype=np.float32)
+        self.iv_ptr = self._iv.ctypes.data_as(ctypes.c_void_p)
+        self.fv_ptr = self._fv.ctypes.data_as(ctypes.c_void_p)
+
+
+def pack_consts(sess, device=None) -> JointConsts:
+    """Build the kernel constants of a session (the port's
+    ``_cluster_arrays`` + ``_build_spec``)."""
+    m = sess.model
+    p = m.params
+    if sorted(p.thawed) != sorted(ROLES):
+        raise NotImplementedError(
+            f"the joint kernel covers the flagship 13-parameter layout; "
+            f"this session thaws {p.thawed}")
+    if len(p.thawed) > MAX_D:
+        raise ValueError(f"at most {MAX_D} thawed parameters")
+    dev = torch.device(device) if device is not None else sess.device
+    sz, xr = m.sz_data, m.xray_data
+
+    def n(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    f64 = np.float64
+    r_pp = n(sz.r_press_kpc)
+    L, G = n(sz.L), n(sz.G)
+    flux, err = n(sz.flux), n(sz.flux_err)
+    # SZ validity rule (pallas_kernels.sz_padded_data): NaN/inf flux or
+    # error, or zero error, contributes exactly zero to chi^2
+    valid = np.isfinite(flux) & np.isfinite(err) & (err != 0)
+    wres = np.where(valid, 1.0 / np.where(valid, err, 1.0), 0.0)
+    if sz.calc_integ:
+        wint = n(sz.integ_w) / sz.integ_sig
+        mui = sz.integ_mu / sz.integ_sig
+    else:
+        wint = np.zeros_like(r_pp)
+        mui = 0.0
+    midr = n(xr.midpt_kpc)
+    exps = n(xr.exposures)
+    conv_T, conv_V = n(sz.conv_T), n(sz.conv_val)
+    conv_S = np.append(np.diff(conv_V) / np.diff(conv_T), 0.0)
+    Tlog = n(xr.table.Tlog)
+    lo = np.where(np.isfinite(p.lo), p.lo, -1e30)
+    hi = np.where(np.isfinite(p.hi), p.hi, 1e30)
+    # Gaussian weight isg / sigma^2, formed in float32 as ll_body does
+    isg32 = p.is_gauss.astype(np.float32)
+    sg32 = np.where(p.is_gauss, p.sigma, 1.0).astype(np.float32)
+    wg = isg32 / (sg32 * sg32)
+
+    arrs = {
+        "r": r_pp, "lnr": np.log(r_pp), "LT": L.T, "GT": G.T,
+        "flux": np.where(valid, flux, 0.0), "wres": wres,
+        "wT0": n(sz.w_T0), "wint": wint, "midr": midr,
+        "lnmid": np.log(midr), "LR0": n(xr.table.lograte_Z0),
+        "LR1": n(xr.table.lograte_Z1), "volsT": n(xr.vols_norm).T,
+        "sigf": exps * n(xr.areascales),
+        "bgf": n(xr.backrates) * exps * n(xr.areas),
+        "cmf": n(xr.counts_mask), "ctf": n(xr.counts_filled),
+        "lo": lo, "hi": hi, "wg": wg, "mu": p.mu,
+        "convT": conv_T, "convV": conv_V, "convS": conv_S,
+    }
+    offsets, chunks, off = {}, [], 0
+    for k in _ARRAYS:
+        a = np.ascontiguousarray(arrs[k], dtype=np.float32).ravel()
+        pad = (-a.size) % 4
+        offsets[k] = off
+        chunks.append(np.concatenate([a, np.zeros(pad, np.float32)]))
+        off += a.size + pad
+    buf = torch.from_numpy(np.concatenate(chunks)).to(dev)
+    arrays = {}
+    for k in _ARRAYS:
+        shape = np.shape(arrs[k])
+        size = int(np.prod(shape))
+        arrays[k] = buf[offsets[k]:offsets[k] + size].view(shape)
+
+    alpha = float(p[r"\alpha"].val)
+    gamma = float(p[r"\gamma"].val)
+    nT = Tlog.size
+    ints = dict(n_press=r_pp.size, sep=int(sz.sep), n_pix=L.shape[0],
+                n_data=G.shape[0], n_sh=midr.size,
+                n_ann=n(xr.vols_norm).shape[0],
+                n_band=n(xr.counts_mask).shape[0], nT=nT,
+                n_conv=conv_T.size, D=len(p.thawed),
+                mass_veto=int(bool(m.exclude_unphysical_mass)))
+    if ints["n_pix"] != ints["sep"] + 1:
+        raise ValueError("the SZ operator must have sep + 1 pixels")
+    mass_C = float(K.keV_erg * K.kpc_cm
+                   / (K.mu_gas * K.mu_g * K.G_cgs) / K.solar_mass_g)
+    floats = dict(c_gnfw=float(p["c"].val), alpha=alpha, gamma=gamma,
+                  mass_C=mass_C, t0g=float(Tlog[0]),
+                  inv_dtg=1.0 / float(Tlog[1] - Tlog[0]),
+                  pos_hi=float(nT - 1 - 1e-6), mui=float(mui))
+    floats = {k: float(np.float32(v)) for k, v in floats.items()}
+    cix = [p.thawed.index(r) for r in ROLES]
+    return JointConsts(arrays=arrays, buf=buf, offsets=offsets, ints=ints,
+                       floats=floats, cix=cix)
+
+
+def _nanmax(x, v):
+    """max(x, v) that keeps NaN (``jnp.maximum`` semantics)."""
+    return torch.where(torch.isnan(x), x, torch.clamp(x, min=v))
+
+
+def _nanclip(x, lo, hi):
+    return torch.where(torch.isnan(x), x, torch.clamp(x, lo, hi))
+
+
+def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
+    """(B, D) float32 -> (B,) float32 log-posterior: the kernel's
+    arithmetic in plain torch (the mirror of ``ll_body``)."""
+    A, I, F = c.arrays, c.ints, c.floats
+    th = theta.to(torch.float32)
+    NEG = torch.tensor(-float("inf"), dtype=torch.float32, device=th.device)
+
+    def col(role):
+        return th[:, c.cix[ROLES.index(role)]:c.cix[ROLES.index(role)] + 1]
+
+    log_n0, beta = col("log(n_0)"), col(r"\beta")
+    log_rc, log_rs, eps = col("log(r_c)"), col("log(r_s)"), col(r"\epsilon")
+    tratio, Z = col("log(T_X/T_{SZ})"), col("Z")
+    P0, a_, b_, rp_ = col("P_0"), col("a"), col("b"), col("r_p")
+    bscale, cal = col("backscale"), col("calibration")
+    cg, alpha, gamma = F["c_gnfw"], F["alpha"], F["gamma"]
+
+    # priors
+    inside = ((th >= A["lo"]) & (th <= A["hi"])).all(dim=1, keepdim=True)
+    dres = th - A["mu"]
+    gauss = -0.5 * (A["wg"] * dres * dres).sum(dim=1, keepdim=True)
+    total = torch.where(inside, gauss, NEG)
+    total = torch.where(log_rc > log_rs, NEG, total)
+
+    # pressure + derivative fraction on the pressure grid
+    r = A["r"]
+    lnrp = torch.log(rp_)
+    bca = (b_ - cg) / a_
+
+    def press_of(lnr_row):
+        lnx = lnr_row - lnrp
+        za = a_ * lnx
+        ln1xa = torch.clamp(za, min=0.0) + torch.log1p(torch.exp(-za.abs()))
+        return P0 * torch.exp(-cg * lnx - bca * ln1xa), ln1xa
+
+    press, ln1xa = press_of(A["lnr"])
+    sfrac = 1.0 - torch.exp(-ln1xa)
+
+    # Vikhlinin density
+    rci = 10.0 ** (-log_rc)
+    rsi = 10.0 ** (-log_rs)
+    n0 = 10.0 ** log_n0
+    e_c = 3.0 * beta - alpha / 2.0
+    e_s = eps / gamma
+
+    def ne2_of(rr):
+        xc = rr * rci
+        xs = rr * rsi
+        xs_g = xs * xs * xs if gamma == 3.0 else xs ** gamma
+        ne2 = n0 * n0 * torch.exp(-e_c * torch.log1p(xc * xc)
+                                  - e_s * torch.log1p(xs_g))
+        if alpha != 0.0:
+            ne2 = ne2 * xc ** (-alpha)
+        return ne2
+
+    ne_inv = torch.rsqrt(ne2_of(r))
+
+    # HSE-mass veto: central differences inside, one-sided at the edges
+    if I["mass_veto"]:
+        m = press * r * (cg + (b_ - cg) * sfrac) * ne_inv * F["mass_C"]
+        mono = ((m[:, 2:] > m[:, :-2]).all(dim=1, keepdim=True)
+                & (m[:, 1:2] > m[:, 0:1]) & (m[:, -1:] > m[:, -2:-1]))
+        total = torch.where(mono, total, NEG)
+
+    # SZ
+    sep = I["sep"]
+    raw = press @ A["LT"]                                   # (B, n_pix)
+    t_sz = press * ne_inv
+    t0 = (t_sz[:, :sep] * A["wT0"]).sum(dim=1, keepdim=True)
+    t_all = torch.cat([t0, t_sz[:, :sep]], dim=1)           # (B, sep+1)
+    cidx = torch.zeros_like(t_all, dtype=torch.long)
+    for k in range(1, I["n_conv"] - 1):
+        cidx = cidx + (t_all >= A["convT"][k]).long()
+    conv = A["convV"][cidx] + (t_all - A["convT"][cidx]) * A["convS"][cidx]
+    prof = raw * conv * cal
+    model = prof @ A["GT"]
+    resid = (A["flux"] - model) * A["wres"]
+    total = total - 0.5 * (resid * resid).sum(dim=1, keepdim=True)
+    di = (press * A["wint"]).sum(dim=1, keepdim=True) - F["mui"]
+    total = total - 0.5 * di * di
+
+    # X-ray: midpoint profiles, two-tap hat lookup, projection, Cash
+    midr = A["midr"]
+    press_m, _ = press_of(A["lnmid"])
+    ne2m = ne2_of(midr)
+    Tm = press_m * torch.rsqrt(ne2m) * 10.0 ** tratio
+    tl = torch.log(_nanmax(Tm, 1e-30))
+    pos = _nanclip((tl - F["t0g"]) * F["inv_dtg"], 0.0, F["pos_hi"])
+    bad = torch.isnan(pos)
+    pos = torch.where(bad, torch.zeros_like(pos), pos)
+    k0 = torch.floor(pos)
+    nT = I["nT"]
+    w0 = torch.clamp(1.0 - (pos - k0).abs(), min=0.0)
+    w1 = torch.clamp(1.0 - (pos - (k0 + 1.0)).abs(), min=0.0)
+    k0i = k0.long()
+    on1 = k0i + 1 < nT
+    w1 = torch.where(on1, w1, torch.zeros_like(w1))
+    k1i = torch.clamp(k0i + 1, max=nT - 1)
+    # (B, n_band, n_sh) log-rates at Z=0 and Z=1
+    l0 = w0[:, None, :] * A["LR0"][:, k0i].permute(1, 0, 2) \
+        + w1[:, None, :] * A["LR0"][:, k1i].permute(1, 0, 2)
+    l1 = w0[:, None, :] * A["LR1"][:, k0i].permute(1, 0, 2) \
+        + w1[:, None, :] * A["LR1"][:, k1i].permute(1, 0, 2)
+    ne2w = ne2m[:, None, :]
+    e0 = torch.exp(l0) * (1.0 - Z)[:, :, None] * ne2w
+    e1 = torch.exp(l1) * Z[:, :, None] * ne2w
+    e0 = torch.where(bad[:, None, :], torch.full_like(e0, float("nan")), e0)
+    proj = e0 @ A["volsT"] + e1 @ A["volsT"]                # (B, band, ann)
+    pred = proj * A["sigf"] + bscale[:, :, None] * A["bgf"]
+    cmf, ctf = A["cmf"], A["ctf"]
+    okmin = ((pred > 0.0) | (cmf == 0.0)).flatten(1).all(dim=1, keepdim=True)
+    safe = torch.where(pred > 0.0, pred, torch.ones_like(pred))
+    cash = (cmf * (ctf * torch.log(safe) - safe)).flatten(1).sum(
+        dim=1, keepdim=True)
+    total = total + torch.where(okmin, cash, NEG)
+    total = torch.where(torch.isnan(total), NEG, total)
+    return total[:, 0]
+
+
+def _check_theta(theta: torch.Tensor, c: JointConsts):
+    if theta.dim() != 2 or theta.shape[1] != c.ints["D"]:
+        raise ValueError(f"theta must be (B, {c.ints['D']}), got "
+                         f"{tuple(theta.shape)}")
+    if theta.device != c.device:
+        raise ValueError(f"theta on {theta.device}, constants on {c.device}")
+
+
+def joint_ll(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
+    """Batched log-posterior (B, D) -> (B,) float32.  A CPU tensor runs
+    the plain version; a CUDA tensor launches kernel 1 (or raises)."""
+    _check_theta(theta, c)
+    if theta.device.type == "cpu":
+        return joint_ll_plain(theta, c)
+    from ._build import kernel_library, check_launch
+
+    th = theta.to(torch.float32).contiguous()
+    B = th.shape[0]
+    out = torch.empty(B, dtype=torch.float32, device=th.device)
+    if B == 0:
+        return out
+    lib = kernel_library("joint_ll")
+    err = lib.launch_joint_ll(
+        th.data_ptr(), B, out.data_ptr(), c.buf.data_ptr(), c.iv_ptr,
+        c.fv_ptr, torch.cuda.current_stream(th.device).cuda_stream)
+    check_launch(err, "joint_ll")
+    joint_ll.launches += 1
+    return out
+
+
+joint_ll.launches = 0
+
+
+def joint_ll_flops(c: JointConsts) -> int:
+    """Floating-point operations one walker's evaluation needs (FMA = 2),
+    counted from the shapes: the per-radius profile chain, the two SZ
+    products, the X-ray taps, projection and Cash."""
+    I = c.ints
+    n_p, n_pix, n_d = I["n_press"], I["n_pix"], I["n_data"]
+    n_sh, n_ann, n_b = I["n_sh"], I["n_ann"], I["n_band"]
+    per_radius = 40                         # ~10 transcendentals + algebra
+    sz = 2 * n_p * n_pix + 2 * n_pix * n_d + 12 * n_pix + 4 * n_d
+    xray = n_sh * (per_radius + n_b * 14) + n_b * n_ann * (4 * n_sh + 8)
+    return per_radius * n_p + sz + xray + 6 * I["D"]
+
+
+def joint_ll_bytes(c: JointConsts, B: int) -> int:
+    """Bytes a call must move: each input read once (theta and every
+    constant), each output written once."""
+    return 4 * (B * c.ints["D"] + c.buf.numel() + B)

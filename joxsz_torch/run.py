@@ -1,0 +1,124 @@
+"""End-to-end fit runner (CLI): setup -> MLE -> MCMC -> posterior table.
+
+Torch counterpart of ``joxsz_tpu/run.py`` for the flagless joint fit.  On
+the card the default schedule is ``MCMCConfig.converged_gpu`` (W=1024
+walkers x K=4 tempering rungs, 4000 burn + 8000 steps, thin 25,
+auto-extend 3) sampled through the CUDA kernels; a ``--config`` file's own
+schedule is kept as written.
+
+Usage:
+    python -m joxsz_torch.run --config my.json      # on the card
+    python -m joxsz_torch.run --config my.json --cpu --quick
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="JoXSZ joint SZ+X-ray fit "
+                                 "(PyTorch/CUDA)")
+    ap.add_argument("--config", help="JSON config file")
+    ap.add_argument("--data-dir", help="CL J1226 data directory (used "
+                    "when no --config is given)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the kernels' plain versions)")
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--walkers", type=int, default=None,
+                    help="override the walker count")
+    ap.add_argument("--temper", type=int, default=None, metavar="K",
+                    help="K tempering rungs for the sampling phase (1 = "
+                    "plain ensemble)")
+    ap.add_argument("--quick", action="store_true",
+                    help="short chains for smoke testing")
+    args = ap.parse_args(argv)
+    t_start = time.time()
+
+    import numpy as np
+    from .config import JoXSZConfig, resolve_mcmc_schedule
+    from .build import build_session
+    from .device import resolve_device
+    from .sampling.kernel import make_kernel_sampler
+    from .sampling.driver import run_fit
+    from .io.checkpoint import save_state
+
+    device = resolve_device("cpu" if args.cpu else None)
+    if args.config:
+        cfg = JoXSZConfig.from_json(pathlib.Path(args.config).read_text())
+    elif args.data_dir:
+        cfg = JoXSZConfig.cl1226(args.data_dir)
+    else:
+        raise SystemExit("pass --config (or --data-dir with the CL J1226 "
+                         "data files)")
+    cfg.mcmc, production = resolve_mcmc_schedule(
+        cfg.mcmc, device=device.type, quick=args.quick,
+        from_config=args.config is not None)
+    if args.seed is not None:
+        cfg.mcmc.seed = args.seed
+    if args.walkers is not None:
+        cfg.mcmc.nwalkers = args.walkers
+    if args.temper is not None:
+        cfg.mcmc.n_temper_rungs = args.temper
+    m = cfg.mcmc
+    if args.quick:
+        m.nburn, m.nsteps, m.nthin = 200, 400, 5
+        prelim, rounds = 100, 2
+    else:
+        prelim, rounds = m.prelim_iterations, 10
+    k = m.n_temper_rungs
+    samp = f"K={k} tempered" if k > 1 else "plain GW"
+    ext = (f", auto-extend up to {m.auto_extend}x to split-Rhat <= 1.01"
+           if m.auto_extend else "")
+    kind = "production default" if production else "configured"
+    print(f"schedule: {kind} — W={m.nwalkers} x {samp}, {m.nburn} burn + "
+          f"{m.nsteps} steps (thin {m.nthin}){ext}")
+    print(f"device: {torch_device_name(device)}; likelihood float32 "
+          "kernels, MLE float64")
+    t0 = time.time()
+    sess = build_session(cfg, device=device)
+    print(f"session built in {time.time() - t0:.1f}s (operator "
+          f"{sess.sz_operator.L.shape}, joint SZ+X)")
+    sampler = make_kernel_sampler(sess)
+    print("sampling via the CUDA step kernels" if device.type == "cuda"
+          else "sampling via the kernels' plain torch versions (CPU)")
+
+    p = sess.params
+    res = run_fit(sess.model, sampler, p.thawed_values(), p.lo, p.hi,
+                  p.thawed, nwalkers=m.nwalkers, nburn=m.nburn,
+                  nsteps=m.nsteps, nthin=m.nthin, seed=m.seed,
+                  initspread=m.initspread, prelim_iterations=prelim,
+                  max_prelim_rounds=rounds, n_temper_rungs=m.n_temper_rungs,
+                  auto_extend=m.auto_extend)
+    res.print_summary([p[n].unit for n in p.thawed])
+    save = pathlib.Path(cfg.save_dir)
+    save.mkdir(parents=True, exist_ok=True)
+    (save / f"{cfg.name}_timings.json").write_text(
+        json.dumps(res.timings, indent=2, default=float))
+    x, lp = res.final_state
+    cold_x, cold_lp = (x[0], lp[0]) if x.ndim == 3 else (x, lp)
+    save_state(str(save / f"{cfg.name}_state.npz"), cold_x, cold_lp,
+               np.asarray([m.seed if m.seed is not None else 0]),
+               {"param_names": p.thawed, "nburn": m.nburn,
+                "nthin": m.nthin, "seed": m.seed},
+               temper_state=x if x.ndim == 3 else None)
+    t = res.timings
+    sampling_s = t["prelim_s"] + t["burn_s"] + t["sample_s"]
+    print(f"wall time {time.time() - t_start:.1f} s (MLE {t['mle_s']:.1f} s, "
+          f"sampling {sampling_s:.1f} s)")
+    return res
+
+
+def torch_device_name(device) -> str:
+    import torch
+
+    if device.type == "cuda":
+        return torch.cuda.get_device_name(device)
+    return "cpu"
+
+
+if __name__ == "__main__":
+    main()

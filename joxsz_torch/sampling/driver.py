@@ -1,0 +1,226 @@
+"""High-level fit driver: MLE -> walker init -> preliminary -> burn ->
+tempered sampling -> convergence-driven extension.
+
+Torch counterpart of ``joxsz_tpu/sampling/driver.py::run_fit`` (phase
+structure of the reference ``mcmc_run``, joxsz_funcs.py:572-635) limited
+to the flagless fit's path through the kernel sampler:
+
+  1. MLE warm start on the plain float64 likelihood (``sampling.mle``);
+  2. walker initialisation around the MLE, rejection-redrawn to finite
+     log-probabilities (kernel 1);
+  3. "preliminary" rounds of ``prelim_iterations`` plain steps repeated
+     while the best log-probability still improves (kernels 1-2);
+  4. ``nburn`` plain burn-in steps (kernel 2);
+  5. ``nsteps`` sampling steps thinned by ``nthin``, K-rung tempered when
+     ``n_temper_rungs > 1`` (kernels 2-3), else plain;
+  6. auto-extend: further ``nsteps`` chunks from the final state (the
+     full replica ladder) until the cold chain spans >= 20 x the worst
+     integrated autocorrelation time and its tau-thinned split-R-hat is
+     <= ``target_rhat``, or ``auto_extend`` chunks are spent.
+
+Resume, meshes, non-stretch moves, head promotion and HDF5 chains wait
+for later slices.  Per-phase wall times land in ``FitResult.timings``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from .kernel import KernelSampler
+from .mle import find_mle
+from .stretch import EnsembleResult, generate_init_positions
+from .tempered import default_betas
+from ..postproc.summary import integrated_autocorr_time, convergence_rhat
+
+_DIAG_WALKERS = 256      # walker sequences the stopping rule watches
+
+
+@dataclasses.dataclass
+class FitResult:
+    chain: np.ndarray             # (n_saved, n_walkers, ndim)
+    log_prob: np.ndarray          # (n_saved, n_walkers)
+    acceptance_fraction: np.ndarray
+    mle_theta: np.ndarray
+    mle_loglike: float
+    param_names: list[str]
+    timings: dict
+    final_state: tuple = ()       # (x, lp) of the sampled rung(s)
+
+    @property
+    def flat_chain(self) -> np.ndarray:
+        """((n_saved*n_walkers), ndim), walker-major like the reference's
+        order='F' reshape (joxsz_main.py:213-214)."""
+        n_saved, n_w, ndim = self.chain.shape
+        return np.transpose(self.chain, (1, 0, 2)).reshape(-1, ndim)
+
+    def summary_rows(self, units: list[str] | None = None):
+        med = np.median(self.flat_chain, axis=0)
+        std = np.std(self.flat_chain, axis=0)
+        units = units or ["."] * len(self.param_names)
+        return list(zip(self.param_names, med, std, units))
+
+    def print_summary(self, units: list[str] | None = None):
+        print(f"{'':>18}|{'Median':>10} |{'Sd':>9} |{'Unit':>13}")
+        print("-" * 53)
+        for name, med, std, unit in self.summary_rows(units):
+            print(f"{name:>17} |{med:>9.3f} |{std:>8.3f} |{unit:>13}")
+
+
+def _diag_chain(c: np.ndarray) -> np.ndarray:
+    """A strided subset of at most _DIAG_WALKERS walker sequences: tau is
+    a property of the move, and 256 sequences are ample for split-R-hat."""
+    w = c.shape[1]
+    if w <= _DIAG_WALKERS:
+        return c
+    return c[:, :: max(1, w // _DIAG_WALKERS)][:, :_DIAG_WALKERS]
+
+
+def convergence(chain: np.ndarray, thin: int) -> tuple[float, float]:
+    """(worst integrated autocorrelation time in raw steps, tau-thinned
+    max split-R-hat) of a saved chain; (inf, inf) below 8 frames."""
+    if chain.shape[0] < 8:
+        return np.inf, np.inf
+    dc = _diag_chain(chain)
+    tau_saved = float(np.max(np.maximum(integrated_autocorr_time(dc), 1.0)))
+    return tau_saved * thin, convergence_rhat(dc, tau_saved=tau_saved)
+
+
+def run_fit(model, sampler: KernelSampler, theta0: np.ndarray,
+            lo: np.ndarray, hi: np.ndarray, param_names: list[str], *,
+            nwalkers: int = 30, nburn: int = 2000, nsteps: int = 5000,
+            nthin: int = 5, seed: int | None = None,
+            initspread: float = 0.1, prelim_iterations: int = 1000,
+            max_prelim_rounds: int = 10, n_temper_rungs: int = 0,
+            auto_extend: int = 0, target_rhat: float = 1.01,
+            verbose: bool = True) -> FitResult:
+    """Full fit of ``model`` (a ``JointModel``) through ``sampler``."""
+    dev = sampler.device
+    timings: dict = {}
+    rng = np.random.default_rng(0 if seed is None else seed)
+    if nsteps % nthin:
+        nsteps -= nsteps % nthin
+        if verbose:
+            print(f"note: nsteps rounded down to {nsteps} "
+                  f"(multiple of thin={nthin})")
+
+    # 1. MLE on the plain float64 likelihood, on the session's device
+    t0 = time.time()
+    if verbose:
+        print("MLE warm start...")
+    mle_theta, mle_ll = find_mle(model.log_like, theta0, lo, hi,
+                                 device=dev, verbose=verbose)
+    timings["mle_s"] = time.time() - t0
+
+    # 2. walker init
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(0, 2 ** 63 - 1)))
+    p0 = generate_init_positions(sampler.log_prob_batch, mle_theta, nwalkers,
+                                 gen, device=dev, spread=initspread)
+    timings["init_s"] = time.time() - t0
+
+    # 3. preliminary rounds (reference joxsz_funcs.py:589-598)
+    t0 = time.time()
+    best = mle_ll
+    rounds = 0
+    while rounds < max_prelim_rounds:
+        res = sampler.run(p0, prelim_iterations, rng, store_chain=False)
+        p0 = res.final_state[0]
+        newbest = float(res.final_state[1].max())
+        rounds += 1
+        if verbose:
+            print(f"preliminary round {rounds}: best ll {newbest:.2f}")
+        if newbest < best:
+            break
+        best = newbest
+    timings["prelim_s"] = time.time() - t0
+    timings["prelim_rounds"] = rounds
+
+    # 4. burn-in
+    t0 = time.time()
+    p1 = sampler.run(p0, nburn, rng, store_chain=False).final_state[0]
+    timings["burn_s"] = time.time() - t0
+
+    # 5. sampling
+    t0 = time.time()
+    swap_rounds = []
+    tempered = n_temper_rungs > 1
+    if tempered:
+        betas = default_betas(n_temper_rungs)
+
+        def sample(state):
+            r = sampler.run_tempered(state, betas, nsteps, rng, thin=nthin)
+            swap_rounds.append(r.swap_acceptance)
+            if verbose:
+                print("swap acceptance per rung boundary: "
+                      f"{np.round(r.swap_acceptance, 3)}")
+            return EnsembleResult(
+                chain=r.chain, log_prob=r.log_prob,
+                acceptance_fraction=r.acceptance_fraction[0],
+                final_state=r.final_state)
+    else:
+        def sample(state):
+            return sampler.run(state, nsteps, rng, thin=nthin)
+
+    res = sample(p1)
+    chains, lps, accs = [res.chain], [res.log_prob], [res.acceptance_fraction]
+    state = res.final_state[0]
+
+    # 6. convergence-driven extension
+    steps = nsteps
+    ext = 0
+    diag_s = 0.0
+    td = time.time()
+    tau, rh = convergence(res.chain, nthin)
+    diag_s += time.time() - td
+    while ext < auto_extend and not (steps >= 20 * tau and rh <= target_rhat):
+        if verbose:
+            need = (f"steps {steps} < 20*tau {20 * tau:.0f}"
+                    if steps < 20 * tau else f"split-Rhat {rh:.3f} > "
+                    f"{target_rhat}")
+            print(f"auto-extend round {ext + 1}/{auto_extend}: {need} — "
+                  f"sampling {nsteps} more steps")
+        res = sample(state)
+        state = res.final_state[0]
+        chains.append(res.chain)
+        lps.append(res.log_prob)
+        accs.append(res.acceptance_fraction)
+        steps += nsteps
+        ext += 1
+        td = time.time()
+        tau, rh = convergence(np.concatenate(chains), nthin)
+        diag_s += time.time() - td
+    timings["sample_s"] = time.time() - t0
+    timings["sample_diag_s"] = diag_s
+    timings["auto_extend_rounds"] = ext
+    timings["tau_steps"] = tau
+    timings["split_rhat"] = rh
+    if swap_rounds:
+        timings["swap_acceptance"] = np.mean(swap_rounds, axis=0).tolist()
+
+    chain = np.concatenate(chains)
+    acc = np.mean(accs, axis=0)
+    n_evals = (rounds * prelim_iterations + nburn
+               + steps * max(n_temper_rungs, 1)) * nwalkers
+    total_s = timings["prelim_s"] + timings["burn_s"] + timings["sample_s"]
+    timings["likelihood_evals"] = n_evals
+    timings["evals_per_s"] = n_evals / total_s if total_s > 0 else np.nan
+    if verbose:
+        print(f"acceptance fraction: {float(np.mean(acc)):.3f}")
+        print(f"throughput: {timings['evals_per_s']:.0f} likelihood evals/s "
+              f"over {n_evals} evals")
+        print(f"split-Rhat max {rh:.4f} (tau ~{tau:.0f} steps over {steps} "
+              "sampled steps)")
+        if rh > target_rhat:
+            print(f"WARNING: split-Rhat max {rh:.3f} > {target_rhat} — "
+                  "sequences disagree (more burn-in or steps needed)")
+    return FitResult(chain=chain, log_prob=np.concatenate(lps),
+                     acceptance_fraction=acc, mle_theta=mle_theta,
+                     mle_loglike=mle_ll, param_names=list(param_names),
+                     timings=timings,
+                     final_state=tuple(t.detach().cpu().numpy()
+                                       for t in res.final_state))

@@ -1,0 +1,140 @@
+"""Production sampler over the CUDA kernels.
+
+Torch counterpart of ``joxsz_tpu/sampling/kernel.py``: ``KernelSampler``
+runs the plain stretch-move ensemble (K = 1: prelim rounds and burn-in)
+and ``run_tempered_kernel`` the K-rung tempered ensemble (the sampling
+phase and its auto-extensions), both as a host loop of kernel launches
+per step — two half-steps (kernel 2) and K-1 swap boundaries (kernel 3)
+— with initial log-probs from kernel 1.  The cold-rung chain is copied
+every ``thin`` steps into a preallocated device tensor and fetched once.
+
+On CPU tensors the same loop runs the kernels' plain versions (the
+``--cpu`` path).  Each chunk of steps draws one Philox seed from the
+caller's numpy generator; the step counter restarts at 0 per chunk, as
+the TPU kernel's loop index did per call.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .stretch import EnsembleResult
+from .tempered import TemperedResult
+from ..ops.joint_kernel import JointConsts, joint_ll, pack_consts
+from ..ops.step_kernel import stretch_half, swap
+
+_CHUNK_STEPS = 100      # steps per Philox seed
+
+
+def chain_chunk_schedule(n_steps: int, thin: int) -> list[int]:
+    """Chunk sizes (steps) that cover ``n_steps``: each a multiple of
+    ``thin`` (so frames never straddle a seed) near ``_CHUNK_STEPS``."""
+    if n_steps % thin:
+        raise ValueError(f"n_steps ({n_steps}) must be a multiple of "
+                         f"thin ({thin})")
+    chunk = max(thin, (_CHUNK_STEPS // thin) * thin)
+    full, rem = divmod(n_steps, chunk)
+    return [chunk] * full + ([rem] if rem else [])
+
+
+def _seeds(rng: np.random.Generator, n: int) -> list[int]:
+    return [int(s) for s in rng.integers(0, 2 ** 31 - 1, size=n)]
+
+
+class KernelSampler:
+    """Kernel-driven sampler for one session; build with
+    :func:`make_kernel_sampler`."""
+
+    def __init__(self, consts: JointConsts):
+        self.consts = consts
+        self.device = consts.device
+
+    def log_prob_batch(self, thetas: torch.Tensor) -> torch.Tensor:
+        return joint_ll(thetas.to(self.device, torch.float32).contiguous(),
+                        self.consts)
+
+    def _steps(self, x, lp, acc, betas: np.ndarray, n_steps: int,
+               rng: np.random.Generator, thin: int, store_chain: bool):
+        """Advance state x (K, W, D), lp/acc (K, W) in place by
+        ``n_steps``; returns (chain, chain_lp, sacc) of the cold rung."""
+        K, W, D = x.shape
+        dev = self.device
+        beta = torch.as_tensor(np.asarray(betas, np.float64),
+                               dtype=torch.float32, device=dev)
+        db = [float(np.float32(betas[k] - betas[k + 1]))
+              for k in range(K - 1)]
+        sacc = torch.zeros(max(K - 1, 1), dtype=torch.int32, device=dev)
+        n_saved = n_steps // thin if store_chain else 0
+        chain = torch.empty((n_saved, W, D), dtype=torch.float32, device=dev)
+        chain_lp = torch.empty((n_saved, W), dtype=torch.float32,
+                               device=dev)
+        chunks = chain_chunk_schedule(n_steps, thin)
+        done = frame = 0
+        for n_inner, seed in zip(chunks, _seeds(rng, len(chunks))):
+            for i in range(n_inner):
+                stretch_half(x, lp, acc, beta, 0, seed, i, self.consts)
+                stretch_half(x, lp, acc, beta, 1, seed, i, self.consts)
+                for kk in range(K - 1):
+                    swap(x, lp, sacc, kk, seed, i, db[kk])
+                done += 1
+                if store_chain and done % thin == 0:
+                    chain[frame] = x[0]
+                    chain_lp[frame] = lp[0]
+                    frame += 1
+        return chain, chain_lp, sacc[:K - 1]
+
+    def run(self, p0: torch.Tensor, n_steps: int, rng: np.random.Generator,
+            thin: int = 1, store_chain: bool = True) -> EnsembleResult:
+        """Plain stretch-move ensemble from p0 (W, D)."""
+        W, D = p0.shape
+        if W % 2:
+            raise ValueError("need an even number of walkers")
+        x = p0.to(self.device, torch.float32).reshape(1, W, D).contiguous()
+        lp = self.log_prob_batch(x[0]).reshape(1, W)
+        acc = torch.zeros((1, W), dtype=torch.float32, device=self.device)
+        chain, chain_lp, _ = self._steps(x, lp, acc, np.ones(1), n_steps,
+                                         rng, thin, store_chain)
+        return EnsembleResult(
+            chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
+            acceptance_fraction=(acc[0] / max(n_steps, 1)).cpu().numpy(),
+            final_state=(x[0], lp[0]))
+
+    def run_tempered(self, p0: torch.Tensor, betas, n_steps: int,
+                     rng: np.random.Generator,
+                     thin: int = 1) -> TemperedResult:
+        return run_tempered_kernel(self, p0, betas, n_steps, rng, thin=thin)
+
+
+def run_tempered_kernel(sampler: KernelSampler, p0: torch.Tensor, betas,
+                        n_steps: int, rng: np.random.Generator,
+                        thin: int = 1) -> TemperedResult:
+    """K-rung tempered sampling from p0 (K, W, D), or (W, D) replicated
+    to every rung."""
+    betas = np.asarray(betas, dtype=np.float64)
+    K = betas.size
+    if K < 2:
+        raise ValueError(f"tempering needs at least 2 betas (got {K}); use "
+                         "KernelSampler.run for a single rung")
+    x = p0.to(sampler.device, torch.float32)
+    if x.dim() == 2:
+        x = x[None].expand(K, *x.shape)
+    x = x.contiguous()
+    _, W, D = x.shape
+    if W % 2:
+        raise ValueError("need an even number of walkers")
+    lp = sampler.log_prob_batch(x.reshape(K * W, D)).reshape(K, W)
+    acc = torch.zeros((K, W), dtype=torch.float32, device=sampler.device)
+    chain, chain_lp, sacc = sampler._steps(x, lp, acc, betas, n_steps, rng,
+                                           thin, store_chain=True)
+    n = max(n_steps, 1)
+    return TemperedResult(
+        chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
+        acceptance_fraction=(acc / n).cpu().numpy(),
+        swap_acceptance=sacc.cpu().numpy().astype(float) / float(n * W),
+        final_state=(x, lp))
+
+
+def make_kernel_sampler(sess) -> KernelSampler:
+    """The kernel sampler of a session, on the session's device."""
+    return KernelSampler(pack_consts(sess))

@@ -1,0 +1,100 @@
+"""Affine-invariant ensemble sampling (Goodman-Weare 2010), plain torch.
+
+Torch counterpart of ``joxsz_tpu/sampling/stretch.py`` for the pieces the
+flagless fit uses (reference emcee stack, joxsz_funcs.py:572-635):
+
+  * the ensemble splits into two fixed halves; each half-step moves one
+    half with partners drawn from the complementary half (emcee's
+    red-black scheme);
+  * z ~ g(z) prop. 1/sqrt(z) on [1/a, a] by inverse CDF of one uniform;
+  * acceptance log U < (ndim - 1) log z + beta (logP(Y) - logP(X)).
+
+``stretch_half_update`` is the move law the CUDA half-step kernel
+(``ops.step_kernel``) implements, in the kernel's float32 arithmetic; it
+takes its uniforms from the caller so both can be fed the same bits.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+INV24 = 2.0 ** -24
+
+
+@dataclasses.dataclass
+class EnsembleResult:
+    chain: np.ndarray                 # (n_saved, n_walkers, ndim)
+    log_prob: np.ndarray              # (n_saved, n_walkers)
+    acceptance_fraction: np.ndarray   # (n_walkers,)
+    final_state: tuple                # (positions, log_probs) tensors
+
+
+def uniforms(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (held in int64) -> float32 uniforms on [0, 1) from
+    the top 24 bits (``pallas_joint.py::_uniforms``)."""
+    return ((bits >> 8) & 0xFFFFFF).to(torch.float32) * INV24
+
+
+STRETCH_A = 2.0    # stretch scale a: z on [1/a, a]
+# (1/sqrt(a), sqrt(a) - 1/sqrt(a)) rounded to float32: z = (c1 + u c2)^2
+# (``pallas_joint.py::_stretch_z``)
+STRETCH_ZC = (float(np.float32(1.0 / np.sqrt(STRETCH_A))),
+              float(np.float32(np.sqrt(STRETCH_A) - 1.0 / np.sqrt(STRETCH_A))))
+
+
+def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
+                        lp_move: torch.Tensor, x_fixed: torch.Tensor,
+                        ndim: int, beta: torch.Tensor):
+    """Stretch-move update of one half of every rung.
+
+    ``u`` (..., H, >=3) float32 uniforms (z, partner, accept); ``x_move``
+    and ``x_fixed`` (..., H, D); ``lp_move`` (..., H) untempered; ``beta``
+    broadcastable to (..., H).  ``lp_fn`` maps (N, D) -> (N,).  Returns
+    ``(x_new, lp_new, accept, margin)`` with ``margin = log u - threshold``
+    (the decision's distance from its threshold)."""
+    H = x_fixed.shape[-2]
+    D = x_move.shape[-1]
+    t = STRETCH_ZC[0] + u[..., 0] * STRETCH_ZC[1]
+    z = t * t
+    pidx = torch.clamp((u[..., 1] * H).to(torch.long), max=H - 1)
+    xp = torch.gather(x_fixed, -2, pidx[..., None].expand(*pidx.shape, D))
+    y = xp + z[..., None] * (x_move - xp)
+    lp_y = lp_fn(y.reshape(-1, D)).reshape(lp_move.shape)
+    thr = (ndim - 1.0) * torch.log(z) + beta * (lp_y - lp_move)
+    margin = torch.log(u[..., 2]) - thr
+    accept = margin < 0
+    x_new = torch.where(accept[..., None], y, x_move)
+    lp_new = torch.where(accept, lp_y, lp_move)
+    return x_new, lp_new, accept, margin
+
+
+def generate_init_positions(log_prob_batch, theta0: np.ndarray,
+                            n_walkers: int, gen: torch.Generator, *,
+                            device, dtype=torch.float32, spread: float = 0.1,
+                            max_tries: int = 64) -> torch.Tensor:
+    """Multiplicative-Gaussian perturbations of a centre point, redrawn
+    until every walker has a finite log-probability (reference
+    ``_generateInitPars``, joxsz_funcs.py:548-570), with the JAX package's
+    additive floor ``spread * max(|theta_i|, 1e-2)`` so a zero coordinate
+    still spreads.  Draws come from ``gen`` (a generator on ``device``)."""
+    th0 = torch.as_tensor(np.asarray(theta0, dtype=np.float64),
+                          device=device)
+    D = th0.shape[0]
+    scale = spread * torch.clamp(th0.abs(), min=1e-2)
+    pos = torch.zeros((n_walkers, D), dtype=dtype, device=device)
+    ok = torch.zeros(n_walkers, dtype=torch.bool, device=device)
+    for _ in range(max_tries):
+        noise = torch.randn((n_walkers, D), generator=gen,
+                            dtype=torch.float64, device=device)
+        cand = (th0 + scale * noise).to(dtype)
+        fine = torch.isfinite(log_prob_batch(cand))
+        take = fine & ~ok
+        pos = torch.where(take[:, None], cand, pos)
+        ok = ok | fine
+        if bool(ok.all()):
+            return pos
+    raise RuntimeError(f"could not find {n_walkers} finite-likelihood "
+                       "walkers; check the starting point / priors")

@@ -1,0 +1,146 @@
+"""A synthetic joint SZ + X-ray dataset at the CL J1226.9+3332 shapes.
+
+The CL J1226 data files are not in the repository, so the port's chip
+check and its tests fit a dataset made here from a seed with numpy:
+
+  * SZ: step 2", z = 0.888, extent 5000 kpc -> 313 pressure radii and 86
+    map radii; ``n_sz`` flux points out to ``max_radius_arcsec`` with a
+    Gaussian beam of ``FWHM_ARCSEC`` and a smooth transfer function;
+  * X-ray: the ten CL J1226 bands x ``n_annuli`` annuli, with the bundled
+    count-rate table (NH = 0.0183) and the reference parametrisation's
+    13 thawed parameters.
+
+The counts and fluxes are the port's own float64 model at ``TRUTH`` plus
+Poisson / Gaussian noise, so a fit should recover ``TRUTH``.  Smaller
+``n_annuli``, ``n_sz``, ``max_radius_arcsec`` and ``extent_kpc`` give the
+small sessions the CPU tests use.
+"""
+
+from __future__ import annotations
+
+import pathlib
+
+import numpy as np
+import torch
+
+from .config import (JoXSZConfig, SZConfig, XrayConfig, MCMCConfig,
+                     CL1226_BANDS_EV)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+TABLE_PATH = REPO / "data" / "tables" / "cl1226_ctrate.npz"
+FWHM_ARCSEC = 17.6
+
+# the parameter values the synthetic data are drawn at (thawed names)
+TRUTH = {
+    "log(n_0)": -1.8, r"\beta": 0.75, "log(r_c)": 2.0, "log(r_s)": 2.9,
+    r"\epsilon": 3.0, "log(T_X/T_{SZ})": 0.02, "Z": 0.3, "P_0": 0.06,
+    "a": 1.3, "b": 4.3, "r_p": 450.0, "backscale": 1.0, "calibration": 1.0,
+}
+
+
+def _write_files(root: pathlib.Path, n_annuli: int, n_sz: int,
+                 max_radius_arcsec: float, bands, counts=None, flux=None):
+    (root / "SZ").mkdir(parents=True, exist_ok=True)
+    (root / "X").mkdir(parents=True, exist_ok=True)
+    r_sz = np.linspace(max_radius_arcsec / n_sz, max_radius_arcsec, n_sz)
+    err = 0.03 + 0.02 * r_sz / max_radius_arcsec
+    if flux is None:
+        flux = -np.ones(n_sz)
+    np.savetxt(root / "SZ" / "flux.dat", np.column_stack([r_sz, flux, err]))
+    wn = np.linspace(0.0, 0.6, 301)
+    tf = 0.95 * (1.0 - np.exp(-(wn / 0.012) ** 2))
+    np.savetxt(root / "SZ" / "tf.dat", np.column_stack([wn, tf]))
+    t_kev = np.arange(0.0, 41.0)
+    jy = -11.0 * (1.0 - 0.017 * t_kev + 1.2e-4 * t_kev ** 2)
+    np.savetxt(root / "SZ" / "conv.dat", np.column_stack([t_kev, jy]),
+               header="T_keV Jy_per_beam", comments="")
+
+    # annuli out to ~4 arcmin, widening outwards
+    edges = 4.0 * (np.arange(n_annuli + 1) / n_annuli) ** 1.4
+    mid = 0.5 * (edges[1:] + edges[:-1])
+    hw = 0.5 * (edges[1:] - edges[:-1])
+    geom_area = np.pi * (edges[1:] ** 2 - edges[:-1] ** 2)
+    for bi, (lo, hi) in enumerate(bands):
+        area = geom_area * (0.93 + 0.04 * np.cos(np.arange(n_annuli) + bi))
+        expo = np.full(n_annuli, 3.0e5)
+        back = np.full(n_annuli, 8.0e-5 * (hi - lo) / 1000.0)
+        c = (np.ones(n_annuli) if counts is None else counts[bi])
+        np.savetxt(root / "X" / f"fg_{lo:04d}_{hi:04d}.dat",
+                   np.column_stack([mid, hw, c, area, expo]))
+        np.savetxt(root / "X" / f"bg_{lo:04d}_{hi:04d}.dat",
+                   np.column_stack([mid, hw, np.zeros(n_annuli), area,
+                                    back]))
+    return err
+
+
+def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
+                            n_sz: int = 19, max_radius_arcsec: float = 118.0,
+                            extent_kpc: float = 5000.0,
+                            bands=CL1226_BANDS_EV) -> JoXSZConfig:
+    """Write the dataset under ``out_dir`` and return its config (the
+    default sizes are the CL J1226 shapes).  Deterministic in ``seed``."""
+    from .build import build_session
+    from .models.xray import predicted_counts
+    from .models.sz import sz_brightness
+
+    root = pathlib.Path(out_dir).resolve()
+    rng = np.random.default_rng(seed)
+    cfg = JoXSZConfig(
+        cluster_extent_kpc=extent_kpc,
+        sz=SZConfig(tf_file=str(root / "SZ" / "tf.dat"),
+                    flux_file=str(root / "SZ" / "flux.dat"),
+                    conversion_file=str(root / "SZ" / "conv.dat"),
+                    beam_approx=True, fwhm_beam_arcsec=FWHM_ARCSEC),
+        xray=XrayConfig(fg_template=str(root / "X" / "fg_%04i_%04i.dat"),
+                        bg_template=str(root / "X" / "bg_%04i_%04i.dat"),
+                        bands_eV=tuple(tuple(b) for b in bands),
+                        table_path=str(TABLE_PATH)),
+        mcmc=MCMCConfig(seed=seed),
+    )
+    # pass 1: placeholder data, to evaluate the model at TRUTH
+    err = _write_files(root, n_annuli, n_sz, max_radius_arcsec, bands)
+    sess = build_session(cfg, device="cpu")
+    p = sess.params
+    theta = torch.tensor([[TRUTH[n] for n in p.thawed]], dtype=torch.float64)
+    pars = p.unpack(theta)
+    m = sess.model
+    with torch.no_grad():
+        pred = predicted_counts(pars, m.xray_data, m.density,
+                                m.temperature)[0].numpy()
+        prof = sz_brightness(pars, m.sz_data, m.pressure, m.temperature)
+        model_flux = (prof @ m.sz_data.G.T)[0].numpy()
+    # pass 2: the data — Poisson counts, Gaussian SZ noise
+    counts = rng.poisson(pred).astype(float)
+    flux = model_flux + err * rng.standard_normal(n_sz)
+    _write_files(root, n_annuli, n_sz, max_radius_arcsec, bands,
+                 counts=counts, flux=flux)
+    return cfg
+
+
+def config_json(cfg: JoXSZConfig, path) -> str:
+    """Write ``cfg`` as the JSON file ``--config`` reads; returns the path."""
+    pathlib.Path(path).write_text(cfg.to_json())
+    return str(path)
+
+
+def main(argv=None):
+    """``python -m joxsz_torch.synth OUT_DIR [--seed N]``: write the CL
+    J1226-shaped dataset and ``OUT_DIR/cfg.json`` with the card's
+    production schedule (``MCMCConfig.converged_gpu``), the config a
+    flagless ``python -m joxsz_torch.run --config OUT_DIR/cfg.json``
+    fits."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    ap.add_argument("out_dir")
+    ap.add_argument("--seed", type=int, default=11)
+    args = ap.parse_args(argv)
+    cfg = write_synthetic_dataset(args.out_dir, args.seed)
+    cfg.mcmc = MCMCConfig.converged_gpu()
+    cfg.mcmc.seed = args.seed
+    cfg.save_dir = str(pathlib.Path(args.out_dir).resolve())
+    print(config_json(cfg, pathlib.Path(args.out_dir) / "cfg.json"))
+
+
+if __name__ == "__main__":
+    main()
