@@ -1,10 +1,13 @@
 """Chip check of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the CUDA kernels of ``joxsz_torch/csrc`` from source, holds each
-against its plain torch version on the card, drives the port's main path
-(``joxsz_torch.run.main``: MLE, prelim rounds, burn-in and W=1024 x K=4
-tempered sampling with auto-extend, the card's production schedule, on a
-synthetic CL J1226-shaped dataset) and checks its output.  Phases:
+against its plain torch version on the card, drives the port's paths on a
+synthetic CL J1226-shaped dataset — the flagless fit (``joxsz_torch.run.
+main``: MLE, prelim rounds, burn-in and W=1024 x K=4 tempered sampling
+with auto-extend, the card's production schedule), the survey fit
+(``joxsz_torch.survey.main --mock 4`` at W=1024, 1000 + 1000 steps) and
+the fused-likelihood fit (``run.main --fused --no-step-kernel``) — and
+checks their output.  Phases:
 
   1. card name / power limit, kernel build time;
   2. synthetic dataset from ``--seed``, session on ``cuda``, shapes;
@@ -24,7 +27,24 @@ synthetic CL J1226-shaped dataset) and checks its output.  Phases:
      acceptance in (0.1, 0.6), finite positive swap rates, every kernel
      launched;
   6. timings: CUDA events over back-to-back launches beside each
-     kernel's bound, and torch.profiler's device time per launch.
+     kernel's bound, and torch.profiler's device time per launch;
+  7. the fused SZ core vs its plain float32 version on 4096 rows drawn as
+     phase 3 draws them, with rows whose temperatures leave the
+     conversion table and rows holding a NaN: identical NaN masks,
+     finite values within rtol=2e-5 of |ll| plus atol=1e-3;
+  8. the cluster-grid half-step vs its plain version, step for step on
+     the same Philox bits at C=4, W=1024 for 5 steps (decisions,
+     positions, lp as in phase 4; stored lp equal to a fresh kernel-1
+     evaluation per cluster), and a negative control: the same
+     parameters under two clusters' constants give different
+     log-posteriors, and the kernel's stored lp of a cluster is not what
+     cluster 0's constants would give;
+  9. the survey path at full width and depth, launch counters set to 0
+     just before: acceptance in (0.1, 0.6) for every cluster, every
+     truth within 5 sd of its median, the cluster-grid kernel launched;
+ 10. the fused-likelihood path at full width and a cut depth (the plain
+     sampler loop is host-bound): finite lp, acceptance in (0.1, 0.6),
+     the SZ-core kernel launched.
 
 Prints the kernel JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``; exits non-zero, with no result line,
@@ -55,6 +75,10 @@ TIGHT_ATOL = 0.05
 MARGIN = 1e-3                   # decisions closer than this may differ
 W_SMOKE, K_SMOKE, STEPS_CMP, STEPS_CMP_K1 = 1024, 4, 20, 5
 B_LL = 4096
+C_SURVEY, STEPS_CMP_MC = 4, 5
+SZ_RTOL, SZ_ATOL = 2e-5, 1e-3   # SZ core vs plain f32: order of the sums
+# depth of the fused-likelihood path (burn, steps; prelim 100 x <= 2)
+FUSED_BURN, FUSED_STEPS = 200, 400
 
 
 def card_line() -> str:
@@ -369,6 +393,9 @@ def phase_steps(sess, c, seed: int) -> tuple[dict, dict, float, float]:
     half1_plain_ms = cuda_ms(lambda: half_step_plain(
         x1, lp1, acc1, beta1, 0, bits(0, 0, H, 4), lp_fn), reps=10)
     half1_bound, half1_by = half_step_bound(c, 1, W)
+    dev1_us, _ = device_time_per_launch(
+        lambda: stretch_half(x1, lp1, acc1, beta1, 0, step_seed, 0, c),
+        reps=100)
     xs, lps, accs = x.clone(), lp.clone(), acc.clone()
     half_ms = cuda_ms(lambda: stretch_half(xs, lps, accs, beta, 0,
                                            step_seed, 0, c), reps=50)
@@ -405,8 +432,10 @@ def phase_steps(sess, c, seed: int) -> tuple[dict, dict, float, float]:
     # both rows of D floats read and written and both lp written
     swap_bytes = 4 * (2 * W + swap_acc * (4 * D + 2))
     swap_bound = 1e3 * swap_bytes / PEAK_BYTES_S
-    print(f"[6] K=1 half-step {half1_ms:.4f} ms (plain {half1_plain_ms:.3f} "
-          f"ms, bound {half1_bound:.4f} ms) at W={W}")
+    dev1 = (f"{dev1_us['stretch_half_kernel']:.2f} us on the device"
+            if "stretch_half_kernel" in dev1_us else "device us not measured")
+    print(f"[6] K=1 half-step {half1_ms:.4f} ms ({dev1}; plain "
+          f"{half1_plain_ms:.3f} ms, bound {half1_bound:.4f} ms) at W={W}")
     print(f"[6] K={K} half-step {half_ms:.4f} ms (plain {half_plain_ms:.3f} "
           f"ms, bound {half_bound:.4f} ms); swap {swap_ms:.4f} ms (plain "
           f"{swap_plain_ms:.3f} ms, bound {swap_bound:.6f} ms at "
@@ -427,12 +456,297 @@ def phase_steps(sess, c, seed: int) -> tuple[dict, dict, float, float]:
     return k2, k3, step_ms, plain_step_ms
 
 
+def phase_sz_core(cfg, sess, seed: int) -> dict:
+    """Phase 7: kernel 5 (the fused SZ core) vs ``sz_core_plain``."""
+    import numpy as np
+    import torch
+    from joxsz_torch.io.readers import read_conversion_table, read_xy
+    from joxsz_torch.ops.sz_core import (make_sz_core, sz_core, sz_core_plain,
+                                         sz_core_flops, sz_core_bytes)
+
+    m = sess.model
+    sz = m.sz_data
+    core = make_sz_core(sess.sz_operator,
+                        read_conversion_table(cfg.sz.conversion_file),
+                        *read_xy(cfg.sz.flux_file, ncol=3)[1:], device="cuda")
+    c = core.consts
+    rows64 = ll_rows(sess, seed, B_LL)
+    with torch.no_grad():
+        pars = m.params.unpack(rows64)
+        pp = m.pressure(pars, sz.r_press_kpc)
+        t_prof = m.temperature.t_sz(pars, sz.r_press_kpc[:sz.sep])
+        t_all = torch.cat([(t_prof @ sz.w_T0)[:, None], t_prof], dim=1)
+        cal = pars["calibration"][:, 0]
+    pp, t_all, cal = (t.to(torch.float32).contiguous()
+                      for t in (pp, t_all, cal))
+    # temperatures past both ends of the table, and NaN inputs
+    t_all[3::16] *= 8.0
+    t_all[4::16] *= -0.5
+    t_all[5::64, 7] = float("nan")
+    pp[6::64, 11] = float("nan")
+    n_tab = int(((t_all > float(sz.conv_T[-1])) |
+                 (t_all < float(sz.conv_T[0]))).any(dim=1).sum())
+    k = sz_core(pp, t_all, cal, c)
+    p = sz_core_plain(pp, t_all, cal, c)
+    p64 = sz_core_plain(pp.double(), t_all.double(), cal.double(), c)
+    torch.cuda.synchronize()
+    k, p, p64 = (t.double().cpu().numpy() for t in (k, p, p64))
+    nan = np.isnan(p)
+    check(np.array_equal(np.isnan(k), nan), "SZ core: NaN rows differ "
+          "from the plain version")
+    check(int(nan.sum()) >= 2 * (B_LL // 64), f"only {int(nan.sum())} NaN "
+          "rows")
+    check(n_tab >= B_LL // 16, f"only {n_tab} rows leave the table")
+    fin = ~nan
+    check(np.all(np.isfinite(k[fin])), "SZ core: non-finite value")
+    err = float(np.max(np.abs(k[fin] - p[fin])))
+    rel = float(np.max(np.abs(k[fin] - p[fin]) / (np.abs(p[fin]) + 1e-30)))
+    err64 = float(np.max(np.abs(k[fin] - p64[fin])
+                         / (np.abs(p64[fin]) + 1e-30)))
+    check(np.allclose(k[fin], p[fin], rtol=SZ_RTOL, atol=SZ_ATOL),
+          f"SZ core vs plain f32: max abs err {err}, max rel err {rel}")
+    ms = cuda_ms(lambda: sz_core(pp, t_all, cal, c), reps=50)
+    plain_ms = cuda_ms(lambda: sz_core_plain(pp, t_all, cal, c), reps=10)
+    dev_us, _ = device_time_per_launch(lambda: sz_core(pp, t_all, cal, c),
+                                       reps=100)
+    flops = sz_core_flops(c) * B_LL
+    nbytes = sz_core_bytes(c, B_LL)
+    bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
+    dev = (f"{dev_us['sz_core_kernel']:.2f} us on the device"
+           if "sz_core_kernel" in dev_us else "device us not measured")
+    print(f"[7] SZ core on {B_LL} rows ({int(nan.sum())} NaN, {n_tab} "
+          f"outside the table): max |err| {err:.4g} (rel {rel:.3g}) vs "
+          f"plain f32, rel {err64:.3g} vs plain f64; {ms:.4f} ms ({dev}; "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms) on "
+          f"{torch.cuda.get_device_name(0)}")
+    return dict(name="sz_core", route="cuda",
+                source="joxsz_torch/csrc/sz_core.cu",
+                replaces="joxsz_tpu/ops/pallas_kernels.py:67",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=("bytes" if nbytes / PEAK_BYTES_S
+                          > flops / PEAK_F32_S else "operations"),
+                library_ms=None)
+
+
+def phase_multicluster(sess, c, seed: int) -> dict:
+    """Phase 8: kernel 4 (the cluster-grid half-step) vs its plain
+    version, and the different-data negative control."""
+    import numpy as np
+    import torch
+    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_flops,
+                                              pack_consts_stack)
+    from joxsz_torch.ops.multicluster_kernel import (
+        half_step_multicluster_plain, multicluster_bits, multicluster_ll,
+        stretch_half_multicluster)
+    from joxsz_torch.simulate import simulate_survey
+    from joxsz_torch.synth import TRUTH
+
+    C, W, D = C_SURVEY, W_SMOKE, c.ints["D"]
+    H = W // 2
+    dev = c.device
+    names = sess.params.thawed
+    truths = np.tile(np.array([TRUTH[k] for k in names]), (C, 1))
+    truths[:, names.index("P_0")] *= np.linspace(0.7, 1.3, C)
+    truths[:, names.index(r"\beta")] += np.linspace(-0.03, 0.03, C)
+    survey = simulate_survey(sess.model, truths,
+                             np.random.default_rng(seed + 2))
+    stack = pack_consts_stack(sess, survey.sz_stack, survey.xray_stack)
+    check(stack.buf.shape == (C, c.buf.numel()), "stacked constants shape")
+    step_seed = int(np.random.default_rng(seed + 3).integers(0, 2 ** 31 - 1))
+    rng = np.random.default_rng(seed + 4)
+    x = torch.tensor(truths[:, None] * (1 + 0.01 * rng.standard_normal(
+        (C, W, D))), dtype=torch.float32, device=dev).contiguous()
+    lp = multicluster_ll(x, stack)
+    check(bool(torch.isfinite(lp).all()), "non-finite start state")
+    acc = torch.zeros((C, W), dtype=torch.float32, device=dev)
+
+    # negative control 1: the same parameters under two clusters'
+    # constants give different log-posteriors
+    same = torch.stack([joint_ll(x[0], cc) for cc in stack.clusters])
+    gap = float((same[1:] - same[:1]).abs().min())
+    check(gap > 1.0, f"clusters' constants give the same lp (gap {gap})")
+
+    lp_k1 = lambda th: multicluster_ll(th, stack)           # noqa: E731
+    beta = torch.ones((C, 1), dtype=torch.float32, device=dev)
+    n_dec = n_near = 0
+    err_half = 0.0
+    for step in range(STEPS_CMP_MC):
+        for which in (0, 1):
+            b = multicluster_bits(step_seed, dev, step, which, C, H)
+            xp, lpp, _, accp, margin = half_step_multicluster_plain(
+                x, lp, acc, which, b, stack)
+            _, _, _, acc1, margin1 = half_step_multicluster_plain(
+                x, lp, acc, which, b, stack, lp_fn=lp_k1)
+            xk, lpk, acck = x.clone(), lp.clone(), acc.clone()
+            stretch_half_multicluster(xk, lpk, acck, which, step_seed, step,
+                                      stack)
+            mv = slice(which * H, (which + 1) * H)
+            acck_dec = (acck - acc)[:, mv] > 0.5
+            near = margin1.abs() < MARGIN
+            check(not bool(((acck_dec != acc1) & ~near).any()),
+                  f"cluster grid: half-step decisions differ (step {step}, "
+                  f"half {which})")
+            both = torch.isfinite(margin) & torch.isfinite(margin1)
+            shift = (margin - margin1).abs()
+            check(bool((shift[both] <= (beta * TIGHT_ATOL + MARGIN)
+                        .expand_as(shift)[both]).all()),
+                  "cluster grid: plain and kernel-1 likelihoods move a "
+                  f"threshold by {float(shift[both].max())}")
+            same_dec = (acck_dec == accp)
+            n_dec += int(same_dec.numel())
+            n_near += int((~same_dec).sum())
+            xs, xq = xk[:, mv][same_dec], xp[:, mv][same_dec]
+            check(bool(torch.all((xs - xq).abs()
+                                 <= 1e-5 * xq.abs() + 1e-12)),
+                  f"cluster grid: positions differ (step {step})")
+            lps, lpq = lpk[:, mv][same_dec], lpp[:, mv][same_dec]
+            fin = torch.isfinite(lpq)
+            check(torch.equal(torch.isfinite(lps), fin),
+                  "cluster grid: lp masks differ")
+            check(bool(torch.allclose(lps[fin], lpq[fin], rtol=RTOL,
+                                      atol=ATOL)), "cluster grid: lp differ")
+            err_half = max(err_half, float((lps[fin] - lpq[fin]).abs().max()))
+            x, lp, acc = xk, lpk, acck
+    torch.cuda.synchronize()
+    check(all(float(acc[k].mean()) > 0 for k in range(C)),
+          "cluster grid: a cluster accepted no move")
+    fresh = multicluster_ll(x, stack)
+    check(torch.equal(fresh, lp), "cluster grid: stored lp differs from a "
+          "fresh kernel-1 evaluation on each cluster's constants")
+    # negative control 2: under cluster 0's constants the other
+    # clusters' stored lp would be different numbers
+    wrong = torch.stack([joint_ll(x[k], stack.clusters[0])
+                         for k in range(C)])
+    gap2 = float((wrong[1:] - lp[1:]).abs().min())
+    check(gap2 > 1.0, "cluster grid: a cluster's lp equals what cluster "
+          f"0's constants give (gap {gap2})")
+
+    ms = cuda_ms(lambda: stretch_half_multicluster(
+        x, lp, acc, 0, step_seed, 0, stack), reps=50)
+    dev_us, _ = device_time_per_launch(lambda: stretch_half_multicluster(
+        x, lp, acc, 0, step_seed, 0, stack), reps=100)
+    b0 = multicluster_bits(step_seed, dev, 0, 0, C, H)
+    plain_ms = cuda_ms(lambda: half_step_multicluster_plain(
+        x, lp, acc, 0, b0, stack), reps=5)
+    rows = C * H
+    flops = joint_ll_flops(c) * rows
+    nbytes = 4 * (C * W * D + 3 * C * W + stack.buf.numel() + rows * (D + 2))
+    bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
+    dv = (f"{dev_us['stretch_half_kernel']:.2f} us on the device"
+          if "stretch_half_kernel" in dev_us else "device us not measured")
+    print(f"[8] {STEPS_CMP_MC} steps at C={C}, W={W}: {n_dec} half-step "
+          f"decisions, {n_near} near-threshold differences; max |lp err| "
+          f"{err_half:.4g}; stored lp == fresh kernel 1 per cluster; "
+          f"different-data gaps {gap:.1f} / {gap2:.1f}; {ms:.4f} ms ({dv}; "
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms)")
+    return dict(name="stretch_half_multicluster", route="cuda",
+                source="joxsz_torch/csrc/stretch_step.cu",
+                replaces="joxsz_tpu/ops/pallas_joint.py:1859",
+                max_abs_err=err_half, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound,
+                bound_by=("bytes" if nbytes / PEAK_BYTES_S
+                          > flops / PEAK_F32_S else "operations"),
+                library_ms=None)
+
+
+def all_launches() -> dict:
+    from joxsz_torch.ops.joint_kernel import joint_ll
+    from joxsz_torch.ops.multicluster_kernel import stretch_half_multicluster
+    from joxsz_torch.ops.step_kernel import stretch_half, swap
+    from joxsz_torch.ops.sz_core import sz_core
+
+    return {"joint_ll": joint_ll, "stretch_half": stretch_half,
+            "swap": swap,
+            "stretch_half_multicluster": stretch_half_multicluster,
+            "sz_core": sz_core}
+
+
+def zero_launches():
+    for fn in all_launches().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {k: fn.launches for k, fn in all_launches().items()}
+
+
+def phase_survey_path(tmp: str, path: str, seed: int) -> dict:
+    """Phase 9: ``joxsz_torch.survey --mock 4`` at W=1024, 1000 + 1000."""
+    import numpy as np
+    from joxsz_torch import survey
+
+    C, W = C_SURVEY, W_SMOKE
+    print(f"[9] survey path, full width and depth: --mock {C}, W={W}, "
+          "1000 burn + 1000 steps, thin 5")
+    zero_launches()
+    t0 = time.time()
+    res = survey.main(["--mock", str(C), "--config", path, "--walkers",
+                       str(W), "--seed", str(seed), "--out",
+                       f"{tmp}/survey_summary.json"])
+    wall = time.time() - t0
+    launches = read_launches()
+    acc = res.acceptance.mean(axis=1)
+    pulls = np.abs(res.medians - res.truths) / np.maximum(res.sds, 1e-12)
+    t = res.timings
+    evals = C * W * 2000
+    print(f"[9] survey path in {wall:.1f} s: setup_s {t['setup_s']:.2f}, "
+          f"sampling_s {t['sampling_s']:.2f} ({evals / t['sampling_s']:.0f} "
+          f"evals/s), acceptance {np.round(acc, 3).tolist()}, largest pull "
+          f"{float(pulls.max()):.2f} sd, launches {launches}")
+    check(res.chain.shape == (200, C, W, 13) and np.all(np.isfinite(
+        res.chain)), f"survey chain shape {res.chain.shape} or non-finite")
+    check(np.all(np.isfinite(res.log_prob)), "non-finite survey log-probs")
+    check(bool(np.all((acc > 0.1) & (acc < 0.6))),
+          f"survey acceptance {acc} outside (0.1, 0.6)")
+    check(bool(np.all(pulls < 5.0)), f"a truth lies {float(pulls.max()):.1f} "
+          "sd from its median")
+    check(launches["stretch_half_multicluster"] == 2 * 2000
+          and launches["joint_ll"] > 0, f"survey launches {launches}")
+    check(launches["swap"] == 0, "the swap kernel ran on cluster-grid state")
+    summary = json.loads(open(f"{tmp}/survey_summary.json").read())
+    check(len(summary["clusters"]) == C, "survey summary")
+    return launches
+
+
+def phase_fused_path(cfg, tmp: str, seed: int) -> dict:
+    """Phase 10: ``run --fused --no-step-kernel`` at W=1024, cut depth."""
+    import numpy as np
+    from joxsz_torch import run
+    from joxsz_torch.config import MCMCConfig
+    from joxsz_torch.synth import config_json
+
+    cfg.mcmc = MCMCConfig(nwalkers=W_SMOKE, seed=seed)
+    cfg.save_dir = tmp
+    path = config_json(cfg, f"{tmp}/fused.json")
+    print(f"[10] fused-likelihood path, full width, depth cut (host-bound "
+          f"plain sampler loop): W={W_SMOKE}, K=1, prelim 100 x <= 2, burn "
+          f"{FUSED_BURN}, steps {FUSED_STEPS} (--quick)")
+    zero_launches()
+    t0 = time.time()
+    res = run.main(["--config", path, "--quick", "--fused",
+                    "--no-step-kernel"])
+    wall = time.time() - t0
+    launches = read_launches()
+    acc = float(np.mean(res.acceptance_fraction))
+    t = res.timings
+    print(f"[10] fused path in {wall:.1f} s (MLE {t['mle_s']:.1f} s, "
+          f"sampling {t['prelim_s'] + t['burn_s'] + t['sample_s']:.1f} s, "
+          f"{t['evals_per_s']:.0f} evals/s): acceptance {acc:.3f}, "
+          f"launches {launches}")
+    check(res.chain.shape == (FUSED_STEPS // 5, W_SMOKE, 13)
+          and np.all(np.isfinite(res.chain)), "fused chain")
+    check(np.all(np.isfinite(res.log_prob)), "non-finite fused log-probs")
+    check(0.1 < acc < 0.6, f"fused acceptance {acc} outside (0.1, 0.6)")
+    check(launches["sz_core"] > 0, f"fused launches {launches}")
+    check(launches["stretch_half"] == 0 and launches["joint_ll"] == 0,
+          f"the step kernels ran with --no-step-kernel: {launches}")
+    return launches
+
+
 def phase_main_path(cfg, tmp: str, seed: int) -> dict:
     import numpy as np
     from joxsz_torch import run
     from joxsz_torch.config import MCMCConfig
-    from joxsz_torch.ops.joint_kernel import joint_ll
-    from joxsz_torch.ops.step_kernel import stretch_half, swap
     from joxsz_torch.synth import config_json
 
     # the card's production schedule at full width (W=1024 x K=4, full
@@ -447,13 +761,11 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
           f"{m.prelim_iterations}, burn {m.nburn}, steps {m.nsteps}, "
           f"auto-extend {m.auto_extend}")
     path = config_json(cfg, f"{tmp}/smoke.json")
-    joint_ll.launches = stretch_half.launches = swap.launches = 0
+    zero_launches()
     t0 = time.time()
     res = run.main(["--config", path])
     wall = time.time() - t0
-    launches = {"joint_ll": joint_ll.launches,
-                "stretch_half": stretch_half.launches,
-                "swap": swap.launches}
+    launches = read_launches()
     acc = float(np.mean(res.acceptance_fraction))
     swaps = res.timings.get("swap_acceptance", [])
     print(f"[5] main path in {wall:.1f} s: acceptance {acc:.3f}, swap rates "
@@ -462,12 +774,12 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
     check(len(swaps) == K_SMOKE - 1
           and all(math.isfinite(s) and s > 0 for s in swaps),
           f"swap rates {swaps}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in ("joint_ll", "stretch_half", "swap")),
           f"a kernel was not launched on the main path: {launches}")
     check(np.all(np.isfinite(res.chain)) and res.chain.shape[1:] == (
         W_SMOKE, 13), f"chain shape {res.chain.shape} or non-finite values")
     check(np.all(np.isfinite(res.log_prob)), "non-finite chain log-probs")
-    return launches
+    return launches, path
 
 
 def main() -> int:
@@ -492,13 +804,19 @@ def main() -> int:
         cfg, sess, c = phase_session(tmp, args.seed)
         k1 = phase_joint(sess, c, args.seed)
         k2, k3, step_ms, plain_step_ms = phase_steps(sess, c, args.seed)
-        launches = phase_main_path(cfg, tmp, args.seed)
+        k5 = phase_sz_core(cfg, sess, args.seed)
+        k4 = phase_multicluster(sess, c, args.seed)
+        del sess, c
+        launches, path = phase_main_path(cfg, tmp, args.seed)
         for k in (k1, k2, k3):
             k["launches"] = launches[k["name"]]
+        k4["launches"] = phase_survey_path(tmp, path, args.seed)[k4["name"]]
+        k5["launches"] = phase_fused_path(cfg, tmp, args.seed)[k5["name"]]
         order = ("name", "route", "source", "replaces", "launches",
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")
-        kernels = [{key: k[key] for key in order} for k in (k1, k2, k3)]
+        kernels = [{key: k[key] for key in order}
+                   for k in (k1, k2, k3, k4, k5)]
         print(f"tempered step W={W_SMOKE} K={K_SMOKE}: "
               f"{1e3 * step_ms:.1f} us (plain {1e3 * plain_step_ms:.1f} "
               f"us) on {card}")

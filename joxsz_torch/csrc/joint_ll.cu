@@ -18,7 +18,7 @@ __global__ void joint_ll_kernel(const float* __restrict__ theta, int B,
     th[idx] = d < c.D ? theta[(size_t)row * c.D + d] : 0.0f;
   }
   __syncthreads();
-  joint_ll_tile(c, th, res, sm);
+  joint_ll_tile(c, 0, th, res, sm);
   if (threadIdx.x < TILE_WALKERS && row0 + threadIdx.x < B)
     out[row0 + threadIdx.x] = res[threadIdx.x];
 }

@@ -1,6 +1,7 @@
 // Shared device code of the joxsz_torch kernels: the joint log-posterior of
-// a tile of walkers (kernel 1, and kernel 2's proposals), Philox-4x32-10,
-// and block reductions.
+// a tile of walkers (kernel 1, and the proposals of the half-step kernel in
+// its tempered and its cluster-grid form), the SZ chain on its own (the
+// fused SZ core), Philox-4x32-10, and block reductions.
 //
 // Replaces the body ll_body of joxsz_tpu/ops/pallas_joint.py (specialised
 // by _build_spec): gNFW pressure + single Vikhlinin density + UPP
@@ -15,6 +16,10 @@
 // point / cell, never by the walker's slot in the tile, so a walker's value
 // does not depend on which tile or slot it lands in: kernel 1 and kernel 2
 // give bit-identical log-posteriors for the same parameters.
+//
+// Every array pointer is read as c.a[X] + coff: coff is 0 for one cluster
+// and cluster * stride floats when the block works on one cluster of a
+// stacked constants buffer (all clusters share offsets, sizes and scalars).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,28 +30,28 @@
 #define JT_WARPS (JT_THREADS / 32)
 #define MAX_D 16
 #define N_ROLES 13
-#define N_ARRAYS 24
+#define N_ARRAYS 25
 #define N_INTS 11
-#define N_FLOATS 8
+#define N_FLOATS 7
 
-// thawed-parameter roles (ops/joint_kernel.py::ROLES)
+// thawed-parameter roles (ops/consts_layout.py::ROLES)
 enum Role { R_LOGN0, R_BETA, R_LOGRC, R_LOGRS, R_EPS, R_TRATIO, R_Z, R_P0,
             R_A, R_B, R_RP, R_BSCALE, R_CAL };
-// packed arrays (ops/joint_kernel.py::_ARRAYS)
+// packed arrays (ops/consts_layout.py::ARRAYS)
 enum Arr { A_R, A_LNR, A_LT, A_GT, A_FLUX, A_WRES, A_WT0, A_WINT, A_MIDR,
            A_LNMID, A_LR0, A_LR1, A_VOLST, A_SIGF, A_BGF, A_CMF, A_CTF, A_LO,
-           A_HI, A_WG, A_MU, A_CONVT, A_CONVV, A_CONVS };
+           A_HI, A_WG, A_MU, A_CONVT, A_CONVV, A_CONVS, A_MUI };
 
 struct LLConsts {
   const float* a[N_ARRAYS];
   int n_press, sep, n_pix, n_data, n_sh, n_ann, n_band, nT, n_conv, D,
       mass_veto;
   int cix[N_ROLES];
-  float c_gnfw, alpha, gamma, mass_C, t0g, inv_dtg, pos_hi, mui;
+  float c_gnfw, alpha, gamma, mass_C, t0g, inv_dtg, pos_hi;
 };
 
 // iv: N_INTS ints, N_ROLES column indices, N_ARRAYS float offsets into buf;
-// fv: N_FLOATS floats (ops/joint_kernel.py::JointConsts.launch_params)
+// fv: N_FLOATS floats (ops/consts_layout.py::LaunchParams)
 static inline LLConsts make_consts(const float* buf, const int* iv,
                                    const float* fv) {
   LLConsts c;
@@ -57,7 +62,7 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
   for (int i = 0; i < N_ROLES; ++i) c.cix[i] = iv[N_INTS + i];
   for (int i = 0; i < N_ARRAYS; ++i) c.a[i] = buf + iv[N_INTS + N_ROLES + i];
   float* fl[N_FLOATS] = {&c.c_gnfw, &c.alpha, &c.gamma, &c.mass_C, &c.t0g,
-                         &c.inv_dtg, &c.pos_hi, &c.mui};
+                         &c.inv_dtg, &c.pos_hi};
   for (int i = 0; i < N_FLOATS; ++i) *fl[i] = fv[i];
   return c;
 }
@@ -140,11 +145,73 @@ __device__ inline float gnfw_press(const LLConsts& c, const float* s,
   return s[S_P0] * expf(-c.c_gnfw * lnx - s[S_BCA] * ln1xa);
 }
 
+// The SZ chain of a tile: raw = pp @ L^T, the temperature-dependent y->mJy
+// lerp (segment index = number of interior knots <= t, so both end segments
+// extrapolate) x calibration, model = prof @ G^T, and the sum over data
+// points of ((flux - model) * w)^2 -> chi[w * chi_stride].  press: WT x
+// n_press pressures in shared memory.  The temperature of walker w at map
+// radius p is t0[w * t0_stride] for p == 0 and tp[w * tp_stride + p - 1]
+// above; its calibration is cal[w * cal_stride].  prof: WT x n_pix floats of
+// shared memory; red: JT_WARPS * WT.  All threads of the block call it.
+__device__ inline void sz_chain_tile(const LLConsts& c, size_t coff,
+                                     const float* press, const float* t0,
+                                     int t0_stride, const float* tp,
+                                     int tp_stride, const float* cal,
+                                     int cal_stride, float* prof, float* red,
+                                     float* chi, int chi_stride) {
+  const int WT = TILE_WALKERS;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  const int NP = c.n_press, PIX = c.n_pix;
+  {
+    const float* LT = c.a[A_LT] + coff;
+    const float* cT = c.a[A_CONVT] + coff;
+    const float* cV = c.a[A_CONVV] + coff;
+    const float* cS = c.a[A_CONVS] + coff;
+    for (int p = tid; p < PIX; p += nth) {
+      float raw[WT];
+      for (int w = 0; w < WT; ++w) raw[w] = 0.f;
+      for (int k = 0; k < NP; ++k) {
+        float l = LT[k * PIX + p];
+        for (int w = 0; w < WT; ++w) raw[w] += press[w * NP + k] * l;
+      }
+      for (int w = 0; w < WT; ++w) {
+        float t = (p == 0) ? t0[w * t0_stride]
+                  : (p <= c.sep ? tp[w * tp_stride + p - 1] : 1.0f);
+        int ci = 0;
+        for (int q = 1; q < c.n_conv - 1; ++q) ci += (t >= cT[q]) ? 1 : 0;
+        float conv = cV[ci] + (t - cT[ci]) * cS[ci];
+        prof[w * PIX + p] = raw[w] * conv * cal[w * cal_stride];
+      }
+    }
+  }
+  __syncthreads();
+  {
+    const float* GT = c.a[A_GT] + coff;
+    const float* fl = c.a[A_FLUX] + coff;
+    const float* wr = c.a[A_WRES] + coff;
+    float chi2[WT];
+    for (int w = 0; w < WT; ++w) chi2[w] = 0.f;
+    for (int d = tid; d < c.n_data; d += nth) {
+      float model[WT];
+      for (int w = 0; w < WT; ++w) model[w] = 0.f;
+      for (int p = 0; p < PIX; ++p) {
+        float g = GT[p * c.n_data + d];
+        for (int w = 0; w < WT; ++w) model[w] += prof[w * PIX + p] * g;
+      }
+      for (int w = 0; w < WT; ++w) {
+        float res = (fl[d] - model[w]) * wr[d];
+        chi2[w] += res * res;
+      }
+    }
+    block_sum(chi2, red, chi, chi_stride);
+  }
+}
+
 // Joint log-posterior of the TILE_WALKERS parameter rows in th (shared
 // memory, row stride MAX_D) -> out[w] (shared memory).  All threads of the
 // block must call it.  sm: tile_smem_floats(c) floats of shared memory.
-__device__ void joint_ll_tile(const LLConsts& c, const float* th, float* out,
-                              float* sm) {
+__device__ void joint_ll_tile(const LLConsts& c, size_t coff, const float* th,
+                              float* out, float* sm) {
   const int WT = TILE_WALKERS;
   const int tid = threadIdx.x, nth = blockDim.x;
   const int NP = c.n_press, PIX = c.n_pix, NS = c.n_sh, NB = c.n_band;
@@ -163,10 +230,10 @@ __device__ void joint_ll_tile(const LLConsts& c, const float* th, float* out,
   if (tid < WT) {
     const float* t = th + tid * MAX_D;
     float* s = sc + tid * 24;
-    const float* lo = c.a[A_LO];
-    const float* hi = c.a[A_HI];
-    const float* wg = c.a[A_WG];
-    const float* mu = c.a[A_MU];
+    const float* lo = c.a[A_LO] + coff;
+    const float* hi = c.a[A_HI] + coff;
+    const float* wg = c.a[A_WG] + coff;
+    const float* mu = c.a[A_MU] + coff;
     bool inside = true;
     float g = 0.f;
     for (int d = 0; d < c.D; ++d) {
@@ -200,8 +267,8 @@ __device__ void joint_ll_tile(const LLConsts& c, const float* th, float* out,
   __syncthreads();
 
   // ---- pressure, T_SZ and HSE mass on the pressure grid -----------------
-  const float* r = c.a[A_R];
-  const float* lnr = c.a[A_LNR];
+  const float* r = c.a[A_R] + coff;
+  const float* lnr = c.a[A_LNR] + coff;
   for (int idx = tid; idx < WT * NP; idx += nth) {
     int w = idx / NP, k = idx - w * NP;
     const float* s = sc + w * 24;
@@ -219,8 +286,8 @@ __device__ void joint_ll_tile(const LLConsts& c, const float* th, float* out,
   {
     float t0p[WT], ip[WT];
     for (int w = 0; w < WT; ++w) { t0p[w] = 0.f; ip[w] = 0.f; }
-    const float* wT0 = c.a[A_WT0];
-    const float* wint = c.a[A_WINT];
+    const float* wT0 = c.a[A_WT0] + coff;
+    const float* wint = c.a[A_WINT] + coff;
     for (int k = tid; k < NP; k += nth) {
       for (int w = 0; w < WT; ++w) {
         const float* m = mm + w * NP;
@@ -241,60 +308,16 @@ __device__ void joint_ll_tile(const LLConsts& c, const float* th, float* out,
     block_sum(ip, red, sc + S_INTEG, 24);
   }
 
-  // ---- SZ: raw = pp @ L^T, y->mJy lerp x calibration ---------------------
-  {
-    const float* LT = c.a[A_LT];
-    const float* cT = c.a[A_CONVT];
-    const float* cV = c.a[A_CONVV];
-    const float* cS = c.a[A_CONVS];
-    for (int p = tid; p < PIX; p += nth) {
-      float raw[WT];
-      for (int w = 0; w < WT; ++w) raw[w] = 0.f;
-      for (int k = 0; k < NP; ++k) {
-        float l = LT[k * PIX + p];
-        for (int w = 0; w < WT; ++w) raw[w] += press[w * NP + k] * l;
-      }
-      for (int w = 0; w < WT; ++w) {
-        const float* s = sc + w * 24;
-        float t = (p == 0) ? s[S_T0]
-                  : (p <= c.sep ? tsz[w * NP + p - 1] : 1.0f);
-        int ci = 0;
-        for (int q = 1; q < c.n_conv - 1; ++q) ci += (t >= cT[q]) ? 1 : 0;
-        float conv = cV[ci] + (t - cT[ci]) * cS[ci];
-        prof[w * PIX + p] = raw[w] * conv * s[S_CAL];
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- SZ: model = prof @ G^T, chi^2 --------------------------------------
-  {
-    const float* GT = c.a[A_GT];
-    const float* fl = c.a[A_FLUX];
-    const float* wr = c.a[A_WRES];
-    float chi[WT];
-    for (int w = 0; w < WT; ++w) chi[w] = 0.f;
-    for (int d = tid; d < c.n_data; d += nth) {
-      float model[WT];
-      for (int w = 0; w < WT; ++w) model[w] = 0.f;
-      for (int p = 0; p < PIX; ++p) {
-        float g = GT[p * c.n_data + d];
-        for (int w = 0; w < WT; ++w) model[w] += prof[w * PIX + p] * g;
-      }
-      for (int w = 0; w < WT; ++w) {
-        float res = (fl[d] - model[w]) * wr[d];
-        chi[w] += res * res;
-      }
-    }
-    block_sum(chi, red, sc + S_CHI2, 24);
-  }
+  // ---- SZ: raw = pp @ L^T, lerp x calibration, model = prof @ G^T, chi^2 --
+  sz_chain_tile(c, coff, press, sc + S_T0, 24, tsz, NP, sc + S_CAL, 24, prof,
+                red, sc + S_CHI2, 24);
 
   // ---- X-ray: midpoint profiles, two-tap count-rate lookup ---------------
   {
-    const float* midr = c.a[A_MIDR];
-    const float* lnmid = c.a[A_LNMID];
-    const float* LR0 = c.a[A_LR0];
-    const float* LR1 = c.a[A_LR1];
+    const float* midr = c.a[A_MIDR] + coff;
+    const float* lnmid = c.a[A_LNMID] + coff;
+    const float* LR0 = c.a[A_LR0] + coff;
+    const float* LR1 = c.a[A_LR1] + coff;
     const float NaN = __int_as_float(0x7fc00000);
     for (int idx = tid; idx < WT * NS; idx += nth) {
       int w = idx / NS, j = idx - w * NS;
@@ -332,11 +355,11 @@ __device__ void joint_ll_tile(const LLConsts& c, const float* th, float* out,
 
   // ---- X-ray: projection, prediction, positivity veto, Cash -------------
   {
-    const float* V = c.a[A_VOLST];
-    const float* sigf = c.a[A_SIGF];
-    const float* bgf = c.a[A_BGF];
-    const float* cmf = c.a[A_CMF];
-    const float* ctf = c.a[A_CTF];
+    const float* V = c.a[A_VOLST] + coff;
+    const float* sigf = c.a[A_SIGF] + coff;
+    const float* bgf = c.a[A_BGF] + coff;
+    const float* cmf = c.a[A_CMF] + coff;
+    const float* ctf = c.a[A_CTF] + coff;
     const int NA = c.n_ann, cells = NB * NA;
     float cash[WT];
     for (int w = 0; w < WT; ++w) cash[w] = 0.f;
@@ -367,7 +390,7 @@ __device__ void joint_ll_tile(const LLConsts& c, const float* th, float* out,
     float total = s[S_TOTAL];
     if (flags[2 * tid]) total = -INF;
     total = total - 0.5f * s[S_CHI2];
-    float di = s[S_INTEG] - c.mui;
+    float di = s[S_INTEG] - (c.a[A_MUI] + coff)[0];
     total = total - 0.5f * di * di;
     total = total + (flags[2 * tid + 1] ? -INF : s[S_CASH]);
     out[tid] = isnan(total) ? -INF : total;

@@ -1,14 +1,23 @@
-// Kernels 2 and 3: the tempered stretch-move sampler, one launch per
-// half-step and one per swap boundary.
+// Kernels 2, 3 and 4: the stretch-move samplers, one launch per half-step
+// and one per swap boundary.
 //
-// Kernel 2 (stretch_half_kernel) replaces the half-step of
-// joxsz_tpu/ops/pallas_joint.py::make_step_kernel (K = 1) and
-// ::make_tempered_step_kernel (K rungs): every walker of the moving half of
-// every rung draws Philox bits keyed on (seed, step, half, row), takes the
-// stretch factor z (_stretch_z), a uniform partner in its rung's other half
-// (the one-hot law), proposes y = x_p + z (x - x_p), evaluates the joint
-// log-posterior through the shared joint_ll_tile, and accepts by
-// _gw_accept: log u < (D-1) log z + beta (lp_y - lp).
+// stretch_half_kernel is the half-step of three TPU kernels of
+// joxsz_tpu/ops/pallas_joint.py: make_step_kernel (G = 1 group, the plain
+// sampler), make_tempered_step_kernel (G = K rungs that share one set of
+// constants and differ in beta: kernel 2) and make_multicluster_step_kernel
+// (G = C clusters with beta = 1 that differ in their constants: kernel 4,
+// per_cluster != 0).  The state's leading axis indexes the group, and a
+// block, which holds a tile of one group's moving half (grid: tile x group),
+// reads that group's beta or, in the cluster grid, that cluster's constants
+// at buf + group * cstride.  Every walker of the moving half draws Philox
+// bits, takes the stretch factor z (_stretch_z), a uniform partner in its
+// own group's other half (the one-hot law), proposes y = x_p + z (x - x_p),
+// evaluates the joint log-posterior through the shared joint_ll_tile, and
+// accepts by _gw_accept: log u < (D-1) log z + beta (lp_y - lp).  Philox is
+// keyed on (seed, 0) with counter (g*H + i, step, half, 0) for rungs and
+// (i, step, half, cluster) for clusters, so a cluster's stream does not
+// depend on how many clusters there are.  The swap kernel never runs on
+// cluster-grid state.
 //
 // Kernel 3 (swap_kernel) replaces the swap sweep of
 // make_tempered_step_kernel (pallas_joint.py:2383-2432) for one boundary
@@ -17,7 +26,7 @@
 // on untempered lp, and exchanges the rows and lp; accept counts stay with
 // the slot (they are a separate tensor).  sacc[kk] counts accepted swaps.
 //
-// State layout: x (K, W, D), lp (K, W), acc (K, W), rung-major, float32.
+// State layout: x (G, W, D), lp (G, W), acc (G, W), group-major, float32.
 // The decision arithmetic uses __f*_rn so it is never contracted into an
 // FMA and rounds exactly as the plain torch version does.
 #include "joint_ll.cuh"
@@ -25,9 +34,10 @@
 __global__ void stretch_half_kernel(float* __restrict__ x,
                                     float* __restrict__ lp,
                                     float* __restrict__ acc,
-                                    const float* __restrict__ beta, int K,
-                                    int W, int which, uint32_t seed, int step,
-                                    float zc1, float zc2, LLConsts c) {
+                                    const float* __restrict__ beta, int W,
+                                    int which, uint32_t seed, int step,
+                                    float zc1, float zc2, int per_cluster,
+                                    size_t cstride, LLConsts c) {
   extern __shared__ float smem[];
   const int WT = TILE_WALKERS;
   float* y = smem;                         // WT x MAX_D proposals
@@ -38,14 +48,19 @@ __global__ void stretch_half_kernel(float* __restrict__ x,
   int* pslot = slot + WT;                  // WT partner slots
   int* accf = pslot + WT;                  // WT accept flags
   float* sm = (float*)(accf + WT);
-  const int H = W / 2, R = K * H, D = c.D, tid = threadIdx.x;
-  const int row0 = blockIdx.x * WT;
+  const int H = W / 2, D = c.D, tid = threadIdx.x;
+  const int g = blockIdx.y, i0 = blockIdx.x * WT;
+  const size_t coff = per_cluster ? (size_t)g * cstride : 0;
+  const float bg = beta ? beta[g] : 1.0f;
   if (tid < WT) {
-    int row = row0 + tid < R ? row0 + tid : row0;
-    int k = row / H, i = row - k * H;
+    int i = i0 + tid < H ? i0 + tid : i0;
     uint32_t b[4];
-    philox4x32_10((uint32_t)row, (uint32_t)step, (uint32_t)which, 0u, seed,
-                  0u, b);
+    if (per_cluster)
+      philox4x32_10((uint32_t)i, (uint32_t)step, (uint32_t)which,
+                    (uint32_t)g, seed, 0u, b);
+    else
+      philox4x32_10((uint32_t)(g * H + i), (uint32_t)step, (uint32_t)which,
+                    0u, seed, 0u, b);
     float u0 = bits_to_uniform(b[0]);
     float u1 = bits_to_uniform(b[1]);
     float t = __fadd_rn(zc1, __fmul_rn(u0, zc2));
@@ -53,8 +68,8 @@ __global__ void stretch_half_kernel(float* __restrict__ x,
     ru[tid] = bits_to_uniform(b[2]);
     int pidx = (int)__fmul_rn(u1, (float)H);
     pidx = pidx < H - 1 ? pidx : H - 1;
-    slot[tid] = k * W + which * H + i;
-    pslot[tid] = k * W + (1 - which) * H + pidx;
+    slot[tid] = g * W + which * H + i;
+    pslot[tid] = g * W + (1 - which) * H + pidx;
   }
   __syncthreads();
   for (int idx = tid; idx < WT * MAX_D; idx += blockDim.x) {
@@ -68,15 +83,14 @@ __global__ void stretch_half_kernel(float* __restrict__ x,
     y[idx] = v;
   }
   __syncthreads();
-  joint_ll_tile(c, y, lpy, sm);
+  joint_ll_tile(c, coff, y, lpy, sm);
   if (tid < WT) {
-    int row = row0 + tid;
     int ok = 0;
-    if (row < R) {
+    if (i0 + tid < H) {
       int s = slot[tid];
       float lm = lp[s];
       float thr = __fadd_rn(__fmul_rn((float)(D - 1), logf(rz[tid])),
-                            __fmul_rn(beta[row / H], __fsub_rn(lpy[tid], lm)));
+                            __fmul_rn(bg, __fsub_rn(lpy[tid], lm)));
       ok = logf(ru[tid]) < thr;
       if (ok) {
         lp[s] = lpy[tid];
@@ -120,10 +134,14 @@ __global__ void swap_kernel(float* __restrict__ x, float* __restrict__ lp,
   }
 }
 
+// G groups of W walkers: K rungs (per_cluster == 0, beta (K,), one set of
+// constants) or C clusters (per_cluster != 0, beta null, cluster g's
+// constants at buf + g * cstride floats).
 extern "C" int launch_stretch_half(float* x, float* lp, float* acc,
-                                   const float* beta, int K, int W,
+                                   const float* beta, int G, int W,
                                    int which, unsigned int seed, int step,
-                                   float zc1, float zc2, const float* buf,
+                                   float zc1, float zc2, int per_cluster,
+                                   long long cstride, const float* buf,
                                    const int* iv, const float* fv,
                                    void* stream) {
   LLConsts c = make_consts(buf, iv, fv);
@@ -133,10 +151,10 @@ extern "C" int launch_stretch_half(float* x, float* lp, float* acc,
     cudaFuncSetAttribute(stretch_half_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
-  int rows = K * (W / 2);
-  int grid = (rows + TILE_WALKERS - 1) / TILE_WALKERS;
+  dim3 grid((W / 2 + TILE_WALKERS - 1) / TILE_WALKERS, G);
   stretch_half_kernel<<<grid, JT_THREADS, smem, (cudaStream_t)stream>>>(
-      x, lp, acc, beta, K, W, which, seed, step, zc1, zc2, c);
+      x, lp, acc, beta, W, which, seed, step, zc1, zc2, per_cluster,
+      (size_t)cstride, c);
   return (int)cudaGetLastError();
 }
 

@@ -24,8 +24,8 @@ from .pressure import GNFWPressure
 from .density import VikhlininDensity
 from .temperature import UPPTemperature
 from .mass import HSEMass
-from .sz import SZData, sz_log_like
-from .xray import XrayData, xray_log_like
+from .sz import SZData, sz_brightness, sz_log_like
+from .xray import XrayData, predicted_counts, xray_log_like
 
 
 @dataclasses.dataclass
@@ -56,19 +56,29 @@ class JointModel:
                           m[:, -1:] - m[:, -2:-1]], dim=1)
         return (grad > 0.0).all(dim=1)
 
-    def log_like_batch(self, theta: torch.Tensor) -> torch.Tensor:
-        """Joint log-posterior (priors included) of a (B, D) batch ->
-        (B,); NaN -> -inf so no NaN reaches a chain."""
-        sz, xr = self.sz_data, self.xray_data
-        pars = self.params.unpack(theta)
+    def _rest(self, theta, pars, sz: SZData, xr: XrayData) -> torch.Tensor:
+        """Everything but the SZ chi^2: priors, the r_c <= r_s prior, the
+        mass veto and the X-ray Cash term, (B,)."""
         total = self.params.log_prior(theta)
         total = total + self.density.log_prior(pars)
         if self.exclude_unphysical_mass:
             mono = self._mass_veto_ok(pars, sz.r_press_kpc)
             total = torch.where(mono, total,
                                 torch.full_like(total, -float("inf")))
-        total = total + xray_log_like(pars, xr, self.density,
-                                      self.temperature, self.Z_name)
+        return total + xray_log_like(pars, xr, self.density,
+                                     self.temperature, self.Z_name)
+
+    def log_like_batch(self, theta: torch.Tensor,
+                       sz_data: SZData | None = None,
+                       xray_data: XrayData | None = None) -> torch.Tensor:
+        """Joint log-posterior (priors included) of a (B, D) batch ->
+        (B,); NaN -> -inf so no NaN reaches a chain.  ``sz_data`` /
+        ``xray_data`` override the bound datasets (one cluster of a
+        stack, ``models.multicluster``)."""
+        sz = sz_data if sz_data is not None else self.sz_data
+        xr = xray_data if xray_data is not None else self.xray_data
+        pars = self.params.unpack(theta)
+        total = self._rest(theta, pars, sz, xr)
         total = total + sz_log_like(pars, sz, self.pressure,
                                     self.temperature)
         return torch.where(torch.isnan(total),
@@ -77,6 +87,54 @@ class JointModel:
     def log_like(self, theta: torch.Tensor) -> torch.Tensor:
         """Scalar log-posterior of one (D,) thawed vector."""
         return self.log_like_batch(theta[None])[0]
+
+    def log_like_batch_fused(self, conv_table, flux_data, op):
+        """Batched joint log-posterior with the SZ core (two products,
+        the conversion lerp and chi^2) as the one fused kernel of
+        ``ops.sz_core``: the profiles ``pp`` and ``t_all`` = [w_T0 .
+        t_prof, t_prof], the priors, vetoes, X-ray Cash and integrated-Y
+        terms stay plain torch in the session's dtype.  Built from the
+        conversion table, the flux data ``(r, flux, err)`` and the host
+        SZ operator; returns ``batch_ll((B, D)) -> (B,)``.  Equal to
+        ``log_like_batch`` up to the core's float32 on the card."""
+        from ..ops.sz_core import make_sz_core
+
+        sz = self.sz_data
+        core = make_sz_core(op, conv_table, flux_data[1], flux_data[2],
+                            device=sz.L.device)
+        r, sep = sz.r_press_kpc, sz.sep
+
+        def batch_ll(theta: torch.Tensor) -> torch.Tensor:
+            pars = self.params.unpack(theta)
+            pp = self.pressure(pars, r)
+            t_prof = self.temperature.t_sz(pars, r[:sep])
+            t_all = torch.cat([(t_prof @ sz.w_T0)[:, None], t_prof], dim=1)
+            cal = pars["calibration"]
+            cal = cal[:, 0] if torch.is_tensor(cal) else \
+                torch.full_like(pp[:, 0], cal)
+            total = self._rest(theta, pars, sz, self.xray_data)
+            if sz.calc_integ:
+                cint = pp @ sz.integ_w
+                total = total - 0.5 * ((cint - sz.integ_mu)
+                                       / sz.integ_sig) ** 2
+            total = total + core(pp, t_all, cal).to(total.dtype)
+            return torch.where(torch.isnan(total),
+                               torch.full_like(total, -float("inf")), total)
+
+        batch_ll.core = core
+        return batch_ll
+
+    # -- diagnostics / mock data --------------------------------------------
+    def sz_profile(self, theta: torch.Tensor) -> torch.Tensor:
+        """(B, n_pix) model surface brightness (mJy/beam) of a (B, D)
+        batch."""
+        return sz_brightness(self.params.unpack(theta), self.sz_data,
+                             self.pressure, self.temperature)
+
+    def xray_profiles(self, theta: torch.Tensor) -> torch.Tensor:
+        """(B, n_band, n_ann) predicted counts of a (B, D) batch."""
+        return predicted_counts(self.params.unpack(theta), self.xray_data,
+                                self.density, self.temperature, self.Z_name)
 
 
 def build_reference_params(pressure: GNFWPressure, density: VikhlininDensity,

@@ -25,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points: argument types (every launcher returns cudaGetLastError)
 SIGNATURES = {
     "joint_ll": {
@@ -32,8 +33,11 @@ SIGNATURES = {
     },
     "stretch_step": {
         "launch_stretch_half": [_P, _P, _P, _P, _I, _I, _I, _U, _I, _F, _F,
-                                _P, _P, _P, _P],
+                                _I, _L, _P, _P, _P, _P],
         "launch_swap": [_P, _P, _P, _I, _I, _I, _U, _I, _I, _F, _P],
+    },
+    "sz_core": {
+        "launch_sz_core": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
     },
 }
 

@@ -13,7 +13,12 @@ Host-side constants follow ``_cluster_arrays``/``_build_spec`` without the
 TPU's 128-lane padding: the hat-basis MXU product the TPU uses for the
 count-rate lookup is computed here as its two non-zero taps
 ``max(0, 1-|pos-k|)`` at k = floor(pos) and floor(pos)+1 (the tap past
-the last grid point is zero, not clamped).
+the last grid point is zero, not clamped).  Everything ``_cluster_arrays``
+treats as per cluster (operators, flux, counts, tables, the integrated-Y
+weights and centre) lives in the packed float buffer, so the constants of
+C clusters stack into one (C, n) buffer with shared offsets and scalars:
+``pack_consts_stack``, the port's ``make_multicluster_consts``; a
+session's own ``pack_consts`` is a stack of one.
 
 CUDA kernel: ``csrc/joint_ll.cu`` over the shared device function in
 ``csrc/joint_ll.cuh``; a block of 128 threads evaluates a tile of
@@ -29,38 +34,31 @@ tensor and launches the kernel for a CUDA tensor.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
 from .. import constants as K
+from .consts_layout import ROLES, LaunchParams, pack_arrays
+from .sz_core import conv_slopes, sz_chain_plain, sz_padded_data
 
 # walkers per thread block (must match TILE_WALKERS in csrc/joint_ll.cuh)
 TILE_WALKERS = 4
 THREADS = 128
 MAX_D = 16
 
-# thawed-parameter roles in the order the kernel reads them (cix)
-ROLES = ("log(n_0)", r"\beta", "log(r_c)", "log(r_s)", r"\epsilon",
-         "log(T_X/T_{SZ})", "Z", "P_0", "a", "b", "r_p", "backscale",
-         "calibration")
 
-# float-buffer arrays, in buffer order
-_ARRAYS = ("r", "lnr", "LT", "GT", "flux", "wres", "wT0", "wint", "midr",
-           "lnmid", "LR0", "LR1", "volsT", "sigf", "bgf", "cmf", "ctf", "lo",
-           "hi", "wg", "mu", "convT", "convV", "convS")
-# scalar ints / floats handed to the launch, in the C struct's order
-_INTS = ("n_press", "sep", "n_pix", "n_data", "n_sh", "n_ann", "n_band",
-         "nT", "n_conv", "D", "mass_veto")
-_FLOATS = ("c_gnfw", "alpha", "gamma", "mass_C", "t0g", "inv_dtg", "pos_hi",
-           "mui")
+class StackMismatch(ValueError):
+    """A multi-cluster stack breaks the kernels' shared-instrument
+    requirement (``pallas_joint.py::StackMismatch``): the survey fit
+    catches exactly this and samples through the plain batched
+    likelihood instead; any other error propagates."""
 
 
 @dataclasses.dataclass
 class JointConsts:
-    """Float32 constants of the kernel for one session, on one device."""
+    """Float32 constants of the kernel for one cluster, on one device."""
 
     arrays: dict          # name -> f32 tensor (views into ``buf``)
     buf: torch.Tensor     # every array, packed (16-byte aligned offsets)
@@ -68,27 +66,57 @@ class JointConsts:
     ints: dict
     floats: dict
     cix: list             # thawed column of each of ROLES
+    params: LaunchParams = None   # what the C entry points read
 
     @property
     def device(self):
         return self.buf.device
 
     def __post_init__(self):
-        # what the C entry points read: ints, cix, then the offsets of
-        # _ARRAYS (int32); the floats (float32) — built once, passed by
-        # pointer on every launch
-        iv = ([self.ints[k] for k in _INTS] + list(self.cix)
-              + [self.offsets[k] for k in _ARRAYS])
-        fv = [self.floats[k] for k in _FLOATS]
-        self._iv = np.ascontiguousarray(iv, dtype=np.int32)
-        self._fv = np.ascontiguousarray(fv, dtype=np.float32)
-        self.iv_ptr = self._iv.ctypes.data_as(ctypes.c_void_p)
-        self.fv_ptr = self._fv.ctypes.data_as(ctypes.c_void_p)
+        if self.params is None:
+            self.params = LaunchParams(self.ints, self.cix, self.offsets,
+                                       self.floats)
 
 
-def pack_consts(sess, device=None) -> JointConsts:
-    """Build the kernel constants of a session (the port's
-    ``_cluster_arrays`` + ``_build_spec``)."""
+@dataclasses.dataclass
+class JointConstsStack:
+    """The constants of C clusters in one (C, n) float32 buffer with the
+    same offsets, sizes and scalars for every cluster (the port's
+    ``make_multicluster_consts``).  ``clusters[c]`` is cluster c's
+    ``JointConsts``, a view of row c."""
+
+    buf: torch.Tensor
+    clusters: list
+
+    @property
+    def device(self):
+        return self.buf.device
+
+    @property
+    def n_clusters(self) -> int:
+        return self.buf.shape[0]
+
+    @property
+    def stride(self) -> int:
+        return self.buf.shape[1]
+
+    @property
+    def ints(self) -> dict:
+        return self.clusters[0].ints
+
+    @property
+    def params(self) -> LaunchParams:
+        return self.clusters[0].params
+
+
+def _np(t):
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def _session_spec(sess) -> dict:
+    """What every cluster of a stack shares with the session: the thawed
+    layout, priors and frozen shape parameters, the grids and the sizes
+    (the port's ``_build_spec`` statics)."""
     m = sess.model
     p = m.params
     if sorted(p.thawed) != sorted(ROLES):
@@ -97,85 +125,139 @@ def pack_consts(sess, device=None) -> JointConsts:
             f"this session thaws {p.thawed}")
     if len(p.thawed) > MAX_D:
         raise ValueError(f"at most {MAX_D} thawed parameters")
-    dev = torch.device(device) if device is not None else sess.device
     sz, xr = m.sz_data, m.xray_data
-
-    def n(t):
-        return t.detach().cpu().numpy().astype(np.float64)
-
-    f64 = np.float64
-    r_pp = n(sz.r_press_kpc)
-    L, G = n(sz.L), n(sz.G)
-    flux, err = n(sz.flux), n(sz.flux_err)
-    # SZ validity rule (pallas_kernels.sz_padded_data): NaN/inf flux or
-    # error, or zero error, contributes exactly zero to chi^2
-    valid = np.isfinite(flux) & np.isfinite(err) & (err != 0)
-    wres = np.where(valid, 1.0 / np.where(valid, err, 1.0), 0.0)
-    if sz.calc_integ:
-        wint = n(sz.integ_w) / sz.integ_sig
-        mui = sz.integ_mu / sz.integ_sig
-    else:
-        wint = np.zeros_like(r_pp)
-        mui = 0.0
-    midr = n(xr.midpt_kpc)
-    exps = n(xr.exposures)
-    conv_T, conv_V = n(sz.conv_T), n(sz.conv_val)
-    conv_S = np.append(np.diff(conv_V) / np.diff(conv_T), 0.0)
-    Tlog = n(xr.table.Tlog)
-    lo = np.where(np.isfinite(p.lo), p.lo, -1e30)
-    hi = np.where(np.isfinite(p.hi), p.hi, 1e30)
     # Gaussian weight isg / sigma^2, formed in float32 as ll_body does
     isg32 = p.is_gauss.astype(np.float32)
     sg32 = np.where(p.is_gauss, p.sigma, 1.0).astype(np.float32)
-    wg = isg32 / (sg32 * sg32)
-
-    arrs = {
-        "r": r_pp, "lnr": np.log(r_pp), "LT": L.T, "GT": G.T,
-        "flux": np.where(valid, flux, 0.0), "wres": wres,
-        "wT0": n(sz.w_T0), "wint": wint, "midr": midr,
-        "lnmid": np.log(midr), "LR0": n(xr.table.lograte_Z0),
-        "LR1": n(xr.table.lograte_Z1), "volsT": n(xr.vols_norm).T,
-        "sigf": exps * n(xr.areascales),
-        "bgf": n(xr.backrates) * exps * n(xr.areas),
-        "cmf": n(xr.counts_mask), "ctf": n(xr.counts_filled),
-        "lo": lo, "hi": hi, "wg": wg, "mu": p.mu,
-        "convT": conv_T, "convV": conv_V, "convS": conv_S,
-    }
-    offsets, chunks, off = {}, [], 0
-    for k in _ARRAYS:
-        a = np.ascontiguousarray(arrs[k], dtype=np.float32).ravel()
-        pad = (-a.size) % 4
-        offsets[k] = off
-        chunks.append(np.concatenate([a, np.zeros(pad, np.float32)]))
-        off += a.size + pad
-    buf = torch.from_numpy(np.concatenate(chunks)).to(dev)
-    arrays = {}
-    for k in _ARRAYS:
-        shape = np.shape(arrs[k])
-        size = int(np.prod(shape))
-        arrays[k] = buf[offsets[k]:offsets[k] + size].view(shape)
-
-    alpha = float(p[r"\alpha"].val)
-    gamma = float(p[r"\gamma"].val)
+    Tlog = _np(xr.table.Tlog)
     nT = Tlog.size
-    ints = dict(n_press=r_pp.size, sep=int(sz.sep), n_pix=L.shape[0],
-                n_data=G.shape[0], n_sh=midr.size,
-                n_ann=n(xr.vols_norm).shape[0],
-                n_band=n(xr.counts_mask).shape[0], nT=nT,
-                n_conv=conv_T.size, D=len(p.thawed),
+    n_data, n_pix = sz.G.shape
+    n_ann, n_sh = xr.vols_norm.shape
+    ints = dict(n_press=sz.r_press_kpc.shape[0], sep=int(sz.sep),
+                n_pix=n_pix, n_data=n_data, n_sh=n_sh, n_ann=n_ann,
+                n_band=xr.counts_mask.shape[0], nT=nT,
+                n_conv=sz.conv_T.shape[0], D=len(p.thawed),
                 mass_veto=int(bool(m.exclude_unphysical_mass)))
     if ints["n_pix"] != ints["sep"] + 1:
         raise ValueError("the SZ operator must have sep + 1 pixels")
     mass_C = float(K.keV_erg * K.kpc_cm
                    / (K.mu_gas * K.mu_g * K.G_cgs) / K.solar_mass_g)
-    floats = dict(c_gnfw=float(p["c"].val), alpha=alpha, gamma=gamma,
-                  mass_C=mass_C, t0g=float(Tlog[0]),
+    floats = dict(c_gnfw=float(p["c"].val), alpha=float(p[r"\alpha"].val),
+                  gamma=float(p[r"\gamma"].val), mass_C=mass_C,
+                  t0g=float(Tlog[0]),
                   inv_dtg=1.0 / float(Tlog[1] - Tlog[0]),
-                  pos_hi=float(nT - 1 - 1e-6), mui=float(mui))
-    floats = {k: float(np.float32(v)) for k, v in floats.items()}
-    cix = [p.thawed.index(r) for r in ROLES]
-    return JointConsts(arrays=arrays, buf=buf, offsets=offsets, ints=ints,
-                       floats=floats, cix=cix)
+                  pos_hi=float(nT - 1 - 1e-6))
+    return dict(
+        ints=ints,
+        floats={k: float(np.float32(v)) for k, v in floats.items()},
+        cix=[p.thawed.index(r) for r in ROLES],
+        r_pp=_np(sz.r_press_kpc), conv_T=_np(sz.conv_T),
+        conv_V=_np(sz.conv_val), Tlog=Tlog,
+        priors={"lo": np.where(np.isfinite(p.lo), p.lo, -1e30),
+                "hi": np.where(np.isfinite(p.hi), p.hi, 1e30),
+                "wg": isg32 / (sg32 * sg32), "mu": p.mu})
+
+
+def _cluster_arrays(spec: dict, sz, xr) -> dict:
+    """The float64 arrays of ONE cluster in ``consts_layout.ARRAYS``
+    names, after checking what the stack must share with the session
+    (the checks of ``pallas_joint.py::_cluster_arrays``)."""
+    I = spec["ints"]
+    r_pp = _np(sz.r_press_kpc)
+    if r_pp.shape != spec["r_pp"].shape or not np.allclose(r_pp,
+                                                           spec["r_pp"]):
+        raise StackMismatch("pressure radial grid differs across the stack")
+    if int(sz.sep) != I["sep"]:
+        raise StackMismatch("map geometry (sep) differs across the stack")
+    conv_T, conv_V = _np(sz.conv_T), _np(sz.conv_val)
+    if conv_T.shape != spec["conv_T"].shape or not (
+            np.allclose(conv_T, spec["conv_T"])
+            and np.allclose(conv_V, spec["conv_V"])):
+        raise StackMismatch("y->mJy conversion tables differ across the "
+                            "stack")
+    if xr is None:
+        raise StackMismatch("X-ray data presence differs across the stack")
+    Tlog = _np(xr.table.Tlog)
+    if Tlog.shape != spec["Tlog"].shape or not np.allclose(Tlog,
+                                                           spec["Tlog"]):
+        raise StackMismatch("count-rate log-T grids differ across the "
+                            "stack")
+    if sz.flux.shape[0] > I["n_data"]:
+        raise StackMismatch("flux profile longer than the session's data "
+                            "axis (heterogeneous stack)")
+    flux, wres = sz_padded_data(_np(sz.flux), _np(sz.flux_err))
+    # integrated-Y term -(wint.pp - mui)^2 / 2 with 1/sigma folded in;
+    # zero weights switch it off (pallas_joint.py:333-343)
+    if sz.calc_integ:
+        wint = _np(sz.integ_w) / float(sz.integ_sig)
+        mui = float(sz.integ_mu) / float(sz.integ_sig)
+    else:
+        wint, mui = np.zeros_like(r_pp), 0.0
+    midr = _np(xr.midpt_kpc)
+    exps = _np(xr.exposures)
+    arrs = {
+        "r": r_pp, "lnr": np.log(r_pp), "LT": _np(sz.L).T, "GT": _np(sz.G).T,
+        "flux": flux, "wres": wres, "wT0": _np(sz.w_T0), "wint": wint,
+        "midr": midr, "lnmid": np.log(midr),
+        "LR0": _np(xr.table.lograte_Z0), "LR1": _np(xr.table.lograte_Z1),
+        "volsT": _np(xr.vols_norm).T, "sigf": exps * _np(xr.areascales),
+        "bgf": _np(xr.backrates) * exps * _np(xr.areas),
+        "cmf": _np(xr.counts_mask), "ctf": _np(xr.counts_filled),
+        **spec["priors"],
+        "convT": conv_T, "convV": conv_V,
+        "convS": conv_slopes(conv_T, conv_V), "mui": np.array([mui]),
+    }
+    want = {"LT": (I["n_press"], I["n_pix"]), "GT": (I["n_pix"], I["n_data"]),
+            "flux": (I["n_data"],), "wT0": (I["sep"],),
+            "midr": (I["n_sh"],), "LR0": (I["n_band"], I["nT"]),
+            "LR1": (I["n_band"], I["nT"]), "volsT": (I["n_sh"], I["n_ann"]),
+            "cmf": (I["n_band"], I["n_ann"])}
+    for k, shape in want.items():
+        if arrs[k].shape != shape:
+            raise StackMismatch(f"{k} has shape {arrs[k].shape}, the "
+                                f"session's is {shape}")
+    return arrs
+
+
+def _pack(spec: dict, clusters: list[dict], dev) -> JointConstsStack:
+    buf, offsets, views = pack_arrays(clusters, dev)
+    params = LaunchParams(spec["ints"], spec["cix"], offsets, spec["floats"])
+    return JointConstsStack(buf=buf, clusters=[
+        JointConsts(arrays=views[c], buf=buf[c], offsets=offsets,
+                    ints=spec["ints"], floats=spec["floats"],
+                    cix=spec["cix"], params=params)
+        for c in range(len(clusters))])
+
+
+def pack_consts(sess, device=None) -> JointConsts:
+    """Build the kernel constants of a session (the port's
+    ``_cluster_arrays`` + ``_build_spec``)."""
+    dev = torch.device(device) if device is not None else sess.device
+    spec = _session_spec(sess)
+    m = sess.model
+    return _pack(spec, [_cluster_arrays(spec, m.sz_data, m.xray_data)],
+                 dev).clusters[0]
+
+
+def pack_consts_stack(sess, sz_stack, xray_stack,
+                      device=None) -> JointConstsStack:
+    """Build the constants of a stack of C clusters (``models.
+    multicluster.stack_sz_data`` / ``stack_xray_data``) that share the
+    session's model, priors and instrument grids.  Operators, flux,
+    counts, tables and the integrated-Y centre are per cluster.  Raises
+    ``StackMismatch`` when a cluster's pressure grid, ``sep``, conversion
+    table, X-ray presence or count-rate log-T grid differs from the
+    session's, or its flux is longer than the session's data axis."""
+    from ..models.multicluster import unstack
+
+    dev = torch.device(device) if device is not None else sess.device
+    spec = _session_spec(sess)
+    C = sz_stack.L.shape[0]
+    clusters = [_cluster_arrays(
+        spec, unstack(sz_stack, c),
+        None if xray_stack is None else unstack(xray_stack, c))
+        for c in range(C)]
+    return _pack(spec, clusters, dev)
 
 
 def _nanmax(x, v):
@@ -253,19 +335,11 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
 
     # SZ
     sep = I["sep"]
-    raw = press @ A["LT"]                                   # (B, n_pix)
     t_sz = press * ne_inv
     t0 = (t_sz[:, :sep] * A["wT0"]).sum(dim=1, keepdim=True)
     t_all = torch.cat([t0, t_sz[:, :sep]], dim=1)           # (B, sep+1)
-    cidx = torch.zeros_like(t_all, dtype=torch.long)
-    for k in range(1, I["n_conv"] - 1):
-        cidx = cidx + (t_all >= A["convT"][k]).long()
-    conv = A["convV"][cidx] + (t_all - A["convT"][cidx]) * A["convS"][cidx]
-    prof = raw * conv * cal
-    model = prof @ A["GT"]
-    resid = (A["flux"] - model) * A["wres"]
-    total = total - 0.5 * (resid * resid).sum(dim=1, keepdim=True)
-    di = (press * A["wint"]).sum(dim=1, keepdim=True) - F["mui"]
+    total = total + sz_chain_plain(press, t_all, cal, A)[:, None]
+    di = (press * A["wint"]).sum(dim=1, keepdim=True) - A["mui"]
     total = total - 0.5 * di * di
 
     # X-ray: midpoint profiles, two-tap hat lookup, projection, Cash
@@ -329,8 +403,8 @@ def joint_ll(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
         return out
     lib = kernel_library("joint_ll")
     err = lib.launch_joint_ll(
-        th.data_ptr(), B, out.data_ptr(), c.buf.data_ptr(), c.iv_ptr,
-        c.fv_ptr, torch.cuda.current_stream(th.device).cuda_stream)
+        th.data_ptr(), B, out.data_ptr(), c.buf.data_ptr(), c.params.iv_ptr,
+        c.params.fv_ptr, torch.cuda.current_stream(th.device).cuda_stream)
     check_launch(err, "joint_ll")
     joint_ll.launches += 1
     return out

@@ -15,10 +15,12 @@ kernel 3 moves 2 rows of D floats per accepted pair — a few hundred KB —
 so its time is launch latency.
 
 The TPU kernels drew from the TPU's hardware PRNG; here every draw is
-Philox-4x32-10 keyed on (seed, 0) with counter (row, step, which, 0):
+Philox-4x32-10 keyed on (seed, 0) with counter (row, step, which, group):
 ``which`` is the half (0, 1) for half-steps and 16 + 2 kk + half for the
 swap at boundary kk, ``row`` is k*H + i for half-steps and the cold slot
-j for swaps; the four output words are the draws (z, partner, accept).
+j for swaps, ``group`` is 0 here (the cluster-grid step of
+``ops.multicluster_kernel`` puts the cluster there); the four output
+words are the draws (z, partner, accept).
 ``philox4x32_10`` below is the same generator in torch int64, so the
 plain versions and the kernels consume identical bits.
 
@@ -63,13 +65,15 @@ def philox4x32_10(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def philox_stream(seed: int, device):
-    """``bits(step, which, n_rows, n_words)`` -> int64 (n_rows, n_words):
-    the Philox bits the kernels draw for rows 0..n_rows-1."""
-    def bits(step: int, which: int, n_rows: int, n_words: int):
+    """``bits(step, which, n_rows, n_words, group=0)`` -> int64 (n_rows,
+    n_words): the Philox bits the kernels draw for rows 0..n_rows-1 at
+    counter (row, step, which, group)."""
+    def bits(step: int, which: int, n_rows: int, n_words: int,
+             group: int = 0):
         row = torch.arange(n_rows, dtype=torch.int64, device=device)
         z = torch.zeros_like(row)
-        out = philox4x32_10(row, z + (step & _M), z + (which & _M), z,
-                            seed, 0)
+        out = philox4x32_10(row, z + (step & _M), z + (which & _M),
+                            z + (group & _M), seed, 0)
         return torch.stack(out[:n_words], dim=1)
 
     return bits
@@ -158,8 +162,9 @@ def stretch_half(x, lp, acc, beta, which: int, seed: int, step: int,
     lib = kernel_library("stretch_step")
     err = lib.launch_stretch_half(
         x.data_ptr(), lp.data_ptr(), acc.data_ptr(), beta.data_ptr(), K, W,
-        which, seed & _M, step, STRETCH_ZC[0], STRETCH_ZC[1], c.buf.data_ptr(), c.iv_ptr,
-        c.fv_ptr, torch.cuda.current_stream(x.device).cuda_stream)
+        which, seed & _M, step, STRETCH_ZC[0], STRETCH_ZC[1], 0, 0,
+        c.buf.data_ptr(), c.params.iv_ptr, c.params.fv_ptr,
+        torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, "stretch_half")
     stretch_half.launches += 1
 

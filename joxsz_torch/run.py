@@ -1,14 +1,18 @@
 """End-to-end fit runner (CLI): setup -> MLE -> MCMC -> posterior table.
 
-Torch counterpart of ``joxsz_tpu/run.py`` for the flagless joint fit.  On
-the card the default schedule is ``MCMCConfig.converged_gpu`` (W=1024
-walkers x K=4 tempering rungs, 4000 burn + 8000 steps, thin 25,
-auto-extend 3) sampled through the CUDA kernels; a ``--config`` file's own
-schedule is kept as written.
+Torch counterpart of ``joxsz_tpu/run.py`` for the joint fit.  On the card
+the default schedule is ``MCMCConfig.converged_gpu`` (W=1024 walkers x K=4
+tempering rungs, 4000 burn + 8000 steps, thin 25, auto-extend 3) sampled
+through the CUDA step kernels; a ``--config`` file's own schedule is kept
+as written.  ``--fused`` builds the batched likelihood whose SZ core is
+the fused kernel of ``ops.sz_core``; ``--no-step-kernel`` samples through
+the plain ensemble samplers on the batched likelihood instead of the
+step kernels (with ``--fused``, on the fused one).
 
 Usage:
     python -m joxsz_torch.run --config my.json      # on the card
     python -m joxsz_torch.run --config my.json --cpu --quick
+    python -m joxsz_torch.run --config my.json --fused --no-step-kernel
 """
 
 from __future__ import annotations
@@ -35,6 +39,14 @@ def main(argv=None):
                     "plain ensemble)")
     ap.add_argument("--quick", action="store_true",
                     help="short chains for smoke testing")
+    ap.add_argument("--fused", action="store_true",
+                    help="use the batched likelihood with the fused SZ-core "
+                    "kernel for the walker initialisation and, with "
+                    "--no-step-kernel, for every sampling phase")
+    ap.add_argument("--no-step-kernel", action="store_true",
+                    help="keep the schedule but sample through the plain "
+                    "ensemble samplers on the batched likelihood instead "
+                    "of the step kernels")
     args = ap.parse_args(argv)
     t_start = time.time()
 
@@ -82,13 +94,31 @@ def main(argv=None):
     sess = build_session(cfg, device=device)
     print(f"session built in {time.time() - t0:.1f}s (operator "
           f"{sess.sz_operator.L.shape}, joint SZ+X)")
-    sampler = make_kernel_sampler(sess)
-    print("sampling via the CUDA step kernels" if device.type == "cuda"
-          else "sampling via the kernels' plain torch versions (CPU)")
+    ll_batch = None
+    if args.fused:
+        from .io.readers import read_conversion_table, read_xy
+
+        conv = read_conversion_table(cfg.sz.conversion_file)
+        flux = read_xy(cfg.sz.flux_file, ncol=3)
+        ll_batch = sess.model.log_like_batch_fused(conv, flux,
+                                                   sess.sz_operator)
+        print("fused batched likelihood (SZ core: "
+              + ("CUDA kernel)" if device.type == "cuda"
+                 else "its plain torch version, CPU)"))
+    if args.no_step_kernel:
+        sampler = None
+        print("sampling via the plain ensemble samplers on the "
+              + ("fused" if args.fused else "model's") + " batched "
+              "likelihood")
+    else:
+        sampler = make_kernel_sampler(sess)
+        print("sampling via the CUDA step kernels" if device.type == "cuda"
+              else "sampling via the kernels' plain torch versions (CPU)")
 
     p = sess.params
     res = run_fit(sess.model, sampler, p.thawed_values(), p.lo, p.hi,
-                  p.thawed, nwalkers=m.nwalkers, nburn=m.nburn,
+                  p.thawed, log_like_batch=ll_batch, nwalkers=m.nwalkers,
+                  nburn=m.nburn,
                   nsteps=m.nsteps, nthin=m.nthin, seed=m.seed,
                   initspread=m.initspread, prelim_iterations=prelim,
                   max_prelim_rounds=rounds, n_temper_rungs=m.n_temper_rungs,

@@ -2,8 +2,12 @@
 tempered sampling -> convergence-driven extension.
 
 Torch counterpart of ``joxsz_tpu/sampling/driver.py::run_fit`` (phase
-structure of the reference ``mcmc_run``, joxsz_funcs.py:572-635) limited
-to the flagless fit's path through the kernel sampler:
+structure of the reference ``mcmc_run``, joxsz_funcs.py:572-635).  With a
+step sampler (``sampling.kernel.KernelSampler``, the default of the CLI)
+the phases run through the CUDA kernels as numbered below; without one
+they run through the plain samplers ``run_ensemble`` /
+``run_tempered_ensemble`` on ``log_like_batch`` (the model's own, or the
+fused one of ``JointModel.log_like_batch_fused``):
 
   1. MLE warm start on the plain float64 likelihood (``sampling.mle``);
   2. walker initialisation around the MLE, rejection-redrawn to finite
@@ -32,8 +36,8 @@ import torch
 
 from .kernel import KernelSampler
 from .mle import find_mle
-from .stretch import EnsembleResult, generate_init_positions
-from .tempered import default_betas
+from .stretch import EnsembleResult, generate_init_positions, run_ensemble
+from .tempered import default_betas, run_tempered_ensemble
 from ..postproc.summary import integrated_autocorr_time, convergence_rhat
 
 _DIAG_WALKERS = 256      # walker sequences the stopping rule watches
@@ -89,16 +93,33 @@ def convergence(chain: np.ndarray, thin: int) -> tuple[float, float]:
     return tau_saved * thin, convergence_rhat(dc, tau_saved=tau_saved)
 
 
-def run_fit(model, sampler: KernelSampler, theta0: np.ndarray,
+def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             lo: np.ndarray, hi: np.ndarray, param_names: list[str], *,
+            log_like_batch=None,
             nwalkers: int = 30, nburn: int = 2000, nsteps: int = 5000,
             nthin: int = 5, seed: int | None = None,
             initspread: float = 0.1, prelim_iterations: int = 1000,
             max_prelim_rounds: int = 10, n_temper_rungs: int = 0,
             auto_extend: int = 0, target_rhat: float = 1.01,
             verbose: bool = True) -> FitResult:
-    """Full fit of ``model`` (a ``JointModel``) through ``sampler``."""
-    dev = sampler.device
+    """Full fit of ``model`` (a ``JointModel``).
+
+    ``step_sampler``: the kernel sampler, or None for the plain samplers.
+    ``log_like_batch``: an explicit batched log-posterior (N, D) -> (N,);
+    when given it judges the walker initialisation, and it is what the
+    plain samplers evaluate.  It defaults to the step sampler's kernel-1
+    likelihood, else to ``model.log_like_batch``
+    (``joxsz_tpu/sampling/driver.py:181-183``)."""
+    dev = (step_sampler.device if step_sampler is not None
+           else model.sz_data.L.device)
+    # the kernels' state is float32; the plain samplers work in the
+    # session's dtype
+    dtype = (torch.float32 if step_sampler is not None
+             else model.sz_data.L.dtype)
+    if log_like_batch is None:
+        log_like_batch = (step_sampler.log_prob_batch
+                          if step_sampler is not None
+                          else model.log_like_batch)
     timings: dict = {}
     rng = np.random.default_rng(0 if seed is None else seed)
     if nsteps % nthin:
@@ -119,8 +140,18 @@ def run_fit(model, sampler: KernelSampler, theta0: np.ndarray,
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(0, 2 ** 63 - 1)))
-    p0 = generate_init_positions(sampler.log_prob_batch, mle_theta, nwalkers,
-                                 gen, device=dev, spread=initspread)
+    p0 = generate_init_positions(log_like_batch, mle_theta, nwalkers, gen,
+                                 device=dev, dtype=dtype, spread=initspread)
+
+    def plain_run(state, n, thin=1, store_chain=True):
+        """``n`` plain (untempered) steps through the configured route."""
+        if step_sampler is not None:
+            return step_sampler.run(state, n, rng, thin=thin,
+                                    store_chain=store_chain)
+        with torch.no_grad():
+            return run_ensemble(log_like_batch, state, n, gen, thin=thin,
+                                store_chain=store_chain)
+
     timings["init_s"] = time.time() - t0
 
     # 3. preliminary rounds (reference joxsz_funcs.py:589-598)
@@ -128,7 +159,7 @@ def run_fit(model, sampler: KernelSampler, theta0: np.ndarray,
     best = mle_ll
     rounds = 0
     while rounds < max_prelim_rounds:
-        res = sampler.run(p0, prelim_iterations, rng, store_chain=False)
+        res = plain_run(p0, prelim_iterations, store_chain=False)
         p0 = res.final_state[0]
         newbest = float(res.final_state[1].max())
         rounds += 1
@@ -142,7 +173,8 @@ def run_fit(model, sampler: KernelSampler, theta0: np.ndarray,
 
     # 4. burn-in
     t0 = time.time()
-    p1 = sampler.run(p0, nburn, rng, store_chain=False).final_state[0]
+    p1 = (plain_run(p0, nburn, store_chain=False).final_state[0]
+          if nburn else p0)
     timings["burn_s"] = time.time() - t0
 
     # 5. sampling
@@ -153,7 +185,13 @@ def run_fit(model, sampler: KernelSampler, theta0: np.ndarray,
         betas = default_betas(n_temper_rungs)
 
         def sample(state):
-            r = sampler.run_tempered(state, betas, nsteps, rng, thin=nthin)
+            if step_sampler is not None:
+                r = step_sampler.run_tempered(state, betas, nsteps, rng,
+                                              thin=nthin)
+            else:
+                with torch.no_grad():
+                    r = run_tempered_ensemble(log_like_batch, state, betas,
+                                              nsteps, gen, thin=nthin)
             swap_rounds.append(r.swap_acceptance)
             if verbose:
                 print("swap acceptance per rung boundary: "
@@ -164,7 +202,7 @@ def run_fit(model, sampler: KernelSampler, theta0: np.ndarray,
                 final_state=r.final_state)
     else:
         def sample(state):
-            return sampler.run(state, nsteps, rng, thin=nthin)
+            return plain_run(state, nsteps, thin=nthin)
 
     res = sample(p1)
     chains, lps, accs = [res.chain], [res.log_prob], [res.acceptance_fraction]

@@ -8,7 +8,11 @@ per step — two half-steps (kernel 2) and K-1 swap boundaries (kernel 3)
 — with initial log-probs from kernel 1.  The cold-rung chain is copied
 every ``thin`` steps into a preallocated device tensor and fetched once.
 
-On CPU tensors the same loop runs the kernels' plain versions (the
+``run_multicluster_steps`` is the loop of the survey fit over the
+cluster-grid half-step (kernel 4): C ensembles against C sets of
+constants, two launches per step, one Philox seed per call.
+
+On CPU tensors the same loops run the kernels' plain versions (the
 ``--cpu`` path).  Each chunk of steps draws one Philox seed from the
 caller's numpy generator; the step counter restarts at 0 per chunk, as
 the TPU kernel's loop index did per call.
@@ -21,7 +25,9 @@ import torch
 
 from .stretch import EnsembleResult
 from .tempered import TemperedResult
-from ..ops.joint_kernel import JointConsts, joint_ll, pack_consts
+from ..ops.joint_kernel import (JointConsts, JointConstsStack, joint_ll,
+                                pack_consts)
+from ..ops.multicluster_kernel import stretch_half_multicluster
 from ..ops.step_kernel import stretch_half, swap
 
 _CHUNK_STEPS = 100      # steps per Philox seed
@@ -138,3 +144,31 @@ def run_tempered_kernel(sampler: KernelSampler, p0: torch.Tensor, betas,
 def make_kernel_sampler(sess) -> KernelSampler:
     """The kernel sampler of a session, on the session's device."""
     return KernelSampler(pack_consts(sess))
+
+
+def run_multicluster_steps(stack: JointConstsStack, x: torch.Tensor,
+                           lp: torch.Tensor, acc: torch.Tensor,
+                           n_steps: int, seed: int, thin: int | None = None):
+    """Advance the C ensembles x (C, W, D), lp/acc (C, W) in place by
+    ``n_steps`` stretch steps, cluster c against ``stack.clusters[c]``;
+    step i draws Philox bits at (seed, i).  With ``thin``, returns the
+    frames kept every ``thin`` steps as device tensors ``(chain (C,
+    n_keep, W, D), chain_lp (C, n_keep, W))``, else None."""
+    C, W, D = x.shape
+    n_keep = 0
+    if thin is not None:
+        if thin <= 0 or n_steps % thin:
+            raise ValueError(f"n_steps ({n_steps}) must be a positive "
+                             f"multiple of thin ({thin})")
+        n_keep = n_steps // thin
+        chain = torch.empty((C, n_keep, W, D), dtype=torch.float32,
+                            device=x.device)
+        chain_lp = torch.empty((C, n_keep, W), dtype=torch.float32,
+                               device=x.device)
+    for i in range(n_steps):
+        stretch_half_multicluster(x, lp, acc, 0, seed, i, stack)
+        stretch_half_multicluster(x, lp, acc, 1, seed, i, stack)
+        if n_keep and (i + 1) % thin == 0:
+            chain[:, (i + 1) // thin - 1] = x
+            chain_lp[:, (i + 1) // thin - 1] = lp
+    return (chain, chain_lp) if n_keep else None

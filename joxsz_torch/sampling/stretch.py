@@ -12,6 +12,8 @@ flagless fit uses (reference emcee stack, joxsz_funcs.py:572-635):
 ``stretch_half_update`` is the move law the CUDA half-step kernel
 (``ops.step_kernel``) implements, in the kernel's float32 arithmetic; it
 takes its uniforms from the caller so both can be fed the same bits.
+``run_ensemble`` is the plain sampler built on it for any batched
+log-probability, drawing from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -98,3 +100,64 @@ def generate_init_positions(log_prob_batch, theta0: np.ndarray,
             return pos
     raise RuntimeError(f"could not find {n_walkers} finite-likelihood "
                        "walkers; check the starting point / priors")
+
+
+def validate_schedule(n_steps: int, thin: int, n_walkers: int | None = None):
+    """Shared schedule check of the plain samplers: an even ensemble, a
+    positive step count, and a thin that divides it (emcee v3 semantics;
+    a silent round-down would skew the acceptance normalisation)."""
+    if n_walkers is not None and n_walkers % 2:
+        raise ValueError("need an even number of walkers")
+    if n_steps <= 0:
+        raise ValueError(f"n_steps ({n_steps}) must be positive")
+    if thin <= 0:
+        raise ValueError(f"thin ({thin}) must be positive")
+    if n_steps % thin:
+        raise ValueError(f"n_steps ({n_steps}) must be a multiple of "
+                         f"thin ({thin})")
+
+
+def ensemble_step(lp_fn, x, lp, acc, u, beta=1.0):
+    """One full stretch step — both half-updates — of ensembles with any
+    leading batch axes: x (..., W, D), lp/acc (..., W), ``u`` (2, ..., H,
+    3) uniforms, ``lp_fn`` (N, D) -> (N,).  Returns new (x, lp, acc)."""
+    H = x.shape[-2] // 2
+    D = x.shape[-1]
+    halves = [x[..., :H, :], x[..., H:, :]]
+    lps = [lp[..., :H], lp[..., H:]]
+    accs = [acc[..., :H], acc[..., H:]]
+    for which in (0, 1):
+        halves[which], lps[which], accept, _ = stretch_half_update(
+            lp_fn, u[which], halves[which], lps[which], halves[1 - which],
+            D, beta)
+        accs[which] = accs[which] + accept.to(acc.dtype)
+    return (torch.cat(halves, dim=-2), torch.cat(lps, dim=-1),
+            torch.cat(accs, dim=-1))
+
+
+def run_ensemble(log_like_batch, p0: torch.Tensor, n_steps: int,
+                 gen: torch.Generator, thin: int = 1,
+                 store_chain: bool = True) -> EnsembleResult:
+    """Plain stretch-move ensemble from p0 (W, D) on any batched
+    log-probability (N, D) -> (N,), saving every ``thin``-th state
+    (``joxsz_tpu/sampling/stretch.py::run_ensemble``).  Runs on p0's
+    device and dtype; ``gen`` is a generator on that device."""
+    W, D = p0.shape
+    validate_schedule(n_steps, thin, W)
+    x = p0.clone()
+    lp = log_like_batch(x)
+    acc = torch.zeros(W, dtype=torch.float32, device=x.device)
+    n_saved = n_steps // thin if store_chain else 0
+    chain = torch.empty((n_saved, W, D), dtype=x.dtype, device=x.device)
+    chain_lp = torch.empty((n_saved, W), dtype=lp.dtype, device=x.device)
+    for i in range(n_steps):
+        u = torch.rand((2, W // 2, 3), generator=gen, dtype=x.dtype,
+                       device=x.device)
+        x, lp, acc = ensemble_step(log_like_batch, x, lp, acc, u)
+        if store_chain and (i + 1) % thin == 0:
+            chain[(i + 1) // thin - 1] = x
+            chain_lp[(i + 1) // thin - 1] = lp
+    return EnsembleResult(
+        chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
+        acceptance_fraction=(acc / n_steps).cpu().numpy(),
+        final_state=(x, lp))

@@ -1,0 +1,441 @@
+"""Multi-cluster survey fitting — CLI + library.
+
+Torch counterpart of ``joxsz_tpu/survey.py``.  The reference fits one
+cluster per process invocation; here C clusters fit at once: their data
+containers stack with a leading cluster axis (``models/multicluster.py``)
+and C independent walker ensembles advance together.  The production
+route samples through the cluster-grid CUDA kernel (``ops.
+multicluster_kernel``: one launch moves one half of every cluster's
+ensemble against that cluster's own constants), with the walker
+initialisation and the first log-posteriors through the joint-likelihood
+kernel, once per cluster.  A stack outside the kernel's specialisation
+(clusters whose grids differ: ``StackMismatch``) is sampled through the
+plain batched ensembles on ``make_multicluster_log_like`` instead, with
+a warning.
+
+Two modes:
+
+* ``--spec survey.json`` — one ``JoXSZConfig`` JSON per cluster::
+
+      {"clusters": [{"name": "cl1", "config": "cl1.json"},
+                    {"name": "cl2", "config": "cl2.json"}]}
+
+  Clusters are grouped by thawed parameter vector and stack signature
+  (map geometry, every data tensor's shape, the priors), one batched fit
+  runs per group, and the groups merge back into one result in spec
+  order.
+
+* ``--mock C`` — injection-recovery: C clusters simulated from the base
+  configuration (``--config``) at distinct true parameters through the
+  likelihood's own forward and noise models (``joxsz_torch.simulate``),
+  fit jointly, recovered medians compared with the injected truths.
+
+Usage:
+    python -m joxsz_torch.survey --mock 4 --config cfg.json
+    python -m joxsz_torch.survey --mock 2 --config cfg.json --cpu --quick
+    python -m joxsz_torch.survey --spec survey.json --walkers 256
+
+Not ported yet: ``--mesh``, the ``--multihost*`` group, ``--population``,
+``--save-chains``, ``--sz-only``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import pathlib
+import time
+import warnings
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class SurveyResult:
+    cluster_names: list[str]
+    param_names: list[str]
+    chain: np.ndarray            # (n_saved, C, W, D) thinned post-burn
+    log_prob: np.ndarray         # (n_saved, C, W)
+    acceptance: np.ndarray       # (C, W)
+    medians: np.ndarray          # (C, D)
+    sds: np.ndarray              # (C, D)
+    truths: np.ndarray | None = None    # (C, D) mock mode only
+    timings: dict | None = None  # kernel route: setup vs sampling wall (s)
+
+    def flat_chain(self, c: int) -> np.ndarray:
+        """((n_saved*W), D) posterior sample of cluster ``c``."""
+        return self.chain[:, c].reshape(-1, self.chain.shape[-1])
+
+    def to_dict(self) -> dict:
+        out = {
+            "param_names": self.param_names,
+            "clusters": [
+                {"name": self.cluster_names[c],
+                 "acceptance": float(self.acceptance[c].mean()),
+                 "median": dict(zip(self.param_names,
+                                    self.medians[c].tolist())),
+                 "sd": dict(zip(self.param_names, self.sds[c].tolist()))}
+                for c in range(len(self.cluster_names))],
+        }
+        if self.truths is not None:
+            for c, row in enumerate(out["clusters"]):
+                row["truth"] = dict(zip(self.param_names,
+                                        self.truths[c].tolist()))
+        return out
+
+
+def fit_survey(session, sz_stack, xray_stack, centers, *,
+               cluster_names=None, n_walkers=64, n_burn=500, n_steps=500,
+               thin=5, seed=0, init_spread=0.05, truths=None,
+               step_kernel=True) -> SurveyResult:
+    """Fit C stacked clusters jointly; returns per-cluster posteriors.
+
+    ``session``: a single-cluster ``FitSession`` providing the model,
+    priors and device (every cluster thaws the same parameter vector);
+    ``sz_stack`` / ``xray_stack``: stacked data (``models.multicluster.
+    stack_*``); ``centers``: (C, D) per-cluster walker-init centers.
+
+    ``step_kernel=True`` runs burn and sampling through the cluster-grid
+    kernel; a stack outside its specialisation falls back to the plain
+    batched ensembles with a warning.  A kernel that fails to build or
+    launch raises."""
+    import torch
+
+    from .models.multicluster import make_multicluster_log_like
+    from .ops.joint_kernel import StackMismatch
+    from .sampling.batched import batched_init, run_batched_ensembles
+
+    model = session.model
+    centers = np.atleast_2d(np.asarray(centers, dtype=np.float64))
+    C, D = centers.shape
+    names = list(model.params.thawed)
+    if D != len(names):
+        raise ValueError(f"centers have {D} columns but the model thaws "
+                         f"{len(names)} parameters {names}")
+
+    out = None
+    if step_kernel:
+        try:
+            out = _fit_survey_kernel(
+                session, sz_stack, xray_stack, centers, n_walkers=n_walkers,
+                n_burn=n_burn, n_steps=n_steps, thin=thin, seed=seed,
+                init_spread=init_spread)
+        except StackMismatch as e:
+            warnings.warn("configuration outside the multicluster "
+                          f"step-kernel specialisation ({e}); falling back "
+                          "to the plain batched ensemble sampler",
+                          stacklevel=2)
+    timings = None
+    if out is not None:
+        chain, lp_chain, acc, timings = out
+    else:
+        dev = session.device
+        batched_ll = make_multicluster_log_like(model, sz_stack, xray_stack)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        with torch.no_grad():
+            p0 = batched_init(batched_ll, centers, n_walkers, gen,
+                              device=dev, dtype=sz_stack.L.dtype,
+                              spread=init_spread)
+            chain, lp_chain, acc, _ = run_batched_ensembles(
+                batched_ll, p0, n_burn, n_steps, gen, thin=thin)
+    flat = np.transpose(chain, (1, 0, 2, 3)).reshape(C, -1, D)
+    return SurveyResult(
+        cluster_names=(list(cluster_names) if cluster_names is not None
+                       else [f"cluster{c}" for c in range(C)]),
+        param_names=names, chain=chain, log_prob=lp_chain, acceptance=acc,
+        medians=np.median(flat, axis=1), sds=np.std(flat, axis=1),
+        truths=None if truths is None else np.asarray(truths),
+        timings=timings)
+
+
+def _fit_survey_kernel(session, sz_stack, xray_stack, centers, *,
+                       n_walkers, n_burn, n_steps, thin, seed, init_spread):
+    """Kernel route: one constants build shared by burn and sampling,
+    init and lp0 through the joint-likelihood kernel per cluster, burn on
+    Philox seed ``2 seed + 1`` and sampling on ``2 seed + 2``, acceptance
+    reset after the burn.  Returns ``(chain (n_saved, C, W, D), lp_chain,
+    acceptance, timings)``; raises ``StackMismatch`` for a stack outside
+    the specialisation."""
+    import torch
+
+    from .ops.joint_kernel import pack_consts_stack
+    from .ops.multicluster_kernel import multicluster_ll
+    from .sampling.batched import batched_init
+    from .sampling.kernel import run_multicluster_steps
+    from .sampling.stretch import validate_schedule
+
+    validate_schedule(n_steps, thin, n_walkers)
+    dev = session.device
+    t0 = time.time()
+    stack = pack_consts_stack(session, sz_stack, xray_stack, device=dev)
+    C = centers.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    x = batched_init(lambda th: multicluster_ll(th, stack), centers,
+                     n_walkers, gen, device=dev, dtype=torch.float32,
+                     spread=init_spread).contiguous()
+    lp = multicluster_ll(x, stack)
+    acc = torch.zeros((C, n_walkers), dtype=torch.float32, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_setup = time.time() - t0
+
+    t0 = time.time()
+    if n_burn:
+        run_multicluster_steps(stack, x, lp, acc, n_burn, 2 * seed + 1)
+        acc.zero_()
+    chain, chain_lp = run_multicluster_steps(stack, x, lp, acc, n_steps,
+                                             2 * seed + 2, thin=thin)
+    chain = chain.permute(1, 0, 2, 3).cpu().numpy()
+    chain_lp = chain_lp.permute(1, 0, 2).cpu().numpy()
+    acc = (acc / float(n_steps)).cpu().numpy()
+    t_sampling = time.time() - t0
+    return chain, chain_lp, acc, {"setup_s": t_setup,
+                                  "sampling_s": t_sampling}
+
+
+def _tensor_shapes(data) -> tuple:
+    import torch
+
+    out = []
+    for f in dataclasses.fields(data):
+        v = getattr(data, f.name)
+        if torch.is_tensor(v):
+            out.append(tuple(v.shape))
+        elif dataclasses.is_dataclass(v):
+            out.extend(_tensor_shapes(v))
+    return tuple(out)
+
+
+def _stack_signature(sess) -> tuple:
+    """Hashable stack signature of one cluster: the static fields (sep,
+    calc_integ) plus the shape of every SZ/X-ray data tensor — the
+    rectangular-stacking requirement of ``models.multicluster.stack_*`` —
+    plus the model fingerprint.  Clusters sharing a signature batch into
+    one fit; value-level differences inside a group (other redshifts on
+    equal grids) are for the kernel's ``StackMismatch`` to decline."""
+    sz = sess.model.sz_data
+    return ((int(sz.sep), bool(sz.calc_integ)) + _tensor_shapes(sz)
+            + _tensor_shapes(sess.model.xray_data)
+            + _model_fingerprint(sess))
+
+
+def _model_fingerprint(sess) -> tuple:
+    """Model-level settings a batched group shares from its
+    representative session: the prior boxes and Gaussians, the frozen
+    parameter values and the physicality-veto flag.  Two clusters with
+    equal shapes but other priors must not batch: the group fit would
+    apply the first cluster's model to all."""
+    p = sess.params
+    frozen = tuple((n, float(p[n].val)) for n in p.names if p[n].frozen)
+    return (bool(sess.model.exclude_unphysical_mass), frozen,
+            tuple(np.asarray(p.lo, float)), tuple(np.asarray(p.hi, float)),
+            tuple(bool(g) for g in np.asarray(p.is_gauss)),
+            tuple(np.asarray(p.mu, float)),
+            tuple(np.asarray(p.sigma, float)))
+
+
+def _merge_survey_results(results: list[SurveyResult],
+                          orders: list[list[int]], C: int) -> SurveyResult:
+    """Merge per-group results into one in spec order.  Chains
+    concatenate along the cluster axis (every group runs the same
+    schedule); per-group kernel timings are kept as a list."""
+    n_saved, _, W, D = results[0].chain.shape
+    names = [None] * C
+    chain = np.empty((n_saved, C, W, D), results[0].chain.dtype)
+    log_prob = np.empty((n_saved, C, W), results[0].log_prob.dtype)
+    acceptance = np.empty((C, W), results[0].acceptance.dtype)
+    medians = np.empty((C, D))
+    sds = np.empty((C, D))
+    truths = (np.full((C, D), np.nan)
+              if any(r.truths is not None for r in results) else None)
+    for res, idxs in zip(results, orders):
+        if res.param_names != results[0].param_names:
+            raise ValueError("survey groups thaw different parameters")
+        if res.chain.shape[0] != n_saved or res.chain.shape[2] != W:
+            raise ValueError("survey groups ran different schedules")
+        chain[:, idxs] = res.chain
+        log_prob[:, idxs] = res.log_prob
+        acceptance[idxs] = res.acceptance
+        medians[idxs] = res.medians
+        sds[idxs] = res.sds
+        for i, c in enumerate(idxs):
+            names[c] = res.cluster_names[i]
+            if truths is not None and res.truths is not None:
+                truths[c] = res.truths[i]
+    timings = None
+    if any(r.timings is not None for r in results):
+        timings = {"groups": [r.timings for r in results]}
+    return SurveyResult(
+        cluster_names=names, param_names=results[0].param_names,
+        chain=chain, log_prob=log_prob, acceptance=acceptance,
+        medians=medians, sds=sds, truths=truths, timings=timings)
+
+
+def _build_spec_survey(spec_path, args, device):
+    """--spec: one session per per-cluster config; clusters grouped by
+    (thawed vector, stack signature), data stacked per group.  Returns a
+    list of groups ``(session, sz_stack, xray_stack, centers, names,
+    truths, orig_indices)``."""
+    from .build import build_session
+    from .config import JoXSZConfig
+    from .models.multicluster import stack_sz_data, stack_xray_data
+    from .sampling.mle import find_mle
+
+    spec = json.loads(pathlib.Path(spec_path).read_text())
+    entries = spec.get("clusters")
+    if not entries:
+        raise SystemExit(f"{spec_path}: no 'clusters' list")
+    names, sessions = [], []
+    for e in entries:
+        cfgp = pathlib.Path(e["config"])
+        if not cfgp.is_absolute():
+            cfgp = pathlib.Path(spec_path).parent / cfgp
+        cfg = JoXSZConfig.from_json(cfgp.read_text())
+        names.append(e.get("name", cfg.name))
+        sessions.append(build_session(cfg, device=device))
+
+    centers = [np.asarray(s.params.thawed_values()) for s in sessions]
+    if getattr(args, "mle", False):
+        for c, s in enumerate(sessions):
+            theta, ll = find_mle(s.model.log_like, centers[c], s.params.lo,
+                                 s.params.hi, device=s.device)
+            print(f"  {names[c]}: MLE log-like {ll:.2f}")
+            centers[c] = np.asarray(theta)
+
+    by_sig: dict[tuple, list[int]] = {}
+    for i, s in enumerate(sessions):
+        by_sig.setdefault(
+            (tuple(s.params.thawed), _stack_signature(s)), []).append(i)
+    groups = []
+    for idxs in by_sig.values():
+        groups.append((
+            sessions[idxs[0]],
+            stack_sz_data([sessions[i].model.sz_data for i in idxs]),
+            stack_xray_data([sessions[i].model.xray_data for i in idxs]),
+            np.stack([centers[i] for i in idxs]),
+            [names[i] for i in idxs], None, idxs))
+    return groups
+
+
+def _build_mock_survey(C, args, device):
+    """--mock C: simulate C clusters from the base configuration, at
+    truths that spread ``P_0`` by x0.7..1.3 and ``\\beta`` by -0.03..0.03
+    around the configuration's parameter values."""
+    from .build import build_session
+    from .config import JoXSZConfig
+    from .simulate import simulate_survey
+
+    if args.config:
+        cfg = JoXSZConfig.from_json(pathlib.Path(args.config).read_text())
+    elif args.data_dir:
+        cfg = JoXSZConfig.cl1226(args.data_dir)
+    else:
+        raise SystemExit("--mock needs a base configuration: pass --config "
+                         "(or --data-dir with the CL J1226 data files)")
+    sess = build_session(cfg, device=device)
+    theta0 = np.asarray(sess.params.thawed_values())
+    names = list(sess.params.thawed)
+    rng = np.random.default_rng(args.seed)
+    truths = np.tile(theta0, (C, 1))
+    truths[:, names.index("P_0")] *= np.linspace(0.7, 1.3, C)
+    if "\\beta" in names:
+        truths[:, names.index("\\beta")] += np.linspace(-0.03, 0.03, C)
+    survey = simulate_survey(sess.model, truths, rng)
+    return (sess, survey.sz_stack, survey.xray_stack, truths,
+            [f"mock{c}" for c in range(C)], truths)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="JoXSZ multi-cluster survey fit (PyTorch/CUDA)")
+    g = ap.add_mutually_exclusive_group(required=True)
+    g.add_argument("--spec", metavar="SURVEY_JSON",
+                   help="survey spec: {'clusters': [{'name', 'config'}]}")
+    g.add_argument("--mock", type=int, metavar="C",
+                   help="injection-recovery demo with C clusters simulated "
+                        "from the base configuration")
+    ap.add_argument("--config", help="base JSON config of --mock")
+    ap.add_argument("--data-dir", help="CL J1226 data directory (base of "
+                    "--mock when no --config is given)")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (the kernels' plain versions)")
+    ap.add_argument("--quick", action="store_true",
+                    help="short schedule for smoke testing")
+    ap.add_argument("--walkers", type=int, default=64)
+    ap.add_argument("--burn", type=int, default=1000)
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--thin", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mle", action="store_true",
+                    help="per-cluster MLE warm starts (spec mode)")
+    ap.add_argument("--out", default="survey_summary.json")
+    args = ap.parse_args(argv)
+
+    from .device import resolve_device
+
+    device = resolve_device("cpu" if args.cpu else None)
+    if args.quick:
+        args.walkers, args.burn, args.steps, args.thin = 32, 150, 150, 5
+
+    t0 = time.time()
+    if args.spec:
+        groups = _build_spec_survey(args.spec, args, device)
+    else:
+        sess, sz_stack, xray_stack, centers, names, truths = \
+            _build_mock_survey(args.mock, args, device)
+        groups = [(sess, sz_stack, xray_stack, centers, names, truths,
+                   list(range(len(names))))]
+    C = sum(len(g[6]) for g in groups)
+    print(f"survey of {C} clusters built in {time.time() - t0:.1f}s (joint "
+          f"SZ+X; {len(groups)} stack group(s); device {device})")
+
+    t0 = time.time()
+    results, orders = [], []
+    for gi, (gsess, sz_stack, xray_stack, centers, gnames, truths,
+             idxs) in enumerate(groups):
+        if len(groups) > 1:
+            print(f"group {gi + 1}/{len(groups)}: {len(idxs)} cluster(s) "
+                  f"{gnames}")
+        results.append(fit_survey(
+            gsess, sz_stack, xray_stack, centers, cluster_names=gnames,
+            n_walkers=args.walkers, n_burn=args.burn, n_steps=args.steps,
+            thin=args.thin, seed=args.seed + gi, truths=truths))
+        orders.append(idxs)
+    res = (results[0] if len(results) == 1
+           else _merge_survey_results(results, orders, C))
+
+    evals = C * args.walkers * (args.burn + args.steps)
+    wall = time.time() - t0
+    print(f"fit {C} x {args.walkers} walkers x {args.burn}+{args.steps} "
+          f"steps in {wall:.1f}s ({evals / wall:.0f} evals/s); acceptance "
+          f"{np.round(res.acceptance.mean(axis=1), 3)}")
+    for r, idxs in zip(results, orders):
+        if r.timings is not None:
+            ts, tk = r.timings["setup_s"], r.timings["sampling_s"]
+            evals_g = len(idxs) * args.walkers * (args.burn + args.steps)
+            print(f"  kernel route: {ts:.1f}s setup (constants, init) + "
+                  f"{tk:.1f}s burn+sampling ({evals_g / tk:.0f} evals/s)")
+
+    for c in range(C):
+        print(f"--- {res.cluster_names[c]} ---")
+        for i, n in enumerate(res.param_names):
+            line = (f"  {n:>18} | {res.medians[c, i]:9.3f} "
+                    f"+- {res.sds[c, i]:7.3f}")
+            if res.truths is not None:
+                pull = ((res.medians[c, i] - res.truths[c, i])
+                        / max(res.sds[c, i], 1e-12))
+                line += (f"   truth {res.truths[c, i]:9.3f} "
+                         f"(pull {pull:+.1f} sd)")
+            print(line)
+
+    out = pathlib.Path(args.out)
+    out.write_text(json.dumps(res.to_dict(), indent=2))
+    print(f"written {out}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

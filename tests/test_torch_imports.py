@@ -3,7 +3,10 @@
 
 Checked twice: statically, on every import statement of every source
 file, and dynamically, by importing every module in a fresh interpreter
-and reading ``sys.modules``.
+and reading ``sys.modules``.  Both walk the package's files, so a new
+module is covered as soon as it exists; ``EXPECTED`` names the modules a
+slice must not lose.  The entry points ask for the card unless ``--cpu``
+is passed, and every CUDA source has a binding.
 """
 
 import ast
@@ -32,6 +35,21 @@ def _modules():
             parts = parts[:-1]
         out.append(".".join(parts))
     return out
+
+
+# modules of the slices so far that must stay importable without JAX
+EXPECTED = ["joxsz_torch.run", "joxsz_torch.survey", "joxsz_torch.simulate",
+            "joxsz_torch.models.multicluster", "joxsz_torch.ops.sz_core",
+            "joxsz_torch.ops.consts_layout",
+            "joxsz_torch.ops.multicluster_kernel",
+            "joxsz_torch.ops.joint_kernel", "joxsz_torch.ops.step_kernel",
+            "joxsz_torch.sampling.batched", "joxsz_torch.sampling.kernel",
+            "joxsz_torch.sampling.driver"]
+
+
+@pytest.mark.parametrize("module", EXPECTED)
+def test_expected_module_is_walked(module):
+    assert module in _modules()
 
 
 def _imported_roots(tree: ast.AST):
@@ -89,3 +107,34 @@ def test_chip_smoke_alone_fails(tmp_path):
     """Copied into a directory without the package, the script fails."""
     shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
     _no_result(_run_smoke(tmp_path))
+
+
+@pytest.mark.parametrize("cpu", [False, True], ids=["card", "cpu"])
+@pytest.mark.parametrize("entry", ["run", "survey"])
+def test_entry_points_ask_for_the_card_unless_cpu(entry, cpu, monkeypatch):
+    """``run.main`` and ``survey.main`` resolve their device first:
+    ``None`` (the card, or an error without one) unless ``--cpu``."""
+    import importlib
+
+    import joxsz_torch.device
+
+    class Asked(Exception):
+        pass
+
+    def spy(device=None):
+        raise Asked(device)
+
+    monkeypatch.setattr(joxsz_torch.device, "resolve_device", spy)
+    argv = {"run": ["--config", "none.json"],
+            "survey": ["--mock", "2", "--config", "none.json"]}[entry]
+    main = importlib.import_module(f"joxsz_torch.{entry}").main
+    with pytest.raises(Asked) as asked:
+        main(argv + (["--cpu"] if cpu else []))
+    assert asked.value.args == (("cpu" if cpu else None),)
+
+
+def test_every_cuda_source_has_a_binding():
+    from joxsz_torch.ops import _build
+
+    assert set(_build.SIGNATURES) == {f.stem for f in
+                                      _build.CSRC.glob("*.cu")}
