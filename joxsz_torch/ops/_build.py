@@ -35,6 +35,8 @@ SIGNATURES = {
         "launch_stretch_half": [_P, _P, _P, _P, _I, _I, _I, _U, _I, _F, _F,
                                 _I, _L, _P, _P, _P, _P],
         "launch_swap": [_P, _P, _P, _I, _I, _I, _U, _I, _I, _F, _P],
+        "launch_coupled_half": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _F,
+                                _F, _P, _P, _P, _P],
     },
     "sz_core": {
         "launch_sz_core": [_P, _P, _P, _I, _P, _P, _P, _P, _P],

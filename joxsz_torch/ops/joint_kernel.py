@@ -77,6 +77,13 @@ class JointConsts:
             self.params = LaunchParams(self.ints, self.cix, self.offsets,
                                        self.floats)
 
+    def to(self, device) -> "JointConsts":
+        """These constants on ``device`` (a copy of the buffer; itself
+        when they already lie there)."""
+        if _same_device(self.device, device):
+            return self
+        return _view_consts(self.buf.to(device), self)
+
 
 @dataclasses.dataclass
 class JointConstsStack:
@@ -107,6 +114,31 @@ class JointConstsStack:
     @property
     def params(self) -> LaunchParams:
         return self.clusters[0].params
+
+    def block(self, c0: int, c1: int, device=None) -> "JointConstsStack":
+        """The stack of clusters ``c0 .. c1`` on ``device`` (default: where
+        the stack lies): what one shard of a cluster mesh holds."""
+        buf = self.buf[c0:c1]
+        if device is not None and not _same_device(self.device, device):
+            buf = buf.to(device)
+        return JointConstsStack(buf=buf, clusters=[
+            _view_consts(buf[i], cc)
+            for i, cc in enumerate(self.clusters[c0:c1])])
+
+
+def _same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.type == "cpu" or b.index is None
+                                 or a.index == b.index)
+
+
+def _view_consts(row: torch.Tensor, like: JointConsts) -> JointConsts:
+    """``like``'s layout over the packed row ``row`` (n,)."""
+    arrays = {k: row[like.offsets[k]:like.offsets[k] + v.numel()]
+              .view(v.shape) for k, v in like.arrays.items()}
+    return JointConsts(arrays=arrays, buf=row, offsets=like.offsets,
+                       ints=like.ints, floats=like.floats, cix=like.cix,
+                       params=like.params)
 
 
 def _np(t):

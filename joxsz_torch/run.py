@@ -7,12 +7,16 @@ through the CUDA step kernels; a ``--config`` file's own schedule is kept
 as written.  ``--fused`` builds the batched likelihood whose SZ core is
 the fused kernel of ``ops.sz_core``; ``--no-step-kernel`` samples through
 the plain ensemble samplers on the batched likelihood instead of the
-step kernels (with ``--fused``, on the fused one).
+step kernels (with ``--fused``, on the fused one).  ``--mesh N`` shards
+the sampling phase over N devices (``parallel``): the cards ``cuda:0 ..
+cuda:N-1``, and it refuses more shards than cards; with ``--cpu``, N
+blocks on the CPU.
 
 Usage:
     python -m joxsz_torch.run --config my.json      # on the card
     python -m joxsz_torch.run --config my.json --cpu --quick
     python -m joxsz_torch.run --config my.json --fused --no-step-kernel
+    python -m joxsz_torch.run --config my.json --mesh 4 --temper 0
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ def main(argv=None):
                     "plain ensemble)")
     ap.add_argument("--quick", action="store_true",
                     help="short chains for smoke testing")
+    ap.add_argument("--mesh", type=int, default=0, metavar="N",
+                    help="shard the sampling walkers over an N-device mesh")
     ap.add_argument("--fused", action="store_true",
                     help="use the batched likelihood with the fused SZ-core "
                     "kernel for the walker initialisation and, with "
@@ -115,6 +121,14 @@ def main(argv=None):
         print("sampling via the CUDA step kernels" if device.type == "cuda"
               else "sampling via the kernels' plain torch versions (CPU)")
 
+    mesh = None
+    if args.mesh:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(args.mesh, axis_names=("walker",),
+                         devices=[device] * args.mesh if args.cpu else None)
+        print(f"sampling sharded over {args.mesh} devices")
+
     p = sess.params
     res = run_fit(sess.model, sampler, p.thawed_values(), p.lo, p.hi,
                   p.thawed, log_like_batch=ll_batch, nwalkers=m.nwalkers,
@@ -122,7 +136,7 @@ def main(argv=None):
                   nsteps=m.nsteps, nthin=m.nthin, seed=m.seed,
                   initspread=m.initspread, prelim_iterations=prelim,
                   max_prelim_rounds=rounds, n_temper_rungs=m.n_temper_rungs,
-                  auto_extend=m.auto_extend)
+                  auto_extend=m.auto_extend, mesh=mesh)
     res.print_summary([p[n].unit for n in p.thawed])
     save = pathlib.Path(cfg.save_dir)
     save.mkdir(parents=True, exist_ok=True)

@@ -22,8 +22,22 @@ fused one of ``JointModel.log_like_batch_fused``):
      integrated autocorrelation time and its tau-thinned split-R-hat is
      <= ``target_rhat``, or ``auto_extend`` chunks are spent.
 
-Resume, meshes, non-stretch moves, head promotion and HDF5 chains wait
-for later slices.  Per-phase wall times land in ``FitResult.timings``.
+With a ``mesh`` (``parallel.make_mesh``) only the sampling phase is
+sharded: through the step sampler's ``run_sharded`` /
+``run_tempered_sharded`` (independent per-shard kernel ensembles, or
+below 64 walkers per shard the hybrid coupled sampler); a layout that
+sampler declines (fewer than 2*ndim+2 walkers per shard, or a walker
+count that does not divide) runs as ONE ensemble coupled across the mesh
+(``parallel.kernel_sharded.run_coupled_sharded_ensemble``, kernel 6),
+which is exact for any number of shards, and raises where the half
+ensemble does not divide over them.  Without a step sampler the mesh
+runs the plain sampler ``parallel.sharded.run_sharded_ensemble``.  Prelim
+rounds and burn-in stay on one device.  A result may declare its own frame spacing (the
+hybrid's frames lie slightly more than ``nthin`` steps apart); every
+saved-frame to raw-step conversion reads it.
+
+Resume, non-stretch moves, head promotion and HDF5 chains are not ported
+yet.  Per-phase wall times land in ``FitResult.timings``.
 """
 
 from __future__ import annotations
@@ -83,7 +97,7 @@ def _diag_chain(c: np.ndarray) -> np.ndarray:
     return c[:, :: max(1, w // _DIAG_WALKERS)][:, :_DIAG_WALKERS]
 
 
-def convergence(chain: np.ndarray, thin: int) -> tuple[float, float]:
+def convergence(chain: np.ndarray, thin: float) -> tuple[float, float]:
     """(worst integrated autocorrelation time in raw steps, tau-thinned
     max split-R-hat) of a saved chain; (inf, inf) below 8 frames."""
     if chain.shape[0] < 8:
@@ -101,6 +115,7 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             initspread: float = 0.1, prelim_iterations: int = 1000,
             max_prelim_rounds: int = 10, n_temper_rungs: int = 0,
             auto_extend: int = 0, target_rhat: float = 1.01,
+            do_mle: bool = True, mesh=None,
             verbose: bool = True) -> FitResult:
     """Full fit of ``model`` (a ``JointModel``).
 
@@ -109,7 +124,10 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     when given it judges the walker initialisation, and it is what the
     plain samplers evaluate.  It defaults to the step sampler's kernel-1
     likelihood, else to ``model.log_like_batch``
-    (``joxsz_tpu/sampling/driver.py:181-183``)."""
+    (``joxsz_tpu/sampling/driver.py:181-183``).  ``do_mle=False`` starts
+    the walkers around ``theta0`` itself.  ``mesh``: shard the sampling
+    phase over its ``walker`` axis (stretch moves only; the hybrid
+    realises n_windows * sync_every ~ nsteps steps)."""
     dev = (step_sampler.device if step_sampler is not None
            else model.sz_data.L.device)
     # the kernels' state is float32; the plain samplers work in the
@@ -128,12 +146,26 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             print(f"note: nsteps rounded down to {nsteps} "
                   f"(multiple of thin={nthin})")
 
+    if mesh is not None and step_sampler is not None:
+        # a fit is one logical run: forget a reused sampler's sticky
+        # routing (hybrid or independent ensembles) of an earlier fit
+        step_sampler.new_run()
+        if verbose:
+            print("note: mesh run — the sampling phase uses per-device "
+                  "kernel ensembles; prelim and burn-in stay on one device")
+
     # 1. MLE on the plain float64 likelihood, on the session's device
     t0 = time.time()
-    if verbose:
-        print("MLE warm start...")
-    mle_theta, mle_ll = find_mle(model.log_like, theta0, lo, hi,
-                                 device=dev, verbose=verbose)
+    if do_mle:
+        if verbose:
+            print("MLE warm start...")
+        mle_theta, mle_ll = find_mle(model.log_like, theta0, lo, hi,
+                                     device=dev, verbose=verbose)
+    else:
+        mle_theta = np.asarray(theta0, dtype=np.float64)
+        with torch.no_grad():
+            mle_ll = float(model.log_like(torch.as_tensor(
+                mle_theta, dtype=model.sz_data.L.dtype, device=dev)))
     timings["mle_s"] = time.time() - t0
 
     # 2. walker init
@@ -180,15 +212,48 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     # 5. sampling
     t0 = time.time()
     swap_rounds = []
+    mesh_note = [verbose]
+
+    def declined(to: str):
+        if mesh_note[0]:
+            mesh_note[0] = False
+            print(f"note: sharded kernel sampler declined; running {to}")
+
+    def mesh_run(state):
+        """One untempered sampling call over the mesh.  With a step
+        sampler every route goes through the kernels: per-shard ensembles
+        or the hybrid, else one ensemble coupled across the mesh (it
+        raises for a half-ensemble that does not divide).  Without one,
+        the plain mesh sampler on ``log_like_batch``."""
+        if step_sampler is None:
+            from ..parallel.sharded import run_sharded_ensemble
+
+            with torch.no_grad():
+                return run_sharded_ensemble(log_like_batch, state, nsteps,
+                                            gen, mesh, thin=nthin)
+        r = step_sampler.run_sharded(state, nsteps, rng, mesh, thin=nthin,
+                                     verbose=verbose)
+        if r is None:
+            declined("one ensemble coupled across the mesh")
+            r = step_sampler.run_coupled_sharded(state, nsteps, rng, mesh,
+                                                 thin=nthin)
+        return r
+
     tempered = n_temper_rungs > 1
     if tempered:
         betas = default_betas(n_temper_rungs)
 
         def sample(state):
-            if step_sampler is not None:
+            r = None
+            if mesh is not None and step_sampler is not None:
+                r = step_sampler.run_tempered_sharded(
+                    state, betas, nsteps, rng, mesh, thin=nthin)
+                if r is None:
+                    declined("the single-device tempered kernel sampler")
+            if r is None and step_sampler is not None:
                 r = step_sampler.run_tempered(state, betas, nsteps, rng,
                                               thin=nthin)
-            else:
+            if r is None:
                 with torch.no_grad():
                     r = run_tempered_ensemble(log_like_batch, state, betas,
                                               nsteps, gen, thin=nthin)
@@ -200,9 +265,16 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
                 chain=r.chain, log_prob=r.log_prob,
                 acceptance_fraction=r.acceptance_fraction[0],
                 final_state=r.final_state)
+    elif mesh is not None:
+        sample = mesh_run
     else:
         def sample(state):
             return plain_run(state, nsteps, thin=nthin)
+
+    def spacing(r) -> float:
+        """Raw steps per saved frame of this result: ``nthin`` unless the
+        sampler declared otherwise."""
+        return float(r.frame_spacing or nthin)
 
     res = sample(p1)
     chains, lps, accs = [res.chain], [res.log_prob], [res.acceptance_fraction]
@@ -213,12 +285,14 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     ext = 0
     diag_s = 0.0
     td = time.time()
-    tau, rh = convergence(res.chain, nthin)
+    tau, rh = convergence(res.chain, spacing(res))
     diag_s += time.time() - td
-    while ext < auto_extend and not (steps >= 20 * tau and rh <= target_rhat):
+    chain_steps = res.chain.shape[0] * spacing(res)
+    while ext < auto_extend and not (chain_steps >= 20 * tau
+                                     and rh <= target_rhat):
         if verbose:
-            need = (f"steps {steps} < 20*tau {20 * tau:.0f}"
-                    if steps < 20 * tau else f"split-Rhat {rh:.3f} > "
+            need = (f"steps {chain_steps:.0f} < 20*tau {20 * tau:.0f}"
+                    if chain_steps < 20 * tau else f"split-Rhat {rh:.3f} > "
                     f"{target_rhat}")
             print(f"auto-extend round {ext + 1}/{auto_extend}: {need} — "
                   f"sampling {nsteps} more steps")
@@ -230,13 +304,17 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
         steps += nsteps
         ext += 1
         td = time.time()
-        tau, rh = convergence(np.concatenate(chains), nthin)
+        # the sticky routing keeps every round on one sampling law, so one
+        # spacing describes the whole chain
+        tau, rh = convergence(np.concatenate(chains), spacing(res))
         diag_s += time.time() - td
+        chain_steps = sum(c.shape[0] for c in chains) * spacing(res)
     timings["sample_s"] = time.time() - t0
     timings["sample_diag_s"] = diag_s
     timings["auto_extend_rounds"] = ext
     timings["tau_steps"] = tau
     timings["split_rhat"] = rh
+    timings["frame_spacing"] = spacing(res)
     if swap_rounds:
         timings["swap_acceptance"] = np.mean(swap_rounds, axis=0).tolist()
 

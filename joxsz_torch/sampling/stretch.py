@@ -32,6 +32,10 @@ class EnsembleResult:
     log_prob: np.ndarray              # (n_saved, n_walkers)
     acceptance_fraction: np.ndarray   # (n_walkers,)
     final_state: tuple                # (positions, log_probs) tensors
+    # raw steps per saved frame when it is not the caller's ``thin``: the
+    # hybrid coupled sampler records frames only inside its local windows,
+    # so its frames lie thin * sync_every / (sync_every - 1) steps apart
+    frame_spacing: float | None = None
 
 
 def uniforms(bits: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,10 @@ initialisation and the first log-posteriors through the joint-likelihood
 kernel, once per cluster.  A stack outside the kernel's specialisation
 (clusters whose grids differ: ``StackMismatch``) is sampled through the
 plain batched ensembles on ``make_multicluster_log_like`` instead, with
-a warning.
+a warning.  With a mesh that has a ``cluster`` axis (``--mesh N``) the
+kernel route cuts the cluster grid into blocks of C / N clusters, one
+per device (``parallel.kernel_sharded.make_sharded_multicluster_step``):
+clusters are independent posteriors, so that is exact parallelism.
 
 Two modes:
 
@@ -34,8 +37,9 @@ Usage:
     python -m joxsz_torch.survey --mock 4 --config cfg.json
     python -m joxsz_torch.survey --mock 2 --config cfg.json --cpu --quick
     python -m joxsz_torch.survey --spec survey.json --walkers 256
+    python -m joxsz_torch.survey --mock 4 --config cfg.json --mesh 4
 
-Not ported yet: ``--mesh``, the ``--multihost*`` group, ``--population``,
+Not ported yet: the ``--multihost*`` group, ``--population``,
 ``--save-chains``, ``--sz-only``.
 """
 
@@ -88,7 +92,7 @@ class SurveyResult:
 def fit_survey(session, sz_stack, xray_stack, centers, *,
                cluster_names=None, n_walkers=64, n_burn=500, n_steps=500,
                thin=5, seed=0, init_spread=0.05, truths=None,
-               step_kernel=True) -> SurveyResult:
+               step_kernel=True, mesh=None) -> SurveyResult:
     """Fit C stacked clusters jointly; returns per-cluster posteriors.
 
     ``session``: a single-cluster ``FitSession`` providing the model,
@@ -98,8 +102,10 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
 
     ``step_kernel=True`` runs burn and sampling through the cluster-grid
     kernel; a stack outside its specialisation falls back to the plain
-    batched ensembles with a warning.  A kernel that fails to build or
-    launch raises."""
+    batched ensembles with a warning (a mesh is then ignored, and the
+    warning says so).  A kernel that fails to build or launch raises.
+    ``mesh``: a mesh with a ``cluster`` axis that divides C shards the
+    kernel route over cluster blocks."""
     import torch
 
     from .models.multicluster import make_multicluster_log_like
@@ -120,11 +126,13 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
             out = _fit_survey_kernel(
                 session, sz_stack, xray_stack, centers, n_walkers=n_walkers,
                 n_burn=n_burn, n_steps=n_steps, thin=thin, seed=seed,
-                init_spread=init_spread)
+                init_spread=init_spread, mesh=mesh)
         except StackMismatch as e:
             warnings.warn("configuration outside the multicluster "
                           f"step-kernel specialisation ({e}); falling back "
-                          "to the plain batched ensemble sampler",
+                          "to the plain batched ensemble sampler"
+                          + (" (the 'cluster' mesh request is IGNORED on "
+                             "this path)" if mesh is not None else ""),
                           stacklevel=2)
     timings = None
     if out is not None:
@@ -151,11 +159,14 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
 
 
 def _fit_survey_kernel(session, sz_stack, xray_stack, centers, *,
-                       n_walkers, n_burn, n_steps, thin, seed, init_spread):
+                       n_walkers, n_burn, n_steps, thin, seed, init_spread,
+                       mesh=None):
     """Kernel route: one constants build shared by burn and sampling,
     init and lp0 through the joint-likelihood kernel per cluster, burn on
     Philox seed ``2 seed + 1`` and sampling on ``2 seed + 2``, acceptance
-    reset after the burn.  Returns ``(chain (n_saved, C, W, D), lp_chain,
+    reset after the burn.  Over a mesh with more than one ``cluster``
+    shard, shard s of n runs its cluster block on the call's seed ``* n +
+    s``.  Returns ``(chain (n_saved, C, W, D), lp_chain,
     acceptance, timings)``; raises ``StackMismatch`` for a stack outside
     the specialisation."""
     import torch
@@ -183,11 +194,25 @@ def _fit_survey_kernel(session, sz_stack, xray_stack, centers, *,
     t_setup = time.time() - t0
 
     t0 = time.time()
-    if n_burn:
-        run_multicluster_steps(stack, x, lp, acc, n_burn, 2 * seed + 1)
-        acc.zero_()
-    chain, chain_lp = run_multicluster_steps(stack, x, lp, acc, n_steps,
-                                             2 * seed + 2, thin=thin)
+    n_dev = mesh.shape.get("cluster", 1) if mesh is not None else 1
+    if n_dev > 1:
+        from .parallel.kernel_sharded import make_sharded_multicluster_step
+
+        def seeds(s):
+            return [s * n_dev + d for d in range(n_dev)]
+
+        if n_burn:
+            x, lp, _ = make_sharded_multicluster_step(
+                stack, mesh, n_burn)(x, lp, acc, seeds(2 * seed + 1))
+        x, lp, acc, chain, chain_lp = make_sharded_multicluster_step(
+            stack, mesh, n_steps, thin=thin)(x, lp, torch.zeros_like(acc),
+                                             seeds(2 * seed + 2))
+    else:
+        if n_burn:
+            run_multicluster_steps(stack, x, lp, acc, n_burn, 2 * seed + 1)
+            acc.zero_()
+        chain, chain_lp = run_multicluster_steps(stack, x, lp, acc, n_steps,
+                                                 2 * seed + 2, thin=thin)
     chain = chain.permute(1, 0, 2, 3).cpu().numpy()
     chain_lp = chain_lp.permute(1, 0, 2).cpu().numpy()
     acc = (acc / float(n_steps)).cpu().numpy()
@@ -369,6 +394,10 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--thin", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", type=int, metavar="N",
+                    help="shard the cluster grid of the kernel route over "
+                         "an N-device 'cluster' mesh: one block of C/N "
+                         "clusters per device; N must divide C")
     ap.add_argument("--mle", action="store_true",
                     help="per-cluster MLE warm starts (spec mode)")
     ap.add_argument("--out", default="survey_summary.json")
@@ -392,6 +421,19 @@ def main(argv=None):
     print(f"survey of {C} clusters built in {time.time() - t0:.1f}s (joint "
           f"SZ+X; {len(groups)} stack group(s); device {device})")
 
+    mesh = None
+    if args.mesh:
+        import torch
+
+        from .parallel import make_mesh
+
+        n_have = args.mesh if args.cpu else torch.cuda.device_count()
+        if args.mesh > n_have:
+            raise SystemExit(f"--mesh {args.mesh} needs {args.mesh} "
+                             f"devices, have {n_have}")
+        mesh = make_mesh(args.mesh, axis_names=("cluster",),
+                         devices=[device] * args.mesh if args.cpu else None)
+
     t0 = time.time()
     results, orders = [], []
     for gi, (gsess, sz_stack, xray_stack, centers, gnames, truths,
@@ -399,10 +441,17 @@ def main(argv=None):
         if len(groups) > 1:
             print(f"group {gi + 1}/{len(groups)}: {len(idxs)} cluster(s) "
                   f"{gnames}")
+        # a spec can split into groups whose cluster count does not divide
+        # over the mesh: those run on one device, with a note
+        gmesh = mesh
+        if mesh is not None and len(idxs) % args.mesh:
+            print(f"  note: {len(idxs)} cluster(s) don't divide over the "
+                  f"{args.mesh}-device mesh — this group runs on one device")
+            gmesh = None
         results.append(fit_survey(
             gsess, sz_stack, xray_stack, centers, cluster_names=gnames,
             n_walkers=args.walkers, n_burn=args.burn, n_steps=args.steps,
-            thin=args.thin, seed=args.seed + gi, truths=truths))
+            thin=args.thin, seed=args.seed + gi, truths=truths, mesh=gmesh))
         orders.append(idxs)
     res = (results[0] if len(results) == 1
            else _merge_survey_results(results, orders, C))

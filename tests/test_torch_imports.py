@@ -44,7 +44,10 @@ EXPECTED = ["joxsz_torch.run", "joxsz_torch.survey", "joxsz_torch.simulate",
             "joxsz_torch.ops.multicluster_kernel",
             "joxsz_torch.ops.joint_kernel", "joxsz_torch.ops.step_kernel",
             "joxsz_torch.sampling.batched", "joxsz_torch.sampling.kernel",
-            "joxsz_torch.sampling.driver"]
+            "joxsz_torch.sampling.driver", "joxsz_torch.ops.coupled_kernel",
+            "joxsz_torch.parallel", "joxsz_torch.parallel.mesh",
+            "joxsz_torch.parallel.sharded",
+            "joxsz_torch.parallel.kernel_sharded"]
 
 
 @pytest.mark.parametrize("module", EXPECTED)
