@@ -15,59 +15,79 @@ fit (``run_fit(mesh=...)`` over four shards, ``run --mesh``, ``survey
   3. kernel 1 vs plain float32 (and plain float64) on 4096 rows, vetoed
      rows included: identical -inf masks, finite values within
      rtol=2e-4, atol=0.5, and within 0.05 of the plain float32 version;
-  4. kernels 2 and 3 vs the plain step, step for step on the same
-     Philox bits, for 5 steps at W=1024, K=1 (the plain sampler), 20
-     steps at W=1024, K=4 (the tempered one) and 20 steps at W=32, K=1
-     and K=4 (one shard's block on the mesh path): accept and swap decisions
-     identical to the plain step's on kernel 1's likelihood except where
-     |log u - threshold| < 1e-3, and to the fully plain step's except
-     where the plain f32 likelihood moves the threshold (by at most
-     0.05 beta); where they agree, positions to 1e-5 relative and lp
-     within rtol=2e-4, atol=0.5; stored lp equal to a fresh kernel-1
-     evaluation;
+  4. the step kernel (n steps per cooperative launch: two half-steps and
+     the swap sweep per step) vs the plain step, step for step on the
+     same Philox bits, at W=1024, K=1 (5 steps, the plain sampler),
+     W=1024, K=4 (20 steps, the tempered one) and W=32, K=1 and K=4 (20
+     steps, one shard's block on the mesh path): each step a launch of
+     that one step from the kernel's state; decisions identical to the
+     plain step's on kernel 1's likelihood except where |log u -
+     threshold| < 1e-3, and to the fully plain step's except where the
+     plain f32 likelihood moves the threshold (by at most 0.05 beta);
+     where none lies within 1e-3, state, swap count and frame equal to the
+     plain step on kernel 1's likelihood bit for bit; where decisions
+     agree with the fully plain step, positions to 1e-5 relative and lp
+     within rtol=2e-4, atol=0.5; one launch of all the steps at thin 1
+     and thin 5 gives the same state and frames; stored lp equal to a
+     fresh kernel-1 evaluation;
   5. the main path, with every launch counter set to 0 just before it:
-     acceptance in (0.1, 0.6), finite positive swap rates, every kernel
-     launched;
-  6. timings: CUDA events over back-to-back launches beside each
-     kernel's bound, and torch.profiler's device time per launch;
+     acceptance in (0.1, 0.6), finite positive swap rates, exactly one
+     step-kernel launch per chunk of steps;
+  6. the step kernel's times: per step by CUDA events and torch.profiler
+     over launches of 100 steps at K=1 (W=1024 and W=32), K=4 and on the
+     cluster grid of 4 copies of one cluster's constants (the K=4 step
+     without its swap sweep: the sweep's share is the difference), the
+     device-busy share, each beside its bound, the grid and shared memory
+     per block, ptxas registers, the plain versions' times;
   7. the fused SZ core vs its plain float32 version on 4096 rows drawn as
      phase 3 draws them, with rows whose temperatures leave the
      conversion table and rows holding a NaN: identical NaN masks,
      finite values within rtol=2e-5 of |ll| plus atol=1e-3;
-  8. the cluster-grid half-step vs its plain version, step for step on
+  8. the cluster-grid step kernel vs its plain version, step for step on
      the same Philox bits at C=4, W=1024 and at one mesh shard's block
-     (C=1 of the stacked constants) for 5 steps (decisions,
-     positions, lp as in phase 4; stored lp equal to a fresh kernel-1
-     evaluation per cluster), and a negative control: the same
+     (C=1 of the stacked constants) for 5 steps (decisions, state,
+     frames, positions, lp as in phase 4; stored lp equal to a fresh
+     kernel-1 evaluation per cluster), its time per step over a launch of
+     100 steps, and a negative control: the same
      parameters under two clusters' constants give different
      log-posteriors, and the kernel's stored lp of a cluster is not what
      cluster 0's constants would give;
   9. the survey path at full width and depth, launch counters set to 0
      just before: acceptance in (0.1, 0.6) for every cluster, every
-     truth within 5 sd of its median, the cluster-grid kernel launched;
+     truth within 5 sd of its median, one launch of the cluster-grid
+     step kernel each for burn-in and sampling;
  10. the fused-likelihood path at full width and a cut depth (the plain
      sampler loop is host-bound): finite lp, acceptance in (0.1, 0.6),
      the SZ-core kernel launched;
  11. the coupled half-step (kernel 6) at W=1024 and W=128 over 1, 2 and
      4 shards, all on this card, for 5 steps: decisions, positions and
-     lp against its plain version as in phase 4; after every half-step
-     the shards' blocks joined equal, bit for bit, kernel 2 at K=1 on the
-     whole ensemble (so they are equal across shard counts); stored lp
+     lp against its plain version as in phase 4; after every step the
+     shards' blocks joined equal, bit for bit, the step kernel at K=1 on
+     the whole ensemble (so they are equal across shard counts); stored lp
      equal to a fresh kernel-1 evaluation; a wrong row offset changes
      the result; times at 512, 128 and 16 rows per shard;
+ 13. (run after phase 11) kernels 1, 4, 5, 6 and the step kernel at
+     shapes whose constants do not fit in a block's shared memory, as
+     phases 3, 4, 7, 8 and 11 check them, on two more synthetic datasets
+     of a cluster at z = 0.3: on a 200" map (542 pressure radii, 127 map
+     radii: the constants read in place) and integrated out to 20 Mpc
+     (2167 pressure radii: the tiles' scratch in global memory too), the
+     launch plan checked;
  12. the mesh path at full width, launch counters set to 0 just before:
      ``run_fit`` over a mesh of four shards (all on this card: the entry
      point ``run --mesh 4`` refuses more shards than cards) at W=128,
      untempered, thin 5, which must take the hybrid coupled sampler:
      the declared frame spacing, lp equal to a kernel-1 evaluation of the
-     last frame, acceptance in (0.1, 0.6), kernels 2 and 6 launched; the
-     coupled sampler alone for its time per step; three short fits over
-     four shards on this card with exact launch counts: ``run_fit`` at a
-     layout the per-shard sampler declines (the coupled sampler, kernel
-     6, never the plain step), a tempered ``run_fit`` (kernels 2-3 per
+     last frame, acceptance in (0.1, 0.6), one step-kernel launch per
+     window and shard and two of kernel 6; the coupled sampler alone for
+     its time per step; three short fits over four shards on this card
+     with exact launch counts: ``run_fit`` at a layout the per-shard
+     sampler declines (the coupled sampler, kernel 6, never the plain
+     step), a tempered ``run_fit`` (one step-kernel launch per chunk and
      shard; the runner equal to per-block runs, bit for bit) and
-     ``fit_survey`` over a ``cluster`` mesh (kernel 4 on a block per
-     shard; every shard equal to its block run alone, bit for bit);
+     ``fit_survey`` over a ``cluster`` mesh (one launch of kernel 4 per
+     call and shard; every shard equal to its block run alone, bit for
+     bit);
      ``run --mesh 1`` and ``survey --mock 4 --mesh 1`` through their
      entry points.
 
@@ -107,6 +127,8 @@ FUSED_BURN, FUSED_STEPS = 200, 400
 # the mesh path: W, shards, thin (-> sync_every 101), windows of the hybrid
 W_MESH, N_SHARDS, THIN_MESH, MESH_WINDOWS = 128, 4, 5, 40
 STEPS_CMP_COUPLED = 5
+STEPS_CMP_LARGE = 5             # phase 13: steps at the larger shapes
+TIME_STEPS = 100                # steps per timed launch: one chunk
 
 
 def card_line() -> str:
@@ -227,13 +249,15 @@ def ll_rows(sess, seed: int, n: int):
     return torch.tensor(rows, dtype=torch.float64, device=sess.device)
 
 
-def phase_joint(sess, c, seed: int) -> dict:
+def check_joint(sess, c, seed: int, n: int):
+    """Kernel 1 on n rows (ll_rows) against the plain float32 and float64
+    versions.  Returns (float32 rows, max |err| vs plain f32, vs plain
+    f64, vetoed rows)."""
     import numpy as np
     import torch
-    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_plain,
-                                              joint_ll_flops, joint_ll_bytes)
+    from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
 
-    rows64 = ll_rows(sess, seed, B_LL)
+    rows64 = ll_rows(sess, seed, n)
     rows = rows64.to(torch.float32).contiguous()
     k = joint_ll(rows, c)
     p = joint_ll_plain(rows, c)
@@ -247,7 +271,7 @@ def phase_joint(sess, c, seed: int) -> dict:
     check(np.array_equal(np.isfinite(f64), fin), "kernel 1 -inf mask "
           "differs from the plain float64 version")
     n_veto = int((~fin).sum())
-    check(n_veto >= 3 * B_LL // 16, f"only {n_veto} vetoed rows")
+    check(n_veto >= 3 * n // 16, f"only {n_veto} vetoed rows")
     err32 = float(np.max(np.abs(k[fin] - p[fin])))
     err64 = float(np.max(np.abs(k[fin] - f64[fin])))
     check(np.allclose(k[fin], p[fin], rtol=RTOL, atol=ATOL),
@@ -256,6 +280,15 @@ def phase_joint(sess, c, seed: int) -> dict:
           f">= {TIGHT_ATOL}")
     check(np.allclose(k[fin], f64[fin], rtol=RTOL, atol=ATOL),
           f"kernel 1 vs plain f64: max abs err {err64}")
+    return rows, err32, err64, n_veto
+
+
+def phase_joint(sess, c, seed: int) -> dict:
+    import torch
+    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_plain,
+                                              joint_ll_flops, joint_ll_bytes)
+
+    rows, err32, err64, n_veto = check_joint(sess, c, seed, B_LL)
     ms = cuda_ms(lambda: joint_ll(rows, c), reps=50)
     plain_ms = cuda_ms(lambda: joint_ll_plain(rows, c), reps=10)
     flops = joint_ll_flops(c) * B_LL
@@ -313,101 +346,176 @@ def check_half_against_plain(what: str, dec, xk, lpk, plain, plain_k1,
             float((lps[fin] - lpq[fin]).abs().max()))
 
 
-def compare_steps(x, lp, acc, betas, c, step_seed: int, n_steps: int):
-    """Kernels 2 and 3 against their plain versions, step for step from
-    state x (K, W, D), lp/acc (K, W) at inverse temperatures ``betas`` on
-    the same Philox bits.  Returns the final state, sacc and the largest
-    half-step lp and swap errors."""
-    import numpy as np
+def compare_fused(what: str, x, lp, acc, n_steps: int, plain_half,
+                  kernel, tol, swaps_ref=None):
+    """The step kernel against its plain step, step for step from state x
+    (G, W, D), lp/acc (G, W) on the same Philox bits.
+
+    Step s runs as a launch of one step (``kernel(x, lp, acc, step0=s,
+    n_steps=1, thin=1)`` -> (frames (Gs, 1, W, D), frames_lp, swaps
+    accepted)) from the kernel's own state, against the plain step from
+    the same state: ``plain_half(x, lp, acc, which, step, k1)`` (on
+    kernel 1's likelihood when ``k1``, else on the plain f32 one) and, for
+    rungs, ``swaps_ref(x, lp, step)`` -> (x, lp, [accept], [margin]).
+    Decisions must equal the kernel-1 step's except within MARGIN of a
+    threshold; unless such a decision went the other way, the kernel's
+    state, frame and swap count equal the kernel-1 step's bit for bit;
+    against the fully plain step thresholds move by at most ``tol`` +
+    MARGIN, positions agree to 1e-5 relative and lp within RTOL / ATOL
+    where decisions do.
+    Then one launch of all n_steps at thin 1 and at thin 5 must give the
+    same frames and state as the launches of one step.  Returns (final x,
+    lp, acc, decisions, steps where a near-threshold decision flipped,
+    differences from the fully plain step, largest lp error, swaps)."""
+    import torch
+
+    x0, lp0, acc0 = x.clone(), lp.clone(), acc.clone()
+    G, W, _ = x.shape
+    H = W // 2
+    n_dec = n_near_steps = n_diff = 0
+    err = 0.0
+    frames, n_swaps = [], 0
+    for step in range(n_steps):
+        xr, lr, ar = x, lp, acc
+        halves = []
+        for which in (0, 1):
+            xp, lpp, _, accp, margin = plain_half(xr, lr, ar, which, step,
+                                                  False)
+            xr, lr, ar, acc1, margin1 = plain_half(xr, lr, ar, which, step,
+                                                   True)
+            halves.append((which, xr, lr, accp, margin, xp, lpp, acc1,
+                           margin1))
+        sw_acc, near_swap = 0, False
+        if swaps_ref is not None:
+            xr, lr, accs, margins = swaps_ref(xr, lr, step)
+            sw_acc = sum(int(a.sum()) for a in accs)
+            near_swap = any(bool((m.abs() < MARGIN).any()) for m in margins)
+        xk, lk, ak = x.clone(), lp.clone(), acc.clone()
+        fr, fr_lp, nsw = kernel(xk, lk, ak, step, 1, 1)
+        dec = (ak - acc) > 0.5
+        for which, xh, lh, accp, margin, xp, lpp, acc1, margin1 in halves:
+            mv = slice(which * H, (which + 1) * H)
+            nd, nn, e = check_half_against_plain(
+                f"{what}, step {step}, half {which}", dec[:, mv], xh[:, mv],
+                lh[:, mv], (xp[:, mv], lpp[:, mv], accp, margin),
+                (acc1, margin1), tol)
+            n_dec, n_diff, err = n_dec + nd, n_diff + nn, max(err, e)
+            flipped = not torch.equal(dec[:, mv], acc1)
+            if flipped:
+                break       # a near-threshold flip: half 1 saw another state
+        same = (torch.equal(xk, xr) and torch.equal(lk, lr)
+                and torch.equal(ak, ar) and nsw == sw_acc)
+        if flipped or (near_swap and not same):
+            n_near_steps += 1
+        else:
+            check(same, f"{what}, step {step}: the kernel's state differs "
+                  "from the plain step on kernel 1's likelihood")
+        cold = xk if fr.shape[0] == G else xk[:1]
+        check(torch.equal(fr[:, 0], cold) and torch.equal(
+            fr_lp[:, 0], (lk if fr.shape[0] == G else lk[:1])),
+            f"{what}, step {step}: the frame is not the state")
+        frames.append((fr[:, 0].clone(), fr_lp[:, 0].clone()))
+        n_swaps += nsw
+        x, lp, acc = xk, lk, ak
+    for thin in (1, 5):
+        if n_steps % thin:
+            continue
+        xl, ll, al = x0.clone(), lp0.clone(), acc0.clone()
+        fr, fr_lp, nsw = kernel(xl, ll, al, 0, n_steps, thin)
+        check(torch.equal(xl, x) and torch.equal(ll, lp)
+              and torch.equal(al, acc) and nsw == n_swaps,
+              f"{what}: one launch of {n_steps} steps differs from "
+              "launches of one step")
+        for f in range(n_steps // thin):
+            got = frames[(f + 1) * thin - 1]
+            check(torch.equal(fr[:, f], got[0])
+                  and torch.equal(fr_lp[:, f], got[1]),
+                  f"{what}: frame {f} at thin {thin} differs")
+    check(float(acc.mean()) > 0, f"{what}: no move was accepted")
+    check(swaps_ref is None or G == 1 or n_swaps > 0,
+          f"{what}: no swap was accepted")
+    return x, lp, acc, n_dec, n_near_steps, n_diff, err, n_swaps
+
+
+def compare_steps(x, lp, acc, betas, c, step_seed: int, n_steps: int,
+                  tag: str = "[4]"):
+    """Phase 4: the step kernel on rung state x (K, W, D) at inverse
+    temperatures ``betas`` against the plain step (``compare_fused``).
+    Returns the final state and the largest lp error."""
     import torch
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
-    from joxsz_torch.ops.step_kernel import (half_step_plain, swap_plain,
-                                             stretch_half, swap,
-                                             philox_stream)
+    from joxsz_torch.ops.step_kernel import (half_step_plain, philox_stream,
+                                             stretch_steps, swap_plain)
+    from joxsz_torch.sampling.kernel import rung_tensors
 
     K, W, D = x.shape
     H = W // 2
-    beta = torch.tensor(betas, dtype=torch.float32, device=c.device)
-    db = [float(np.float32(betas[k] - betas[k + 1])) for k in range(K - 1)]
+    beta, db = rung_tensors(betas, c.device)
+    dbs = db.tolist()
+    bits = philox_stream(step_seed, c.device)
     lp_fn = lambda th: joint_ll_plain(th, c)              # noqa: E731
     lp_k1 = lambda th: joint_ll(th, c)                    # noqa: E731
-    sacc = torch.zeros(max(K - 1, 1), dtype=torch.int32, device=c.device)
-    bits = philox_stream(step_seed, c.device)
-    n_dec = n_near = n_swaps = 0
-    err_half = err_swap = 0.0
-    for step in range(n_steps):
-        for which in (0, 1):
-            b = bits(step, which, K * H, 4)
-            xp, lpp, _, accp, margin = half_step_plain(x, lp, acc, beta,
-                                                       which, b, lp_fn)
-            # the plain step on kernel 1's likelihood: the step's own logic
-            _, _, _, acc1, margin1 = half_step_plain(x, lp, acc, beta,
-                                                     which, b, lp_k1)
-            xk, lpk, acck = x.clone(), lp.clone(), acc.clone()
-            stretch_half(xk, lpk, acck, beta, which, step_seed, step, c)
-            mv = slice(which * H, (which + 1) * H)
-            nd, nn, e = check_half_against_plain(
-                f"K={K}, step {step}, half {which}",
-                (acck - acc)[:, mv] > 0.5, xk[:, mv], lpk[:, mv],
-                (xp[:, mv], lpp[:, mv], accp, margin), (acc1, margin1),
-                beta[:, None] * TIGHT_ATOL)
-            n_dec, n_near, err_half = n_dec + nd, n_near + nn, max(err_half,
-                                                                   e)
-            x, lp, acc = xk, lpk, acck
+
+    def plain_half(x, lp, acc, which, step, k1):
+        return half_step_plain(x, lp, acc, beta, which,
+                               bits(step, which, K * H, 4),
+                               lp_k1 if k1 else lp_fn)
+
+    def swaps_ref(x, lp, step):
+        accs, margins = [], []
         for kk in range(K - 1):
             u = torch.stack([bits(step, 16 + 2 * kk + hb, H, 1)[:, 0]
                              for hb in (0, 1)])
-            xp, lpp, accp, margin = swap_plain(x, lp, kk, step_seed, step,
-                                               u, db[kk])
-            xk, lpk = x.clone(), lp.clone()
-            swap(xk, lpk, sacc, kk, step_seed, step, db[kk])
-            moved = (xk[kk] != x[kk]).any(dim=1).reshape(2, H)
-            near = margin.abs() < MARGIN
-            check(not bool(((moved != accp) & ~near).any()),
-                  f"swap decisions differ (step {step}, boundary {kk})")
-            if not bool((moved != accp).any()):
-                err_swap = max(err_swap, float((xk - xp).abs().max()),
-                               float((lpk - lpp).abs().max()))
-            n_swaps += int(moved.sum())
-            x, lp = xk, lpk
+            x, lp, a, m = swap_plain(x, lp, kk, step_seed, step, u, dbs[kk])
+            accs.append(a)
+            margins.append(m)
+        return x, lp, accs, margins
+
+    def kernel(x, lp, acc, step0, n, thin):
+        sacc = torch.zeros(max(K - 1, 1), dtype=torch.int32, device=c.device)
+        fr, fr_lp = stretch_steps(x, lp, acc, sacc, beta, db, step_seed, n,
+                                  c, thin=thin, step0=step0)
+        return fr[None], fr_lp[None], int(sacc[:K - 1].sum())
+
+    x, lp, acc, n_dec, n_near, n_diff, err, n_swaps = compare_fused(
+        f"K={K}, W={W}", x, lp, acc, n_steps, plain_half, kernel,
+        beta[:, None] * TIGHT_ATOL, swaps_ref if K > 1 else None)
     torch.cuda.synchronize()
-    check(float(acc.mean()) > 0, f"K={K}: no move was accepted")
-    check(K == 1 or n_swaps > 0, "no swap was accepted")
     fresh = joint_ll(x.reshape(K * W, D), c).reshape(K, W)
     check(torch.equal(fresh, lp), f"K={K}: stored lp differs from a fresh "
           "kernel-1 evaluation")
-    check(int(sacc[:K - 1].sum()) == n_swaps, "swap counter lost accepts")
-    print(f"[4] {n_steps} steps at W={W}, K={K}: {n_dec} half-step "
-          f"decisions, {n_near} near-threshold differences, {n_swaps} "
-          f"swaps; max |lp err| {err_half:.4g}; stored lp == fresh kernel 1")
-    return x, lp, acc, sacc, err_half, err_swap
+    print(f"{tag} {n_steps} steps at W={W}, K={K}: {n_dec} half-step "
+          f"decisions, {n_diff} differ from the fully plain step, {n_near} "
+          f"steps where a decision within {MARGIN} of its threshold went "
+          "the other way, "
+          f"{n_swaps} swaps; state == the plain step on kernel 1's "
+          f"likelihood elsewhere; one launch of {n_steps} steps at thin 1 "
+          f"and 5 == launches of one step; max |lp err| {err:.4g}; stored "
+          "lp == fresh kernel 1")
+    return x, lp, acc, err
 
 
-def half_step_bound(c, K: int, W: int) -> tuple[float, str]:
-    """(bound ms, what bounds it) of one half-step launch at (K, W)."""
+def steps_bound(c, K: int, W: int, n: int) -> float:
+    """Bound ms of one launch of n steps at (K, W): the likelihood of K W
+    evaluations a step (operations), or the state read and written once
+    and the constants read once, whichever is longer."""
     from joxsz_torch.ops.joint_kernel import joint_ll_flops
 
-    D, rows = c.ints["D"], K * (W // 2)
-    flops = joint_ll_flops(c) * rows
-    nbytes = 4 * (K * W * D + 3 * K * W + K + c.buf.numel() + rows * (D + 2))
-    by = "bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S \
-        else "operations"
-    return 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S), by
+    D = c.ints["D"]
+    flops = joint_ll_flops(c) * K * W * n
+    nbytes = 4 * (2 * K * W * (D + 2) + K + c.buf.numel())
+    return 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
 
 
 def phase_steps(sess, c, seed: int) -> tuple[dict, dict, float, float]:
     import numpy as np
     import torch
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
-    from joxsz_torch.ops.step_kernel import (
-        half_step_plain, swap_plain, stretch_half, swap, philox_stream)
     from joxsz_torch.sampling.tempered import default_betas
     from joxsz_torch.synth import TRUTH
 
     K, W, D = K_SMOKE, W_SMOKE, c.ints["D"]
-    H = W // 2
     dev = c.device
-    lp_fn = lambda th: joint_ll_plain(th, c)              # noqa: E731
     step_seed = int(np.random.default_rng(seed).integers(0, 2 ** 31 - 1))
     th0 = np.array([TRUTH[k] for k in sess.params.thawed])
     rng = np.random.default_rng(seed + 1)
@@ -420,100 +528,127 @@ def phase_steps(sess, c, seed: int) -> tuple[dict, dict, float, float]:
         return x, lp, torch.zeros((k, w), dtype=torch.float32, device=dev)
 
     # K=1, the plain sampler of the prelim rounds and burn-in
-    x1, lp1, acc1, _, err_half1, _ = compare_steps(
-        *start(1), np.ones(1), c, step_seed, STEPS_CMP_K1)
-    beta1 = torch.ones(1, dtype=torch.float32, device=dev)
+    err1 = compare_steps(*start(1), np.ones(1), c, step_seed,
+                         STEPS_CMP_K1)[3]
     # K=4, the tempered sampler
     betas = default_betas(K)
-    x, lp, acc, sacc, err_half, err_swap = compare_steps(
-        *start(K), betas, c, step_seed, STEPS_CMP)
-    # the shapes the mesh path gives kernels 2 and 3: one shard's block of
+    err4 = compare_steps(*start(K), betas, c, step_seed, STEPS_CMP)[3]
+    # the shapes the mesh path gives the step kernel: one shard's block of
     # W_MESH / N_SHARDS walkers, plain and tempered
     w_loc = W_MESH // N_SHARDS
     err_mesh = max(
         compare_steps(*start(1, w_loc), np.ones(1), c, step_seed,
-                      STEPS_CMP)[4],
-        compare_steps(*start(K, w_loc), betas, c, step_seed, STEPS_CMP)[4])
-    beta = torch.tensor(betas, dtype=torch.float32, device=dev)
-    db = [float(np.float32(betas[k] - betas[k + 1])) for k in range(K - 1)]
-    bits = philox_stream(step_seed, dev)
-
-    # timings: one launch of each, a full tempered step, plain versions
-    half1_ms = cuda_ms(lambda: stretch_half(x1, lp1, acc1, beta1, 0,
-                                            step_seed, 0, c), reps=50)
-    half1_plain_ms = cuda_ms(lambda: half_step_plain(
-        x1, lp1, acc1, beta1, 0, bits(0, 0, H, 4), lp_fn), reps=10)
-    half1_bound, half1_by = half_step_bound(c, 1, W)
-    dev1_us, _ = device_time_per_launch(
-        lambda: stretch_half(x1, lp1, acc1, beta1, 0, step_seed, 0, c),
-        reps=100)
-    xs, lps, accs = x.clone(), lp.clone(), acc.clone()
-    half_ms = cuda_ms(lambda: stretch_half(xs, lps, accs, beta, 0,
-                                           step_seed, 0, c), reps=50)
-    half_plain_ms = cuda_ms(lambda: half_step_plain(
-        xs, lps, accs, beta, 0, bits(0, 0, K * H, 4), lp_fn), reps=10)
-    half_bound, half_by = half_step_bound(c, K, W)
-    # accepted swaps over the timed launches (warm-up included) set the
-    # swap's row traffic
-    sacc.zero_()
-    swap_reps, swap_warm = 200, 2
-    swap_ms = cuda_ms(lambda: swap(xs, lps, sacc, 0, step_seed, 0, db[0]),
-                      reps=swap_reps, warmup=swap_warm)
-    swap_acc = float(sacc[0]) / (swap_reps + swap_warm)
-    uu = torch.stack([bits(0, 16 + hb, H, 1)[:, 0] for hb in (0, 1)])
-    swap_plain_ms = cuda_ms(lambda: swap_plain(xs, lps, 0, step_seed, 0, uu,
-                                               db[0]), reps=50)
-
-    def one_step():
-        for which in (0, 1):
-            stretch_half(xs, lps, accs, beta, which, step_seed, 0, c)
-        for kk in range(K - 1):
-            swap(xs, lps, sacc, kk, step_seed, 0, db[kk])
-
-    step_ms = cuda_ms(one_step, reps=100)
-    dev_us, busy = device_time_per_launch(one_step, reps=100)
-    if dev_us:
-        print(f"[6] device time per launch in a tempered step: "
-              + ", ".join(f"{k} {v:.2f} us" for k, v in dev_us.items())
-              + f"; device busy {100 * busy:.1f}% of the step's wall time")
-    else:
-        print("[6] device time per launch: not measured (the profiler "
-              "recorded no device kernels)")
-    # swap: lp of both slots read for all 2H pairs; for each accepted pair
-    # both rows of D floats read and written and both lp written
-    swap_bytes = 4 * (2 * W + swap_acc * (4 * D + 2))
-    swap_bound = 1e3 * swap_bytes / PEAK_BYTES_S
-    dev1 = (f"{dev1_us['stretch_half_kernel']:.2f} us on the device"
-            if "stretch_half_kernel" in dev1_us else "device us not measured")
-    print(f"[6] K=1 half-step {half1_ms:.4f} ms ({dev1}; plain "
-          f"{half1_plain_ms:.3f} ms, bound {half1_bound:.4f} ms) at W={W}")
-    print(f"[6] K={K} half-step {half_ms:.4f} ms (plain {half_plain_ms:.3f} "
-          f"ms, bound {half_bound:.4f} ms); swap {swap_ms:.4f} ms (plain "
-          f"{swap_plain_ms:.3f} ms, bound {swap_bound:.6f} ms at "
-          f"{swap_acc:.1f} of {W} pairs accepted per launch); tempered "
-          f"step {1e3 * step_ms:.1f} us at W={W}, K={K}")
-    k2 = dict(name="stretch_half", route="cuda",
-              source="joxsz_torch/csrc/stretch_step.cu",
-              replaces="joxsz_tpu/ops/pallas_joint.py:1242",
-              max_abs_err=max(err_half, err_half1, err_mesh), ms=half_ms,
-              plain_ms=half_plain_ms, bound_ms=half_bound, bound_by=half_by,
-              library_ms=None)
-    k3 = dict(name="swap", route="cuda",
-              source="joxsz_torch/csrc/stretch_step.cu",
-              replaces="joxsz_tpu/ops/pallas_joint.py:2105",
-              max_abs_err=err_swap, ms=swap_ms, plain_ms=swap_plain_ms,
-              bound_ms=swap_bound, bound_by="bytes", library_ms=None)
-    plain_step_ms = 2 * half_plain_ms + (K - 1) * swap_plain_ms
-    return k2, k3, step_ms, plain_step_ms
+                      STEPS_CMP)[3],
+        compare_steps(*start(K, w_loc), betas, c, step_seed, STEPS_CMP)[3])
+    return dict(err1=max(err1, err_mesh), err4=max(err4, err_mesh),
+                start=start, step_seed=step_seed, betas=betas)
 
 
-def phase_sz_core(cfg, sess, seed: int) -> dict:
-    """Phase 7: kernel 5 (the fused SZ core) vs ``sz_core_plain``."""
+def phase_step_times(sess, c, st: dict) -> tuple[dict, dict, dict]:
+    """Phase 6: the step kernel's times on the card beside its bounds."""
+    import numpy as np
+    import torch
+    from joxsz_torch.models.multicluster import (stack_sz_data,
+                                                 stack_xray_data)
+    from joxsz_torch.ops import _build
+    from joxsz_torch.ops.joint_kernel import joint_ll_plain, pack_consts_stack
+    from joxsz_torch.ops.multicluster_kernel import stretch_steps_multicluster
+    from joxsz_torch.ops.step_kernel import (philox_stream, step_kernel_config,
+                                             steps_plain, stretch_steps)
+    from joxsz_torch.sampling.kernel import rung_tensors
+
+    card = card_line()
+    W, K, n = W_SMOKE, K_SMOKE, TIME_STEPS
+    start, step_seed = st["start"], st["step_seed"]
+    dev = c.device
+    for line in _build.BUILD_INFO.get("ptxas", {}).get("stretch_step",
+                                                        "").splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[6] ptxas, stretch_step: {line.strip()}")
+    rows = {}
+
+    def run_rungs(k, w, betas):
+        x, lp, acc = start(k, w)
+        beta, db = rung_tensors(betas, dev)
+        sacc = torch.zeros(max(k - 1, 1), dtype=torch.int32, device=dev)
+        return (lambda: stretch_steps(x, lp, acc, sacc, beta, db, step_seed,
+                                      n, c)), (x, lp, acc, beta, db)
+
+    def timed(label, fn, k, w):
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        dev_us, busy = device_time_per_launch(fn, reps=5)
+        us = dev_us.get("stretch_steps_kernel")
+        blocks, smem, _, _ = step_kernel_config(c, k, w)
+        step_us = us / n if us else float("nan")
+        bound = steps_bound(c, k, w, n) / n * 1e3
+        print(f"[6] {label}: {1e3 * ms / n:.2f} us per step by CUDA events, "
+              + (f"{step_us:.2f} us of device time ({step_us / 2:.2f} us per "
+                 f"half-step of {k * w // 2} rows)" if us else
+                 "device time not measured")
+              + f", device busy {100 * busy:.1f}%; bound {bound:.2f} us per "
+              f"step (operations); grid {blocks} blocks x 512 threads, "
+              f"{smem} B of shared memory per block; {card}")
+        rows[label] = dict(ms=ms, step_us=step_us, busy=busy, bound_us=bound)
+        return ms
+
+    fn1, _ = run_rungs(1, W, np.ones(1))
+    timed(f"K=1, W={W}", fn1, 1, W)
+    fn16, _ = run_rungs(1, W_MESH // N_SHARDS, np.ones(1))
+    timed(f"K=1, W={W_MESH // N_SHARDS}", fn16, 1, W_MESH // N_SHARDS)
+    fn4, st4 = run_rungs(K, W, st["betas"])
+    ms4 = timed(f"K={K}, W={W}", fn4, K, W)
+    # the same 2048 moving rows a half-step on the cluster grid of K
+    # copies of one cluster's constants: the K=4 step without its sweep
+    m = sess.model
+    copies = pack_consts_stack(sess, stack_sz_data([m.sz_data] * K),
+                               stack_xray_data([m.xray_data] * K))
+    xc, lpc, accc = start(K)
+    fnc = lambda: stretch_steps_multicluster(          # noqa: E731
+        xc, lpc, accc, step_seed, n, copies)
+    msc = timed(f"C={K} copies, W={W}", fnc, K, W)
+    share = rows[f"K={K}, W={W}"]["step_us"] - rows[
+        f"C={K} copies, W={W}"]["step_us"]
+    print(f"[6] swap sweep: {share:.2f} us of device time per K={K} step "
+          f"({100 * share / rows[f'K={K}, W={W}']['step_us']:.1f}%), the "
+          f"K={K} rung launch less the same 2048-row half-steps on the "
+          f"cluster grid (CUDA events: {1e3 * (ms4 - msc) / n:.2f} us)")
+    # plain versions of the same launches
+    lp_fn = lambda th: joint_ll_plain(th, c)              # noqa: E731
+
+    def plain(k, w, betas, n_p):
+        x, lp, acc = start(k, w)
+        beta, db = rung_tensors(betas, dev)
+        return cuda_ms(lambda: steps_plain(
+            x, lp, acc, beta, db.tolist(), step_seed, n_p,
+            philox_stream(step_seed, dev), lp_fn), reps=1, warmup=0)
+
+    plain1 = plain(1, W, np.ones(1), n)
+    plain4 = plain(K, W, st["betas"], n)
+    out1 = dict(name="stretch_steps", route="cuda",
+                source="joxsz_torch/csrc/stretch_step.cu",
+                replaces="joxsz_tpu/ops/pallas_joint.py:1242",
+                max_abs_err=st["err1"], ms=rows[f"K=1, W={W}"]["ms"],
+                plain_ms=plain1, bound_ms=steps_bound(c, 1, W, n),
+                bound_by="operations", library_ms=None)
+    out4 = dict(name="stretch_steps_tempered", route="cuda",
+                source="joxsz_torch/csrc/stretch_step.cu",
+                replaces="joxsz_tpu/ops/pallas_joint.py:2105",
+                max_abs_err=st["err4"], ms=ms4, plain_ms=plain4,
+                bound_ms=steps_bound(c, K, W, n), bound_by="operations",
+                library_ms=None)
+    return out1, out4, rows
+
+
+def check_sz_core(cfg, sess, seed: int, n: int):
+    """Kernel 5 on n rows drawn as ``ll_rows`` draws them, with rows whose
+    temperatures leave the conversion table and rows holding a NaN,
+    against its plain float32 and float64 versions.  Returns (constants,
+    (pp, t_all, cal), max |err| vs plain f32, its relative size, rel err vs
+    plain f64, NaN rows, rows outside the table)."""
     import numpy as np
     import torch
     from joxsz_torch.io.readers import read_conversion_table, read_xy
-    from joxsz_torch.ops.sz_core import (make_sz_core, sz_core, sz_core_plain,
-                                         sz_core_flops, sz_core_bytes)
+    from joxsz_torch.ops.sz_core import make_sz_core, sz_core, sz_core_plain
 
     m = sess.model
     sz = m.sz_data
@@ -521,7 +656,7 @@ def phase_sz_core(cfg, sess, seed: int) -> dict:
                         read_conversion_table(cfg.sz.conversion_file),
                         *read_xy(cfg.sz.flux_file, ncol=3)[1:], device="cuda")
     c = core.consts
-    rows64 = ll_rows(sess, seed, B_LL)
+    rows64 = ll_rows(sess, seed, n)
     with torch.no_grad():
         pars = m.params.unpack(rows64)
         pp = m.pressure(pars, sz.r_press_kpc)
@@ -545,9 +680,9 @@ def phase_sz_core(cfg, sess, seed: int) -> dict:
     nan = np.isnan(p)
     check(np.array_equal(np.isnan(k), nan), "SZ core: NaN rows differ "
           "from the plain version")
-    check(int(nan.sum()) >= 2 * (B_LL // 64), f"only {int(nan.sum())} NaN "
+    check(int(nan.sum()) >= 2 * (n // 64), f"only {int(nan.sum())} NaN "
           "rows")
-    check(n_tab >= B_LL // 16, f"only {n_tab} rows leave the table")
+    check(n_tab >= n // 16, f"only {n_tab} rows leave the table")
     fin = ~nan
     check(np.all(np.isfinite(k[fin])), "SZ core: non-finite value")
     err = float(np.max(np.abs(k[fin] - p[fin])))
@@ -556,6 +691,17 @@ def phase_sz_core(cfg, sess, seed: int) -> dict:
                          / (np.abs(p64[fin]) + 1e-30)))
     check(np.allclose(k[fin], p[fin], rtol=SZ_RTOL, atol=SZ_ATOL),
           f"SZ core vs plain f32: max abs err {err}, max rel err {rel}")
+    return c, (pp, t_all, cal), err, rel, err64, int(nan.sum()), n_tab
+
+
+def phase_sz_core(cfg, sess, seed: int) -> dict:
+    """Phase 7: kernel 5 (the fused SZ core) vs ``sz_core_plain``."""
+    import torch
+    from joxsz_torch.ops.sz_core import (sz_core, sz_core_plain,
+                                         sz_core_flops, sz_core_bytes)
+
+    c, (pp, t_all, cal), err, rel, err64, n_nan, n_tab = check_sz_core(
+        cfg, sess, seed, B_LL)
     ms = cuda_ms(lambda: sz_core(pp, t_all, cal, c), reps=50)
     plain_ms = cuda_ms(lambda: sz_core_plain(pp, t_all, cal, c), reps=10)
     dev_us, _ = device_time_per_launch(lambda: sz_core(pp, t_all, cal, c),
@@ -565,7 +711,7 @@ def phase_sz_core(cfg, sess, seed: int) -> dict:
     bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
     dev = (f"{dev_us['sz_core_kernel']:.2f} us on the device"
            if "sz_core_kernel" in dev_us else "device us not measured")
-    print(f"[7] SZ core on {B_LL} rows ({int(nan.sum())} NaN, {n_tab} "
+    print(f"[7] SZ core on {B_LL} rows ({n_nan} NaN, {n_tab} "
           f"outside the table): max |err| {err:.4g} (rel {rel:.3g}) vs "
           f"plain f32, rel {err64:.3g} vs plain f64; {ms:.4f} ms ({dev}; "
           f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms) on "
@@ -579,16 +725,45 @@ def phase_sz_core(cfg, sess, seed: int) -> dict:
                 library_ms=None)
 
 
+def compare_cluster_grid(x, lp, acc, stk, step_seed: int, n_steps: int):
+    """n_steps steps of the cluster-grid step kernel on the stacked
+    constants ``stk`` from (x, lp, acc) against the plain step
+    (``compare_fused``).  Returns (x, lp, acc, decisions, near-threshold
+    steps, largest lp error)."""
+    import torch
+    from joxsz_torch.ops.multicluster_kernel import (
+        half_step_multicluster_plain, multicluster_bits, multicluster_ll,
+        stretch_steps_multicluster)
+
+    n_c, H, dev = stk.n_clusters, x.shape[1] // 2, x.device
+    lp_k1 = lambda th: multicluster_ll(th, stk)           # noqa: E731
+
+    def plain_half(x, lp, acc, which, step, k1):
+        b = multicluster_bits(step_seed, dev, step, which, n_c, H)
+        return half_step_multicluster_plain(
+            x, lp, acc, which, b, stk, lp_fn=lp_k1 if k1 else None)
+
+    def kernel(x, lp, acc, step0, n, thin):
+        fr, fr_lp = stretch_steps_multicluster(
+            x, lp, acc, step_seed, n, stk, thin=thin, step0=step0)
+        return fr, fr_lp, 0
+
+    x, lp, acc, n_dec, n_near, _, err, _ = compare_fused(
+        f"cluster grid C={n_c}", x, lp, acc, n_steps, plain_half, kernel,
+        torch.tensor(TIGHT_ATOL, device=dev))
+    return x, lp, acc, n_dec, n_near, err
+
+
 def phase_multicluster(sess, c, seed: int) -> dict:
-    """Phase 8: kernel 4 (the cluster-grid half-step) vs its plain
+    """Phase 8: kernel 4 (the cluster-grid step kernel) vs its plain
     version, and the different-data negative control."""
     import numpy as np
     import torch
     from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_flops,
                                               pack_consts_stack)
     from joxsz_torch.ops.multicluster_kernel import (
-        half_step_multicluster_plain, multicluster_bits, multicluster_ll,
-        stretch_half_multicluster)
+        multicluster_bits, multicluster_ll, steps_multicluster_plain,
+        stretch_steps_multicluster)
     from joxsz_torch.simulate import simulate_survey
     from joxsz_torch.synth import TRUTH
 
@@ -618,33 +793,8 @@ def phase_multicluster(sess, c, seed: int) -> dict:
     check(gap > 1.0, f"clusters' constants give the same lp (gap {gap})")
 
     def compare(x, lp, acc, stk):
-        """STEPS_CMP_MC steps of the cluster grid ``stk`` from (x, lp, acc),
-        every launch against its plain version."""
-        n_c = stk.n_clusters
-        lp_k1 = lambda th: multicluster_ll(th, stk)         # noqa: E731
-        beta = torch.ones((n_c, 1), dtype=torch.float32, device=dev)
-        n_dec = n_near = 0
-        err_half = 0.0
-        for step in range(STEPS_CMP_MC):
-            for which in (0, 1):
-                b = multicluster_bits(step_seed, dev, step, which, n_c, H)
-                xp, lpp, _, accp, margin = half_step_multicluster_plain(
-                    x, lp, acc, which, b, stk)
-                _, _, _, acc1, margin1 = half_step_multicluster_plain(
-                    x, lp, acc, which, b, stk, lp_fn=lp_k1)
-                xk, lpk, acck = x.clone(), lp.clone(), acc.clone()
-                stretch_half_multicluster(xk, lpk, acck, which, step_seed,
-                                          step, stk)
-                mv = slice(which * H, (which + 1) * H)
-                nd, nn, e = check_half_against_plain(
-                    f"cluster grid C={n_c}, step {step}, half {which}",
-                    (acck - acc)[:, mv] > 0.5, xk[:, mv], lpk[:, mv],
-                    (xp[:, mv], lpp[:, mv], accp, margin), (acc1, margin1),
-                    beta * TIGHT_ATOL)
-                n_dec, n_near, err_half = (n_dec + nd, n_near + nn,
-                                           max(err_half, e))
-                x, lp, acc = xk, lpk, acck
-        return x, lp, acc, n_dec, n_near, err_half
+        return compare_cluster_grid(x, lp, acc, stk, step_seed,
+                                    STEPS_CMP_MC)
 
     # one shard's block on the survey's mesh path: C / N_SHARDS clusters
     c_loc = C // N_SHARDS
@@ -671,26 +821,32 @@ def phase_multicluster(sess, c, seed: int) -> dict:
     check(gap2 > 1.0, "cluster grid: a cluster's lp equals what cluster "
           f"0's constants give (gap {gap2})")
 
-    ms = cuda_ms(lambda: stretch_half_multicluster(
-        x, lp, acc, 0, step_seed, 0, stack), reps=50)
-    dev_us, _ = device_time_per_launch(lambda: stretch_half_multicluster(
-        x, lp, acc, 0, step_seed, 0, stack), reps=100)
-    b0 = multicluster_bits(step_seed, dev, 0, 0, C, H)
-    plain_ms = cuda_ms(lambda: half_step_multicluster_plain(
-        x, lp, acc, 0, b0, stack), reps=5)
+    n = TIME_STEPS
+    run = lambda: stretch_steps_multicluster(             # noqa: E731
+        x, lp, acc, step_seed, n, stack)
+    ms = cuda_ms(run, reps=5, warmup=1)
+    dev_us, busy = device_time_per_launch(run, reps=5)
+    plain_ms = cuda_ms(lambda: steps_multicluster_plain(
+        x, lp, acc, n, lambda step, which: multicluster_bits(
+            step_seed, dev, step, which, C, H), stack), reps=1, warmup=0)
     rows = C * H
-    flops = joint_ll_flops(c) * rows
-    nbytes = 4 * (C * W * D + 3 * C * W + stack.buf.numel() + rows * (D + 2))
+    flops = joint_ll_flops(c) * 2 * rows * n
+    nbytes = 4 * (2 * C * W * (D + 2) + stack.buf.numel())
     bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
-    dv = (f"{dev_us['stretch_half_kernel']:.2f} us on the device"
-          if "stretch_half_kernel" in dev_us else "device us not measured")
+    us = dev_us.get("stretch_steps_kernel")
+    dv = (f"{us / n:.2f} us of device time per step" if us
+          else "device time not measured")
     print(f"[8] {STEPS_CMP_MC} steps at C={C} and at a mesh shard's block "
-          f"of C={c_loc}, W={W}: {n_dec} half-step "
-          f"decisions, {n_near} near-threshold differences; max |lp err| "
-          f"{err_half:.4g}; stored lp == fresh kernel 1 per cluster; "
-          f"different-data gaps {gap:.1f} / {gap2:.1f}; {ms:.4f} ms ({dv}; "
-          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms)")
-    return dict(name="stretch_half_multicluster", route="cuda",
+          f"of C={c_loc}, W={W}: {n_dec} half-step decisions, {n_near} "
+          f"steps where a decision within {MARGIN} of its threshold went "
+          "the other way; state == the plain step on kernel 1's likelihood "
+          f"elsewhere; max "
+          f"|lp err| {err_half:.4g}; stored lp == fresh kernel 1 per "
+          f"cluster; different-data gaps {gap:.1f} / {gap2:.1f}; one launch "
+          f"of {n} steps {ms:.4f} ms = {1e3 * ms / n:.2f} us per step ({dv}, "
+          f"device busy {100 * busy:.1f}%; plain {plain_ms:.1f} ms, bound "
+          f"{bound:.4f} ms) on {card_line()}")
+    return dict(name="stretch_steps_multicluster", route="cuda",
                 source="joxsz_torch/csrc/stretch_step.cu",
                 replaces="joxsz_tpu/ops/pallas_joint.py:1859",
                 max_abs_err=err_half, ms=ms, plain_ms=plain_ms,
@@ -717,8 +873,9 @@ def coupled_bound(c, H_loc: int, H: int) -> tuple[float, str]:
 def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
     """Kernel 6 over ``n_shards`` shards from the ensemble x0 (W, D), lp0
     (W,) for STEPS_CMP_COUPLED steps: every launch against its plain
-    version on the same Philox bits, and after every half-step the joined
-    blocks against kernel 2 at K = 1 on the whole ensemble, bit for bit.
+    version on the same Philox bits, and after every full step the joined
+    blocks against the step kernel at K = 1 on the whole ensemble (a
+    launch of that one step), bit for bit.
     ``devices``: one card per shard (default: all on the constants'
     card; the plain comparison runs only there).  Returns (decisions,
     near-threshold differences, largest lp error, final x, lp, acc)."""
@@ -726,7 +883,8 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
     from joxsz_torch.ops.coupled_kernel import (coupled_half,
                                                 coupled_half_plain)
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
-    from joxsz_torch.ops.step_kernel import philox_stream, stretch_half
+    from joxsz_torch.ops.step_kernel import philox_stream, stretch_steps
+    from joxsz_torch.sampling.kernel import rung_tensors
 
     W, D = x0.shape
     H = W // 2
@@ -738,7 +896,8 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
     lp_fn = lambda th: joint_ll_plain(th, c)              # noqa: E731
     lp_k1 = lambda th: joint_ll(th, c)                    # noqa: E731
     bits = philox_stream(step_seed, home)
-    beta1 = torch.ones(1, dtype=torch.float32, device=home)
+    beta1, db1 = rung_tensors([1.0], home)
+    sacc = torch.zeros(1, dtype=torch.int32, device=home)
     xr, lr, ar = x0[None].clone(), lp0[None].clone(), torch.zeros_like(
         lp0)[None]
     # halves[h][k][s]: tensor k (x, lp, acc) of shard s's block of half h
@@ -770,15 +929,16 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
                     lm[s], (xp, lpp, accp, margin), (acc1, margin1),
                     torch.tensor(TIGHT_ATOL, device=home))
                 n_dec, n_near, err = n_dec + nd, n_near + nn, max(err, e)
-            # kernel 2 at K = 1 on the whole ensemble, same seed and step
-            stretch_half(xr, lr, ar, beta1, which, step_seed, step, c)
-            mv = slice(which * H, (which + 1) * H)
-            for k, ref in enumerate((xr, lr, ar)):
-                got = torch.cat([t.to(home) for t in halves[which][k]])
-                check(torch.equal(got, ref[0, mv]),
-                      f"coupled: {('x', 'lp', 'acc')[k]} over {n_shards} "
-                      f"shards differs from kernel 2 at K=1 (W={W}, step "
-                      f"{step}, half {which})")
+        # the step kernel at K = 1 on the whole ensemble, same seed and step
+        stretch_steps(xr, lr, ar, sacc, beta1, db1, step_seed, 1, c,
+                      step0=step)
+        for k, ref in enumerate((xr, lr, ar)):
+            got = torch.cat([t.to(home) for h in (0, 1)
+                             for t in halves[h][k]])
+            check(torch.equal(got, ref[0]),
+                  f"coupled: {('x', 'lp', 'acc')[k]} over {n_shards} "
+                  f"shards differs from the step kernel at K=1 (W={W}, "
+                  f"step {step})")
     torch.cuda.synchronize()
     x, lp, acc = (torch.cat([t.to(home) for h in (0, 1)
                              for t in halves[h][k]]) for k in range(3))
@@ -790,13 +950,13 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
 
 def phase_coupled(sess, c, seed: int) -> dict:
     """Phase 11: kernel 6 (the coupled half-step) vs its plain version and
-    vs kernel 2 at K = 1, the negative control, and its times."""
+    vs the step kernel at K = 1, the negative control, and its times."""
     import numpy as np
     import torch
     from joxsz_torch.ops.coupled_kernel import (coupled_half,
                                                 coupled_half_plain)
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
-    from joxsz_torch.ops.step_kernel import philox_stream, stretch_half
+    from joxsz_torch.ops.step_kernel import philox_stream
     from joxsz_torch.synth import TRUTH
 
     D, dev = c.ints["D"], c.device
@@ -818,8 +978,9 @@ def phase_coupled(sess, c, seed: int) -> dict:
             finals.append((x, lp, acc))
             print(f"[11] W={W}, {n} shard(s), {STEPS_CMP_COUPLED} steps: "
                   f"{n_dec} decisions, {n_near} near-threshold differences "
-                  f"vs plain; max |lp err| {e:.4g}; x, lp, acc == kernel 2 at "
-                  "K=1 after every half-step; stored lp == fresh kernel 1")
+                  f"vs plain; max |lp err| {e:.4g}; x, lp, acc == the step "
+                  "kernel at K=1 after every step; stored lp == fresh "
+                  "kernel 1")
         check(all(torch.equal(a, b) for f in finals[1:]
                   for a, b in zip(f, finals[0])),
               f"coupled: W={W}: shard counts disagree")
@@ -841,7 +1002,7 @@ def phase_coupled(sess, c, seed: int) -> dict:
         cards = [torch.device("cuda", i) for i in range(N_SHARDS)]
         compare_coupled(x0, lp0, c, step_seed, N_SHARDS, devices=cards)
         print(f"[11] W={W_MESH}: {N_SHARDS} shards on {N_SHARDS} distinct "
-              "cards == kernel 2 at K=1 on one card, bit for bit")
+              "cards == the step kernel at K=1 on one card, bit for bit")
     else:
         print(f"[11] one card visible: the {N_SHARDS} shards share cuda:0 "
               "(each its own buffers and launches)")
@@ -871,21 +1032,108 @@ def phase_coupled(sess, c, seed: int) -> dict:
               else "device us not measured")
         print(f"[11] kernel 6 at H_loc={H_loc}, H={H}: {ms:.4f} ms ({dv}; "
               f"plain {plain_ms:.3f} ms, bound {bound:.5f} ms by {by})")
-        if n == 1:
-            # kernel 2 at K = 1 on the same ensemble: the same rows and bits
-            xw, lw = x0[None].clone(), lp0[None].clone()
-            aw = torch.zeros_like(lw)
-            one = torch.ones(1, dtype=torch.float32, device=dev)
-            ms2 = cuda_ms(lambda: stretch_half(xw, lw, aw, one, 0, step_seed,
-                                               0, c), reps=50)
-            print(f"[11] kernel 2 at K=1 on the same W={W} ensemble: "
-                  f"{ms2:.4f} ms")
     ms, plain_ms, bound, by = timed[W_MESH // 2 // N_SHARDS]
     return dict(name="coupled_half", route="cuda",
                 source="joxsz_torch/csrc/stretch_step.cu",
                 replaces="joxsz_tpu/ops/pallas_joint.py:1657",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=None)
+
+
+def phase_large_shapes(seed: int):
+    """Phase 13: every kernel at shapes where the constants do not fit in
+    a block's shared memory, a cluster at z = 0.3: on a map of 200" (542
+    pressure radii, 127 map radii: the constants read in place, two
+    passes of map radii) and integrated out to 20 Mpc (2167 pressure
+    radii: the tiles' scratch in global memory too).  Kernel 1 as phase
+    3 (1024 rows), the step kernel at W=64, K=1 and W=32, K=4 as phase 4,
+    kernel 4 on two clusters as phase 8, kernel 5 as phase 7 (1024 rows),
+    kernel 6 over 2 shards as phase 11, each for STEPS_CMP_LARGE steps."""
+    import numpy as np
+    import torch
+    from joxsz_torch.build import build_session
+    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_bytes,
+                                              joint_ll_flops, pack_consts,
+                                              pack_consts_stack)
+    from joxsz_torch.ops.multicluster_kernel import multicluster_ll
+    from joxsz_torch.ops.step_kernel import step_kernel_config
+    from joxsz_torch.sampling.tempered import default_betas
+    from joxsz_torch.simulate import simulate_survey
+    from joxsz_torch.synth import TRUTH, write_synthetic_dataset
+
+    for r_max, extent, in_global in ((200.0, 5000.0, False),
+                                     (118.0, 20000.0, True)):
+        tmp = tempfile.mkdtemp(prefix="joxsz_large_")
+        try:
+            cfg = write_synthetic_dataset(tmp, seed, redshift=0.3,
+                                          max_radius_arcsec=r_max,
+                                          extent_kpc=extent)
+            sess = build_session(cfg, device="cuda")
+            c = pack_consts(sess)
+            I, D = c.ints, c.ints["D"]
+            tag = f"[13] z=0.3, {r_max:g}\" map, {extent:g} kpc:"
+            blocks, smem, staged, ws = step_kernel_config(c, 1, 64)
+            check(not staged and (ws > 0) == in_global,
+                  f"{tag} plan staged={staged}, workspace {ws} floats")
+            rows, err1, err64, n_veto = check_joint(sess, c, seed, 1024)
+            ms1 = cuda_ms(lambda: joint_ll(rows, c), reps=20)
+            bound1 = 1e3 * max(joint_ll_bytes(c, 1024) / PEAK_BYTES_S,
+                               joint_ll_flops(c) * 1024 / PEAK_F32_S)
+            step_seed = int(np.random.default_rng(seed + 7).integers(
+                0, 2 ** 31 - 1))
+            th0 = np.array([TRUTH[k] for k in sess.params.thawed])
+            rng = np.random.default_rng(seed + 8)
+
+            def start(k, w):
+                x = torch.tensor(th0 * (1 + 0.01 * rng.standard_normal(
+                    (k, w, D))), dtype=torch.float32,
+                    device=c.device).contiguous()
+                lp = joint_ll(x.reshape(k * w, D), c).reshape(k, w)
+                check(bool(torch.isfinite(lp).all()),
+                      f"{tag} non-finite start state")
+                return x, lp, torch.zeros_like(lp)
+
+            e2 = compare_steps(*start(1, 64), np.ones(1), c, step_seed,
+                               STEPS_CMP_LARGE, tag)[3]
+            e3 = compare_steps(*start(4, 32), default_betas(4), c,
+                               step_seed, STEPS_CMP_LARGE, tag)[3]
+            truths = np.tile(th0, (2, 1))
+            truths[1, sess.params.thawed.index("P_0")] *= 1.2
+            survey = simulate_survey(sess.model, truths,
+                                     np.random.default_rng(seed + 9))
+            stk = pack_consts_stack(sess, survey.sz_stack,
+                                    survey.xray_stack)
+            x4 = torch.tensor(
+                truths[:, None] * (1 + 0.01 * rng.standard_normal(
+                    (2, 64, D))), dtype=torch.float32,
+                device=c.device).contiguous()
+            acc4 = torch.zeros((2, 64), device=c.device)
+            x4, lp4, _, _, _, e4 = compare_cluster_grid(
+                x4, multicluster_ll(x4, stk), acc4, stk, step_seed,
+                STEPS_CMP_LARGE)
+            check(torch.equal(multicluster_ll(x4, stk), lp4),
+                  f"{tag} cluster grid: stored lp differs from a fresh "
+                  "kernel-1 evaluation")
+            _, _, e5, rel5, _, n_nan, n_tab = check_sz_core(cfg, sess, seed,
+                                                            1024)
+            x0, lp0, _ = start(1, 64)
+            _, _, e6, _, _, _ = compare_coupled(x0[0], lp0[0], c, step_seed,
+                                                2)
+            print(f"{tag} {I['n_press']} pressure radii, {I['n_pix']} map "
+                  f"radii; constants in place, tiles' scratch in "
+                  f"{'global' if ws else 'shared'} memory ({blocks} blocks, "
+                  f"{smem} B of shared memory, {ws} floats of workspace "
+                  f"per block); kernel 1 max |err| {err1:.4g} vs plain "
+                  f"f32 ({n_veto} vetoed of 1024), {err64:.4g} vs plain "
+                  f"f64, {ms1:.4f} ms at 1024 rows (bound {bound1:.4f} "
+                  f"ms) on {card_line()}; step kernel max |lp err| {max(e2, e3):.4g}; "
+                  f"cluster grid {e4:.4g}; SZ core {e5:.4g} (rel "
+                  f"{rel5:.3g}, {n_nan} NaN, {n_tab} outside the table); "
+                  f"kernel 6 over 2 shards == the step kernel, max |lp "
+                  f"err| {e6:.4g}")
+            del sess, c, stk
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
@@ -901,9 +1149,10 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
     from joxsz_torch.parallel import make_mesh, run_coupled_sharded_ensemble
     from joxsz_torch.sampling.batched import batched_init
     from joxsz_torch.sampling.driver import run_fit
-    from joxsz_torch.sampling.kernel import (kernel_step, make_kernel_sampler,
-                                             rung_differences,
-                                             run_multicluster_steps)
+    from joxsz_torch.ops.step_kernel import stretch_steps
+    from joxsz_torch.sampling.kernel import (make_kernel_sampler,
+                                             run_multicluster_steps,
+                                             rung_tensors)
     from joxsz_torch.sampling.tempered import default_betas
     from joxsz_torch.simulate import simulate_survey
 
@@ -948,9 +1197,13 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
     check(0.1 < acc < 0.6, f"mesh acceptance {acc} outside (0.1, 0.6)")
     check(launches["coupled_half"] == MESH_WINDOWS * 2 * N_SHARDS,
           f"kernel 6 launches {launches['coupled_half']}")
-    check(launches["stretch_half"] >= MESH_WINDOWS * (sync_every - 1) * 2
-          * N_SHARDS and launches["joint_ll"] > 0, f"mesh launches {launches}")
-    check(launches["swap"] == 0, "the swap kernel ran on an untempered fit")
+    # one launch per window and shard; prelim (100 steps a round) and
+    # burn (200) on one device, one launch per chunk of 100 steps
+    check(launches["stretch_steps"] == MESH_WINDOWS * N_SHARDS
+          + t["prelim_rounds"] + 2 and launches["joint_ll"] > 0,
+          f"mesh launches {launches}")
+    check(launches["stretch_steps_tempered"] == 0,
+          "the tempered step kernel ran on an untempered fit")
 
     # the coupled sampler alone: time per coupled step at 4 shards
     p0 = torch.tensor(res.chain[-1], device="cuda")
@@ -991,7 +1244,8 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
         # quick depth: a looser band than the full-depth paths'
         check(0.02 < float(np.mean(r.acceptance_fraction)) < 0.8,
               "short mesh fit acceptance")
-        return r, n, 2 * 100 * (r.timings["prelim_rounds"] + 1)
+        # prelim 100 steps a round and burn 100: one launch each
+        return r, n, r.timings["prelim_rounds"] + 1
 
     # a layout the per-shard sampler declines (16 walkers per shard, below
     # the floor of 28): one ensemble coupled at every step, kernel 6
@@ -1001,7 +1255,8 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
     check(rd.chain.shape == (n_d // THIN_MESH, W_MESH // 2, 13)
           and rd.timings["frame_spacing"] == THIN_MESH, "declined-layout fit")
     check(ld["coupled_half"] == n_d * 2 * N_SHARDS
-          and ld["stretch_half"] == one_dev and ld["swap"] == 0,
+          and ld["stretch_steps"] == one_dev
+          and ld["stretch_steps_tempered"] == 0,
           f"declined-layout launches {ld}")
     print(f"[12] run_fit at W={W_MESH // 2} ({W_MESH // 2 // N_SHARDS} "
           f"walkers per shard, declined by the per-shard sampler): the "
@@ -1010,7 +1265,8 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
           f"launches {ld}")
 
     # a tempered mesh fit: an independent K-rung ensemble per shard
-    # (kernels 2-3), then the runner against per-block runs, bit for bit
+    # (one step-kernel launch per chunk of 100 steps and shard), then the
+    # runner against per-block runs, bit for bit
     K, n_t, w_loc = K_SMOKE, 200, W_MESH // N_SHARDS
     rt, lt, one_dev = short_fit(nwalkers=W_MESH, nsteps=n_t,
                                 n_temper_rungs=K)
@@ -1019,8 +1275,8 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
           and len(swaps) == K - 1
           and all(math.isfinite(v) and v > 0 for v in swaps),
           f"tempered mesh fit: chain {rt.chain.shape}, swap rates {swaps}")
-    check(lt["swap"] == n_t * (K - 1) * N_SHARDS
-          and lt["stretch_half"] == one_dev + n_t * 2 * N_SHARDS
+    check(lt["stretch_steps_tempered"] == n_t // 100 * N_SHARDS
+          and lt["stretch_steps"] == one_dev
           and lt["coupled_half"] == 0, f"tempered mesh launches {lt}")
     betas = default_betas(K)
     n_b = 50
@@ -1030,7 +1286,7 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
                                        thin=THIN_MESH)
     seeds = np.random.default_rng(seed).integers(0, 2 ** 31 - 1,
                                                  size=(1, N_SHARDS))[0]
-    beta = torch.tensor(betas, dtype=torch.float32, device="cuda")
+    beta, db = rung_tensors(betas, "cuda")
     for d in range(N_SHARDS):
         blk = slice(d * w_loc, (d + 1) * w_loc)
         x = pt[None, blk].repeat(K, 1, 1)
@@ -1038,9 +1294,8 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
             K, w_loc)
         acc = torch.zeros_like(lp)
         sacc = torch.zeros(K - 1, dtype=torch.int32, device="cuda")
-        for i in range(n_b):
-            kernel_step(x, lp, acc, sacc, beta, rung_differences(betas),
-                        int(seeds[d]), i, sampler.consts)
+        stretch_steps(x, lp, acc, sacc, beta, db, int(seeds[d]), n_b,
+                      sampler.consts)
         check(torch.equal(got.final_state[0][:, blk], x)
               and torch.equal(got.final_state[1][:, blk], lp)
               and np.array_equal(got.chain[-1, blk], x[0].cpu().numpy()),
@@ -1074,8 +1329,8 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
           and np.all(np.isfinite(rs.chain))
           and np.all(np.isfinite(rs.log_prob)), f"survey mesh chain "
           f"{rs.chain.shape}")
-    check(ls["stretch_half_multicluster"] == 2 * (n_burn + n_s) * N_SHARDS
-          and ls["stretch_half"] == 0, f"survey mesh launches {ls}")
+    check(ls["stretch_steps_multicluster"] == 2 * N_SHARDS
+          and ls["stretch_steps"] == 0, f"survey mesh launches {ls}")
     stack = pack_consts_stack(sess, sv.sz_stack, sv.xray_stack)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -1140,23 +1395,30 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
 def all_launches() -> dict:
     from joxsz_torch.ops.coupled_kernel import coupled_half
     from joxsz_torch.ops.joint_kernel import joint_ll
-    from joxsz_torch.ops.multicluster_kernel import stretch_half_multicluster
-    from joxsz_torch.ops.step_kernel import stretch_half, swap
+    from joxsz_torch.ops.multicluster_kernel import stretch_steps_multicluster
+    from joxsz_torch.ops.step_kernel import stretch_steps
     from joxsz_torch.ops.sz_core import sz_core
 
-    return {"joint_ll": joint_ll, "stretch_half": stretch_half,
-            "swap": swap,
-            "stretch_half_multicluster": stretch_half_multicluster,
+    return {"joint_ll": joint_ll, "stretch_steps": stretch_steps,
+            "stretch_steps_multicluster": stretch_steps_multicluster,
             "sz_core": sz_core, "coupled_half": coupled_half}
 
 
 def zero_launches():
     for fn in all_launches().values():
         fn.launches = 0
+    all_launches()["stretch_steps"].launches_tempered = 0
 
 
 def read_launches() -> dict:
-    return {k: fn.launches for k, fn in all_launches().items()}
+    """Launches per kernel entry of the kernels line: the rung step
+    kernel's split into K = 1 (``stretch_steps``) and K > 1
+    (``stretch_steps_tempered``)."""
+    fns = all_launches()
+    out = {k: fn.launches for k, fn in fns.items()}
+    out["stretch_steps_tempered"] = fns["stretch_steps"].launches_tempered
+    out["stretch_steps"] -= out["stretch_steps_tempered"]
+    return out
 
 
 def phase_survey_path(tmp: str, path: str, seed: int) -> dict:
@@ -1189,9 +1451,11 @@ def phase_survey_path(tmp: str, path: str, seed: int) -> dict:
           f"survey acceptance {acc} outside (0.1, 0.6)")
     check(bool(np.all(pulls < 5.0)), f"a truth lies {float(pulls.max()):.1f} "
           "sd from its median")
-    check(launches["stretch_half_multicluster"] == 2 * 2000
+    # burn and sampling: one launch each (one Philox seed each)
+    check(launches["stretch_steps_multicluster"] == 2
           and launches["joint_ll"] > 0, f"survey launches {launches}")
-    check(launches["swap"] == 0, "the swap kernel ran on cluster-grid state")
+    check(launches["stretch_steps"] + launches["stretch_steps_tempered"]
+          == 0, "the rung step kernel ran on the survey")
     summary = json.loads(open(f"{tmp}/survey_summary.json").read())
     check(len(summary["clusters"]) == C, "survey summary")
     return launches
@@ -1227,7 +1491,8 @@ def phase_fused_path(cfg, tmp: str, seed: int) -> dict:
     check(np.all(np.isfinite(res.log_prob)), "non-finite fused log-probs")
     check(0.1 < acc < 0.6, f"fused acceptance {acc} outside (0.1, 0.6)")
     check(launches["sz_core"] > 0, f"fused launches {launches}")
-    check(launches["stretch_half"] == 0 and launches["joint_ll"] == 0,
+    check(launches["stretch_steps"] + launches["stretch_steps_tempered"] == 0
+          and launches["joint_ll"] == 0,
           f"the step kernels ran with --no-step-kernel: {launches}")
     return launches
 
@@ -1236,6 +1501,7 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
     import numpy as np
     from joxsz_torch import run
     from joxsz_torch.config import MCMCConfig
+    from joxsz_torch.sampling.kernel import chain_chunk_schedule
     from joxsz_torch.synth import config_json
 
     # the card's production schedule at full width (W=1024 x K=4, full
@@ -1263,8 +1529,17 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
     check(len(swaps) == K_SMOKE - 1
           and all(math.isfinite(s) and s > 0 for s in swaps),
           f"swap rates {swaps}")
-    check(all(launches[k] > 0 for k in ("joint_ll", "stretch_half", "swap")),
-          f"a kernel was not launched on the main path: {launches}")
+    # one launch of the step kernel per chunk of a sampling call: the
+    # prelim rounds and burn-in at K = 1, the sampling calls at K = 4
+    t = res.timings
+    n1 = (t["prelim_rounds"] * len(chain_chunk_schedule(
+        m.prelim_iterations, 1)) + len(chain_chunk_schedule(m.nburn, 1)))
+    n4 = (1 + t["auto_extend_rounds"]) * len(chain_chunk_schedule(
+        m.nsteps, m.nthin))
+    check(launches["joint_ll"] > 0 and launches["stretch_steps"] == n1
+          and launches["stretch_steps_tempered"] == n4,
+          f"main path launches {launches}, want {n1} + {n4} step-kernel "
+          "launches (one per chunk)")
     check(np.all(np.isfinite(res.chain)) and res.chain.shape[1:] == (
         W_SMOKE, 13), f"chain shape {res.chain.shape} or non-finite values")
     check(np.all(np.isfinite(res.log_prob)), "non-finite chain log-probs")
@@ -1292,11 +1567,13 @@ def main() -> int:
         phase_build()
         cfg, sess, c = phase_session(tmp, args.seed)
         k1 = phase_joint(sess, c, args.seed)
-        k2, k3, step_ms, plain_step_ms = phase_steps(sess, c, args.seed)
+        k2, k3, rows = phase_step_times(sess, c, phase_steps(sess, c,
+                                                              args.seed))
         k5 = phase_sz_core(cfg, sess, args.seed)
         k4 = phase_multicluster(sess, c, args.seed)
         k6 = phase_coupled(sess, c, args.seed)
         del sess, c
+        phase_large_shapes(args.seed)
         launches, path, mle_theta = phase_main_path(cfg, tmp, args.seed)
         for k in (k1, k2, k3):
             k["launches"] = launches[k["name"]]
@@ -1309,9 +1586,11 @@ def main() -> int:
                  "library_ms")
         kernels = [{key: k[key] for key in order}
                    for k in (k1, k2, k3, k4, k5, k6)]
+        r4 = rows[f"K={K_SMOKE}, W={W_SMOKE}"]
         print(f"tempered step W={W_SMOKE} K={K_SMOKE}: "
-              f"{1e3 * step_ms:.1f} us (plain {1e3 * plain_step_ms:.1f} "
-              f"us) on {card}")
+              f"{1e3 * r4['ms'] / TIME_STEPS:.2f} us by CUDA events, "
+              f"{r4['step_us']:.2f} us of device time (bound "
+              f"{r4['bound_us']:.2f} us) on {card}")
         print(json.dumps({"kernels": kernels}))
     except Exception:
         traceback.print_exc()

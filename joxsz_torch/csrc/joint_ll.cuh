@@ -1,7 +1,7 @@
 // Shared device code of the joxsz_torch kernels: the joint log-posterior of
-// a tile of walkers (kernel 1, and the proposals of the half-step kernel in
-// its tempered and its cluster-grid form), the SZ chain on its own (the
-// fused SZ core), Philox-4x32-10, and block reductions.
+// a tile of walkers (kernel 1, and the proposals of the step kernels), the
+// SZ chain on its own (the fused SZ core), Philox-4x32-10, the staging of
+// the constants in shared memory, and the launch helpers.
 //
 // Replaces the body ll_body of joxsz_tpu/ops/pallas_joint.py (specialised
 // by _build_spec): gNFW pressure + single Vikhlinin density + UPP
@@ -10,29 +10,85 @@
 // float32 (the plain torch mirror is ops/joint_kernel.py::joint_ll_plain).
 //
 // Layout: one block of JT_THREADS threads evaluates TILE_WALKERS walkers.
-// Profiles live in shared memory; the constants (L^T, G^T, tables) stay in
-// global memory and are read through L1/L2, once per tile.  No tensor
-// cores, no TF32.  Every reduction assigns work to threads by radius / data
-// point / cell, never by the walker's slot in the tile, so a walker's value
-// does not depend on which tile or slot it lands in: kernel 1 and kernel 2
-// give bit-identical log-posteriors for the same parameters.
+// The whole packed constants buffer (~128 KB at the CL J1226 shapes, L^T
+// 108 KB of it) is copied into shared memory with cp.async once per block
+// and cluster, the Hopper form of what the TPU kernel keeps in VMEM; the
+// walkers' profiles (the tile's scratch) live in shared memory beside it.
+// Where the two do not fit in a block's shared memory (more pressure or
+// map radii: a cluster at lower redshift or a wider map), the launch plan
+// (plan_launch) reads the constants in place from global memory, and if
+// the scratch alone does not fit either, puts it in a global workspace of
+// its own per block.  The tile runs the same code on either pointer; each
+// kernel comes twice (FIT below), so that where everything fits the
+// compiler sees shared-memory pointers.  Every phase spreads its work over
+// the whole block:
+//   * pp @ L^T, (walkers x n_press) x (n_press x n_pix): map radii in
+//     passes of PIX_PASS; in each, the k axis in KSPLIT chunks, each taken
+//     by WT / PPW warps, each warp a register tile of PPW walkers x
+//     PIX_LANE map radii per lane (FP32 FMAs), then a fixed-order tree over
+//     the chunks;
+//   * prof @ G^T: one warp per (walker, GT_CHUNK data points), lanes over
+//     the map radii, then a xor-butterfly per data point;
+//   * the per-radius profiles, the priors, the X-ray taps: one thread per
+//     (walker, radius / parameter / shell); T(0) and integrated Y summed
+//     by the radius threads, then over lanes and warps in a fixed order;
+//   * the X-ray projection: one thread per (walker, band), PROJ_CHUNK
+//     annuli at a time, each a loop over the 15 shells; the Cash terms one
+//     thread per (walker, band, annulus), their sum per walker one warp,
+//     lanes strided, then a xor-butterfly.
+// No thread runs a dependent chain much longer than 40 steps.  No tensor
+// cores, no TF32.  Every reduction is assigned by radius / data point /
+// cell and never by the walker's slot in the tile, and every walker runs
+// the same instructions, so a walker's value does not depend on which tile
+// or slot it lands in: kernel 1, the step kernel and kernel 6 give
+// bit-identical log-posteriors for the same parameters.
+// scripts/torch_tile_phases.py measures the phases on the card.
 //
-// Every array pointer is read as c.a[X] + coff: coff is 0 for one cluster
-// and cluster * stride floats when the block works on one cluster of a
-// stacked constants buffer (all clusters share offsets, sizes and scalars).
+// A block works on the constants at buf + coff (coff is 0 for one cluster
+// and cluster * stride floats for one cluster of a stacked constants
+// buffer: all clusters share offsets, sizes and scalars), staged or in
+// place (use_consts), and the tile reads array X at st + c.off[X].
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define TILE_WALKERS 4
-#define JT_THREADS 128
+#define TILE_WALKERS 16
+#define JT_THREADS 512
 #define JT_WARPS (JT_THREADS / 32)
 #define MAX_D 16
 #define N_ROLES 13
 #define N_ARRAYS 25
 #define N_INTS 11
 #define N_FLOATS 7
+#define PPW 8                          // walkers of one warp's register tile
+#define KSPLIT (JT_WARPS * PPW / TILE_WALKERS)   // k chunks of pp @ L^T
+#define PIX_LANE 3                     // map radii per lane: lane + 32 j
+#define PIX_PASS (32 * PIX_LANE)       // map radii per pass of pp @ L^T
+#define SC_STRIDE 25                   // scalar slots per walker (odd: banks)
+#define XS_N 6                         // X-ray tap slots per (walker, shell)
+#define GT_CHUNK 10                    // data points per pass of prof @ G^T
+#define PROJ_CHUNK 8                   // annuli per pass of the projection
+
+
+// Phase clocks of the tile (scripts/torch_tile_phases.py builds with
+// -DJT_PHASE_CLOCKS): thread 0 of block 0 records clock64() at each phase
+// boundary of its last tile; read_phase_clocks copies them out.
+#ifdef JT_PHASE_CLOCKS
+__device__ long long jt_clocks[16];
+#define JT_MARK(i)                                         \
+  do {                                                     \
+    if (blockIdx.x == 0 && threadIdx.x == 0)               \
+      jt_clocks[i] = clock64();                            \
+  } while (0)
+extern "C" int read_phase_clocks(long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, jt_clocks, sizeof(jt_clocks));
+}
+#else
+#define JT_MARK(i)
+#endif
+static_assert(PPW % 4 == 0 && TILE_WALKERS % PPW == 0,
+              "a register tile holds whole float4s of a tile's walkers");
 
 // thawed-parameter roles (ops/consts_layout.py::ROLES)
 enum Role { R_LOGN0, R_BETA, R_LOGRC, R_LOGRS, R_EPS, R_TRATIO, R_Z, R_P0,
@@ -43,15 +99,29 @@ enum Arr { A_R, A_LNR, A_LT, A_GT, A_FLUX, A_WRES, A_WT0, A_WINT, A_MIDR,
            A_HI, A_WG, A_MU, A_CONVT, A_CONVV, A_CONVS, A_MUI };
 
 struct LLConsts {
-  const float* a[N_ARRAYS];
+  const float* buf;          // cluster 0's packed constants
+  float* ws;                 // the tiles' scratch in global memory, or null
+  size_t ws_stride;          // floats of ws per block
+  int stage;                 // 1: the constants are staged in shared memory
+  int off[N_ARRAYS];         // float offset of each array in buf
+  int n_buf;                 // floats a block stages (all arrays, r4)
   int n_press, sep, n_pix, n_data, n_sh, n_ann, n_band, nT, n_conv, D,
       mass_veto;
   int cix[N_ROLES];
   float c_gnfw, alpha, gamma, mass_C, t0g, inv_dtg, pos_hi;
 };
 
+__host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
+// row stride of a walker's map profile: whole passes of PIX_PASS radii
+__host__ __device__ inline int pix_stride(int n_pix) {
+  return (n_pix + PIX_PASS - 1) / PIX_PASS * PIX_PASS;
+}
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+
 // iv: N_INTS ints, N_ROLES column indices, N_ARRAYS float offsets into buf;
-// fv: N_FLOATS floats (ops/consts_layout.py::LaunchParams)
+// fv: N_FLOATS floats (ops/consts_layout.py::LaunchParams).  The staged
+// extent is the end of the last array, from the sizes the ints give (an
+// array the buffer lacks has offset 0 and ends inside it).
 static inline LLConsts make_consts(const float* buf, const int* iv,
                                    const float* fv) {
   LLConsts c;
@@ -60,18 +130,47 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
                        &c.mass_veto};
   for (int i = 0; i < N_INTS; ++i) *ints[i] = iv[i];
   for (int i = 0; i < N_ROLES; ++i) c.cix[i] = iv[N_INTS + i];
-  for (int i = 0; i < N_ARRAYS; ++i) c.a[i] = buf + iv[N_INTS + N_ROLES + i];
+  for (int i = 0; i < N_ARRAYS; ++i) c.off[i] = iv[N_INTS + N_ROLES + i];
   float* fl[N_FLOATS] = {&c.c_gnfw, &c.alpha, &c.gamma, &c.mass_C, &c.t0g,
                          &c.inv_dtg, &c.pos_hi};
   for (int i = 0; i < N_FLOATS; ++i) *fl[i] = fv[i];
+  c.buf = buf;
+  c.ws = nullptr;
+  c.ws_stride = 0;
+  c.stage = 1;
+  const int NP = c.n_press, PIX = c.n_pix, ND = c.n_data, NS = c.n_sh,
+            NBA = c.n_band * c.n_ann, NBT = c.n_band * c.nT;
+  const int size[N_ARRAYS] = {NP, NP, NP * PIX, PIX * ND, ND, ND, c.sep, NP,
+                              NS, NS, NBT, NBT, NS * c.n_ann, NBA, NBA, NBA,
+                              NBA, c.D, c.D, c.D, c.D, c.n_conv, c.n_conv,
+                              c.n_conv, 1};
+  int end = 0;
+  for (int i = 0; i < N_ARRAYS; ++i) end = imax(end, c.off[i] + size[i]);
+  c.n_buf = r4(end);
   return c;
 }
 
-// shared-memory floats one tile needs (besides the caller's own)
-static inline size_t tile_smem_floats(const LLConsts& c) {
-  return (size_t)TILE_WALKERS * (3 * c.n_press + c.n_pix
-                                 + 2 * c.n_band * c.n_sh + 24)
-         + JT_WARPS * TILE_WALKERS * 2 + 4 * TILE_WALKERS;
+// The scratch of one tile's profiles (float offsets, multiples of 4).
+// R is scratch that three phases use in turn: the HSE mass (WT x n_press),
+// the partial sums of pp @ L^T (KSPLIT / 2 x WT x PIX_PASS), the X-ray taps
+// and emissivities and the Cash terms.
+struct TileLayout { int press, tsz, prof, res, sc, flags, R, total; };
+__host__ __device__ inline TileLayout tile_layout(const LLConsts& c) {
+  const int WT = TILE_WALKERS;
+  TileLayout t;
+  int o = 0;
+  t.press = o; o += r4(WT * c.n_press);        // n_press x WT
+  t.tsz = o;   o += r4(WT * c.sep);            // WT x sep
+  t.prof = o;  o += WT * pix_stride(c.n_pix);  // WT x pix_stride
+  t.res = o;   o += WT * r4(c.n_data);         // WT x n_data
+  t.sc = o;    o += r4(WT * SC_STRIDE);
+  t.flags = o; o += r4(2 * WT);                // ints
+  t.R = o;
+  int xr = WT * c.n_sh * XS_N + 2 * WT * c.n_band * c.n_sh
+           + WT * c.n_band * c.n_ann;
+  o += r4(imax(imax(WT * c.n_press, KSPLIT / 2 * WT * PIX_PASS), xr));
+  t.total = o;
+  return t;
 }
 
 // ---- Philox-4x32-10 (Salmon et al. 2011), counter (c0..c3), key (k0,k1)
@@ -101,149 +200,344 @@ __device__ inline float nanmax_f(float x, float v) {
   return isnan(x) ? x : fmaxf(x, v);
 }
 
-// Sum each thread's v[TILE_WALKERS] over the block and store the totals at
-// out[w * stride].  Every thread calls it.  red: JT_WARPS*TILE_WALKERS floats.
-__device__ inline void block_sum(float v[TILE_WALKERS], float* red,
-                                 float* out, int stride) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
-  for (int w = 0; w < TILE_WALKERS; ++w) {
-    float s = v[w];
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
-    if (lane == 0) red[warp * TILE_WALKERS + w] = s;
+  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// ---- cp.async staging of the constants --------------------------------
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ inline void stage_copy(float* dst, const float* src, int n) {
+  int i0 = 0;
+  if ((((uintptr_t)src) & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int i = threadIdx.x; i < n4; i += blockDim.x)
+      cp_async16(dst + 4 * i, src + 4 * i);
+    i0 = n4 << 2;
   }
+  for (int i = i0 + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+// FIT: the launch plan put the constants and the scratch in shared memory
+// (the CL J1226 shapes).  Each kernel's body is instantiated twice: FIT =
+// true in the kernel the launcher takes when the plan fits, where every
+// pointer below is known to be a shared-memory one, so the compiler emits
+// shared loads and stores and allocates registers for that body alone;
+// FIT = false in its _large_ twin, which follows the plan at run time on
+// generic pointers.
+
+// The constants at buf + coff (c.n_buf floats: every array the tile
+// reads) for the tiles that follow: when the plan stages them, start
+// copying them into smem and return smem (the tile waits for the copy
+// before its first read), else return them in place.  All threads call
+// it, with no thread still reading a previous smem copy.
+template <bool FIT>
+__device__ inline const float* use_consts(const LLConsts& c, size_t coff,
+                                          float* smem) {
+  if (!FIT && !c.stage) return c.buf + coff;
+  stage_copy(smem, c.buf + coff, c.n_buf);
+  cp_async_commit();
+  return smem;
+}
+
+// A tile's scratch: sm in shared memory, or this block's share of the
+// global workspace when the plan put it there.
+template <bool FIT>
+__device__ __forceinline__ float* tile_scratch(const LLConsts& c, float* sm) {
+  return (!FIT && c.ws) ? c.ws + (size_t)blockIdx.x * c.ws_stride : sm;
+}
+
+__device__ __forceinline__ void wait_staged() {
+  cp_async_wait_all();
   __syncthreads();
-  if (threadIdx.x < TILE_WALKERS) {
-    float s = 0.f;
-    for (int k = 0; k < JT_WARPS; ++k) s += red[k * TILE_WALKERS + threadIdx.x];
-    out[threadIdx.x * stride] = s;
-  }
-  __syncthreads();
+}
+
+// Tiles [t0, t1) of n_tiles for this block: contiguous, so a block of the
+// cluster grid keeps its cluster's staged constants for as long as it can.
+__device__ inline void block_tiles(int n_tiles, int* t0, int* t1) {
+  *t0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+  *t1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
 }
 
 // Per-walker scalars, one slot each in the tile's scalar area.
 enum Scal { S_P0, S_A, S_BCA, S_LNRP, S_BMC, S_N0SQ, S_RCI, S_RSI, S_EC,
             S_ES, S_TTX, S_Z, S_BSCALE, S_CAL, S_TOTAL, S_T0, S_INTEG,
             S_CHI2, S_CASH, N_SCAL };
+static_assert(N_SCAL <= SC_STRIDE, "scalar slots");
 
-__device__ inline float ne2_of(const LLConsts& c, const float* s, float r) {
-  float xc = r * s[S_RCI];
-  float xs = r * s[S_RSI];
+// The profile scalars of one walker, in registers.
+struct Prof {
+  float p0, a, bca, lnrp, bmc, n0sq, rci, rsi, ec, es;
+};
+__device__ __forceinline__ Prof load_prof(const float* s) {
+  return Prof{s[S_P0], s[S_A], s[S_BCA], s[S_LNRP], s[S_BMC], s[S_N0SQ],
+              s[S_RCI], s[S_RSI], s[S_EC], s[S_ES]};
+}
+
+__device__ __forceinline__ float ne2_of(const LLConsts& c, const Prof& s,
+                                        float r) {
+  float xc = r * s.rci;
+  float xs = r * s.rsi;
   float xs_g = (c.gamma == 3.0f) ? xs * xs * xs : powf(xs, c.gamma);
-  float ne2 = s[S_N0SQ] * expf(-s[S_EC] * log1pf(xc * xc)
-                               - s[S_ES] * log1pf(xs_g));
+  float ne2 = s.n0sq * expf(-s.ec * log1pf(xc * xc) - s.es * log1pf(xs_g));
   if (c.alpha != 0.0f) ne2 = ne2 * powf(xc, -c.alpha);
   return ne2;
 }
 
-__device__ inline float gnfw_press(const LLConsts& c, const float* s,
-                                   float lnr, float* ln1xa_out) {
-  float lnx = lnr - s[S_LNRP];
-  float za = s[S_A] * lnx;
+__device__ __forceinline__ float gnfw_press(const LLConsts& c, const Prof& s,
+                                            float lnr, float* ln1xa_out) {
+  float lnx = lnr - s.lnrp;
+  float za = s.a * lnx;
   float ln1xa = fmaxf(za, 0.0f) + log1pf(expf(-fabsf(za)));
-  if (ln1xa_out) *ln1xa_out = ln1xa;
-  return s[S_P0] * expf(-c.c_gnfw * lnx - s[S_BCA] * ln1xa);
+  *ln1xa_out = ln1xa;
+  return s.p0 * expf(-c.c_gnfw * lnx - s.bca * ln1xa);
 }
 
 // The SZ chain of a tile: raw = pp @ L^T, the temperature-dependent y->mJy
 // lerp (segment index = number of interior knots <= t, so both end segments
 // extrapolate) x calibration, model = prof @ G^T, and the sum over data
-// points of ((flux - model) * w)^2 -> chi[w * chi_stride].  press: WT x
-// n_press pressures in shared memory.  The temperature of walker w at map
-// radius p is t0[w * t0_stride] for p == 0 and tp[w * tp_stride + p - 1]
-// above; its calibration is cal[w * cal_stride].  prof: WT x n_pix floats of
-// shared memory; red: JT_WARPS * WT.  All threads of the block call it.
-__device__ inline void sz_chain_tile(const LLConsts& c, size_t coff,
-                                     const float* press, const float* t0,
+// points of ((flux - model) * w)^2 -> chi[w * chi_stride].  pressT: n_press
+// x WT pressures (walker fastest) in the scratch; st: the constants
+// (use_consts).  The temperature of walker w at map radius p is
+// t0[w * t0_stride] for p == 0 and tp[w * tp_stride + p - 1] above; its
+// calibration is cal[w * cal_stride].  prof: WT x pix_stride(n_pix),
+// red: KSPLIT / 2 x WT x PIX_PASS, res: WT x r4(n_data) floats of scratch.
+// All threads of the block call it.
+//
+// raw, for each pass of PIX_PASS map radii: the k chunk kc of its WT /
+// PPW warps holds k in [kc KC, (kc + 1) KC), KC = ceil(n_press / KSPLIT),
+// summed in k order by FMAs from 0; the chunks then combine as s_kc +=
+// s_kc+h for h = KSPLIT / 2, ..., 2, 1 (ops/sz_core.py::ksplit_matmul is
+// the plain mirror).  model: one warp per (walker, GT_CHUNK data points),
+// each lane the FMA sum of its map radii lane, lane + 32, lane + 64, ...,
+// then a xor-butterfly per data point.
+__device__ inline void sz_chain_tile(const LLConsts& c, const float* st,
+                                     const float* pressT, const float* t0,
                                      int t0_stride, const float* tp,
                                      int tp_stride, const float* cal,
                                      int cal_stride, float* prof, float* red,
-                                     float* chi, int chi_stride) {
+                                     float* res, float* chi,
+                                     int chi_stride) {
   const int WT = TILE_WALKERS;
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int NP = c.n_press, PIX = c.n_pix;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int NP = c.n_press, PIX = c.n_pix, ND = c.n_data;
+  const float* LT = st + c.off[A_LT];
+  const float* GT = st + c.off[A_GT];
+  wait_staged();
+  JT_MARK(4);
+  const int PS = pix_stride(PIX);
   {
-    const float* LT = c.a[A_LT] + coff;
-    const float* cT = c.a[A_CONVT] + coff;
-    const float* cV = c.a[A_CONVV] + coff;
-    const float* cS = c.a[A_CONVS] + coff;
-    for (int p = tid; p < PIX; p += nth) {
-      float raw[WT];
-      for (int w = 0; w < WT; ++w) raw[w] = 0.f;
-      for (int k = 0; k < NP; ++k) {
-        float l = LT[k * PIX + p];
-        for (int w = 0; w < WT; ++w) raw[w] += press[w * NP + k] * l;
+    const int wg = WT / PPW;                 // warps of one k chunk
+    const int kc = warp / wg, wh = (warp - kc * wg) * PPW;
+    const int KC = (NP + KSPLIT - 1) / KSPLIT;
+    const int k0 = kc * KC;
+    const int k1 = k0 + KC < NP ? k0 + KC : NP;
+    for (int pb = 0; pb < PIX; pb += PIX_PASS) {
+      int pix[PIX_LANE];
+#pragma unroll
+      for (int j = 0; j < PIX_LANE; ++j) {
+        int p = pb + lane + 32 * j;
+        pix[j] = p < PIX ? p : PIX - 1;
       }
-      for (int w = 0; w < WT; ++w) {
-        float t = (p == 0) ? t0[w * t0_stride]
-                  : (p <= c.sep ? tp[w * tp_stride + p - 1] : 1.0f);
-        int ci = 0;
-        for (int q = 1; q < c.n_conv - 1; ++q) ci += (t >= cT[q]) ? 1 : 0;
-        float conv = cV[ci] + (t - cT[ci]) * cS[ci];
-        prof[w * PIX + p] = raw[w] * conv * cal[w * cal_stride];
+      float acc[PPW][PIX_LANE];
+#pragma unroll
+      for (int w = 0; w < PPW; ++w)
+#pragma unroll
+        for (int j = 0; j < PIX_LANE; ++j) acc[w][j] = 0.f;
+      for (int k = k0; k < k1; ++k) {
+        float pw[PPW];
+#pragma unroll
+        for (int v = 0; v < PPW / 4; ++v) {
+          const float4 q =
+              *reinterpret_cast<const float4*>(pressT + k * WT + wh + 4 * v);
+          pw[4 * v] = q.x;
+          pw[4 * v + 1] = q.y;
+          pw[4 * v + 2] = q.z;
+          pw[4 * v + 3] = q.w;
+        }
+#pragma unroll
+        for (int j = 0; j < PIX_LANE; ++j) {
+          const float l = LT[k * PIX + pix[j]];
+#pragma unroll
+          for (int w = 0; w < PPW; ++w)
+            acc[w][j] = __fmaf_rn(pw[w], l, acc[w][j]);
+        }
+      }
+      for (int h = KSPLIT / 2; h > 0; h >>= 1) {
+        if (kc >= h && kc < 2 * h) {
+#pragma unroll
+          for (int w = 0; w < PPW; ++w)
+#pragma unroll
+            for (int j = 0; j < PIX_LANE; ++j)
+              red[((kc - h) * WT + wh + w) * PIX_PASS + lane + 32 * j] =
+                  acc[w][j];
+        }
+        __syncthreads();
+        if (kc < h) {
+#pragma unroll
+          for (int w = 0; w < PPW; ++w)
+#pragma unroll
+            for (int j = 0; j < PIX_LANE; ++j)
+              acc[w][j] = __fadd_rn(
+                  acc[w][j],
+                  red[(kc * WT + wh + w) * PIX_PASS + lane + 32 * j]);
+        }
+        __syncthreads();
+      }
+      if (kc == 0) {
+#pragma unroll
+        for (int w = 0; w < PPW; ++w)
+#pragma unroll
+          for (int j = 0; j < PIX_LANE; ++j)
+            prof[(wh + w) * PS + pb + lane + 32 * j] = acc[w][j];
       }
     }
   }
   __syncthreads();
+  JT_MARK(5);
   {
-    const float* GT = c.a[A_GT] + coff;
-    const float* fl = c.a[A_FLUX] + coff;
-    const float* wr = c.a[A_WRES] + coff;
-    float chi2[WT];
-    for (int w = 0; w < WT; ++w) chi2[w] = 0.f;
-    for (int d = tid; d < c.n_data; d += nth) {
-      float model[WT];
-      for (int w = 0; w < WT; ++w) model[w] = 0.f;
-      for (int p = 0; p < PIX; ++p) {
-        float g = GT[p * c.n_data + d];
-        for (int w = 0; w < WT; ++w) model[w] += prof[w * PIX + p] * g;
+    const float* cT = st + c.off[A_CONVT];
+    const float* cV = st + c.off[A_CONVV];
+    const float* cS = st + c.off[A_CONVS];
+    for (int idx = tid; idx < WT * PIX; idx += nth) {
+      const int w = idx / PIX, p = idx - w * PIX;
+      float t = (p == 0) ? t0[w * t0_stride]
+                : (p <= c.sep ? tp[w * tp_stride + p - 1] : 1.0f);
+      // the number of interior knots <= t, by bisection: the packers
+      // require a table that never decreases, so t >= cT[q] holds for a
+      // prefix of q (a NaN t holds for none and takes segment 0, as
+      // counting would)
+      int lo = 1, hi = c.n_conv - 1;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (t >= cT[mid]) lo = mid + 1;
+        else hi = mid;
       }
-      for (int w = 0; w < WT; ++w) {
-        float res = (fl[d] - model[w]) * wr[d];
-        chi2[w] += res * res;
+      const int ci = lo - 1;
+      float conv = cV[ci] + (t - cT[ci]) * cS[ci];
+      float* pr = prof + w * PS + p;
+      *pr = *pr * conv * cal[w * cal_stride];
+    }
+  }
+  __syncthreads();
+  JT_MARK(6);
+  {
+    const float* fl = st + c.off[A_FLUX];
+    const float* wr = st + c.off[A_WRES];
+    const int RS = r4(ND);
+    const int n_chunk = (ND + GT_CHUNK - 1) / GT_CHUNK;
+    for (int unit = warp; unit < WT * n_chunk; unit += JT_WARPS) {
+      const int w = unit / n_chunk;
+      const int d0 = (unit - w * n_chunk) * GT_CHUNK;
+      const float* pw = prof + w * PS;
+      {
+        float s[GT_CHUNK];
+#pragma unroll
+        for (int q = 0; q < GT_CHUNK; ++q) s[q] = 0.f;
+#pragma unroll 3
+        for (int p = lane; p < PIX; p += 32) {
+          const float v = pw[p];
+#pragma unroll
+          for (int q = 0; q < GT_CHUNK; ++q)
+            if (d0 + q < ND) s[q] = __fmaf_rn(v, GT[p * ND + d0 + q], s[q]);
+        }
+#pragma unroll
+        for (int q = 0; q < GT_CHUNK; ++q) s[q] = warp_sum(s[q]);
+        if (lane < GT_CHUNK && d0 + lane < ND) {
+          float m = s[0];
+#pragma unroll
+          for (int q = 1; q < GT_CHUNK; ++q) m = lane == q ? s[q] : m;
+          const int d = d0 + lane;
+          float r = (fl[d] - m) * wr[d];
+          res[w * RS + d] = r * r;
+        }
       }
     }
-    block_sum(chi2, red, chi, chi_stride);
+    __syncthreads();
+    JT_MARK(7);
+    if (tid < WT) {
+      float s = 0.f;
+      for (int d = 0; d < ND; ++d) s += res[tid * RS + d];
+      chi[tid * chi_stride] = s;
+    }
+    __syncthreads();
+    JT_MARK(8);
   }
 }
 
 // Joint log-posterior of the TILE_WALKERS parameter rows in th (shared
 // memory, row stride MAX_D) -> out[w] (shared memory).  All threads of the
-// block must call it.  sm: tile_smem_floats(c) floats of shared memory.
-__device__ void joint_ll_tile(const LLConsts& c, size_t coff, const float* th,
-                              float* out, float* sm) {
+// block must call it.  st: the constants (use_consts); sm:
+// tile_layout(c).total floats of shared memory, unused when the plan put
+// the scratch in the global workspace.  A thread's walker in the
+// per-radius phases is tid % WT (the block's size is a multiple of WT).
+template <bool FIT>
+__device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
+                                              const float* st,
+                                              const float* th, float* out,
+                                              float* sm) {
   const int WT = TILE_WALKERS;
   const int tid = threadIdx.x, nth = blockDim.x;
-  const int NP = c.n_press, PIX = c.n_pix, NS = c.n_sh, NB = c.n_band;
-  float* press = sm;
-  float* tsz = press + WT * NP;
-  float* mm = tsz + WT * NP;
-  float* prof = mm + WT * NP;
-  float* e0 = prof + WT * PIX;
-  float* e1 = e0 + WT * NB * NS;
-  float* sc = e1 + WT * NB * NS;          // WT x 24 scalars
-  float* red = sc + WT * 24;              // JT_WARPS x WT (x2)
-  int* flags = (int*)(red + 2 * JT_WARPS * WT);   // mass veto, x-ray veto
+  const int lane = tid & 31, warp = tid >> 5;
+  const int NP = c.n_press, NS = c.n_sh, NB = c.n_band, NA = c.n_ann;
+  const int TS = c.sep;
+  const TileLayout L = tile_layout(c);
+  sm = tile_scratch<FIT>(c, sm);
+  float* pressT = sm + L.press;
+  float* tsz = sm + L.tsz;
+  float* prof = sm + L.prof;
+  float* res = sm + L.res;
+  float* sc = sm + L.sc;
+  int* flags = (int*)(sm + L.flags);      // mass veto, x-ray veto
+  float* R = sm + L.R;
   const float INF = __int_as_float(0x7f800000);
+  wait_staged();
+  JT_MARK(0);
 
-  // ---- per-walker scalars, priors, r_c <= r_s veto ----------------------
-  if (tid < WT) {
-    const float* t = th + tid * MAX_D;
-    float* s = sc + tid * 24;
-    const float* lo = c.a[A_LO] + coff;
-    const float* hi = c.a[A_HI] + coff;
-    const float* wg = c.a[A_WG] + coff;
-    const float* mu = c.a[A_MU] + coff;
-    bool inside = true;
+  // ---- priors and r_c <= r_s veto: one thread per (walker, parameter),
+  // ---- beside them one thread per walker for its profile scalars
+  if (tid < WT * MAX_D) {
+    const int w = tid / MAX_D, d = tid - w * MAX_D;
+    const float* t = th + w * MAX_D;
     float g = 0.f;
-    for (int d = 0; d < c.D; ++d) {
-      inside = inside && (t[d] >= lo[d]) && (t[d] <= hi[d]);
-      float dr = t[d] - mu[d];
-      g += wg[d] * dr * dr;
+    int out_box = 0;
+    if (d < c.D) {
+      const float v = t[d];
+      out_box = !((v >= st[c.off[A_LO] + d]) && (v <= st[c.off[A_HI] + d]));
+      const float dr = v - st[c.off[A_MU] + d];
+      g = st[c.off[A_WG] + d] * dr * dr;
     }
-    float total = inside ? -0.5f * g : -INF;
-    float log_rc = t[c.cix[R_LOGRC]], log_rs = t[c.cix[R_LOGRS]];
-    if (log_rc > log_rs) total = -INF;
+    // fixed order over the 16 lanes of this walker
+#pragma unroll
+    for (int o = MAX_D / 2; o > 0; o >>= 1) {
+      g += __shfl_xor_sync(0xffffffffu, g, o, MAX_D);
+      out_box |= __shfl_xor_sync(0xffffffffu, out_box, o, MAX_D);
+    }
+    if (d == 0) {
+      float total = out_box ? -INF : -0.5f * g;
+      if (t[c.cix[R_LOGRC]] > t[c.cix[R_LOGRS]]) total = -INF;
+      sc[w * SC_STRIDE + S_TOTAL] = total;
+      flags[2 * w] = 0;
+      flags[2 * w + 1] = 0;
+    }
+  } else if (tid - WT * MAX_D < WT) {
+    const int w = tid - WT * MAX_D;
+    const float* t = th + w * MAX_D;
+    float* s = sc + w * SC_STRIDE;
     float a = t[c.cix[R_A]], b = t[c.cix[R_B]];
     s[S_P0] = t[c.cix[R_P0]];
     s[S_A] = a;
@@ -252,79 +546,102 @@ __device__ void joint_ll_tile(const LLConsts& c, size_t coff, const float* th,
     s[S_LNRP] = logf(t[c.cix[R_RP]]);
     float n0 = powf(10.0f, t[c.cix[R_LOGN0]]);
     s[S_N0SQ] = n0 * n0;
-    s[S_RCI] = powf(10.0f, -log_rc);
-    s[S_RSI] = powf(10.0f, -log_rs);
+    s[S_RCI] = powf(10.0f, -t[c.cix[R_LOGRC]]);
+    s[S_RSI] = powf(10.0f, -t[c.cix[R_LOGRS]]);
     s[S_EC] = 3.0f * t[c.cix[R_BETA]] - c.alpha / 2.0f;
     s[S_ES] = t[c.cix[R_EPS]] / c.gamma;
     s[S_TTX] = powf(10.0f, t[c.cix[R_TRATIO]]);
     s[S_Z] = t[c.cix[R_Z]];
     s[S_BSCALE] = t[c.cix[R_BSCALE]];
     s[S_CAL] = t[c.cix[R_CAL]];
-    s[S_TOTAL] = total;
-    flags[2 * tid] = 0;
-    flags[2 * tid + 1] = 0;
   }
   __syncthreads();
+  JT_MARK(1);
 
-  // ---- pressure, T_SZ and HSE mass on the pressure grid -----------------
-  const float* r = c.a[A_R] + coff;
-  const float* lnr = c.a[A_LNR] + coff;
-  for (int idx = tid; idx < WT * NP; idx += nth) {
-    int w = idx / NP, k = idx - w * NP;
-    const float* s = sc + w * 24;
-    float ln1xa;
-    float P = gnfw_press(c, s, lnr[k], &ln1xa);
-    float sfrac = 1.0f - expf(-ln1xa);
-    float ne_inv = rsqrtf(ne2_of(c, s, r[k]));
-    press[idx] = P;
-    tsz[idx] = P * ne_inv;
-    mm[idx] = P * r[k] * (c.c_gnfw + s[S_BMC] * sfrac) * ne_inv * c.mass_C;
-  }
-  __syncthreads();
-
-  // ---- mass veto, T(0) and integrated-Y partial sums --------------------
+  // ---- pressure, T_SZ and HSE mass on the pressure grid, and the partial
+  // ---- sums of T(0) and integrated Y: a thread's walker's scalars in
+  // ---- registers
+  float* mm = R;                                    // WT x n_press
+  float* part = prof;                   // 2 x JT_WARPS x WT partial sums
   {
-    float t0p[WT], ip[WT];
-    for (int w = 0; w < WT; ++w) { t0p[w] = 0.f; ip[w] = 0.f; }
-    const float* wT0 = c.a[A_WT0] + coff;
-    const float* wint = c.a[A_WINT] + coff;
-    for (int k = tid; k < NP; k += nth) {
-      for (int w = 0; w < WT; ++w) {
-        const float* m = mm + w * NP;
-        if (c.mass_veto) {
-          // np.gradient(m) > 0: central differences inside, one-sided at
-          // the edges; a NaN comparison is false and vetoes
-          bool ok;
-          if (k == 0) ok = m[1] > m[0];
-          else if (k == NP - 1) ok = m[NP - 1] > m[NP - 2];
-          else ok = m[k + 1] > m[k - 1];
-          if (!ok) flags[2 * w] = 1;
-        }
-        if (k < c.sep) t0p[w] += tsz[w * NP + k] * wT0[k];
-        ip[w] += press[w * NP + k] * wint[k];
+    const float* r = st + c.off[A_R];
+    const float* lnr = st + c.off[A_LNR];
+    const float* wT0 = st + c.off[A_WT0];
+    const float* wint = st + c.off[A_WINT];
+    const int w = tid % WT, kstep = nth / WT;
+    const Prof s = load_prof(sc + w * SC_STRIDE);
+    float t0s = 0.f, is = 0.f;
+    for (int k = tid / WT; k < NP; k += kstep) {
+      const float rk = r[k];
+      float x;
+      const float P = gnfw_press(c, s, lnr[k], &x);
+      const float ne = rsqrtf(ne2_of(c, s, rk));
+      const float f = 1.0f - expf(-x);
+      pressT[k * WT + w] = P;
+      mm[w * NP + k] = P * rk * (c.c_gnfw + s.bmc * f) * ne * c.mass_C;
+      is = __fmaf_rn(P, wint[k], is);
+      if (k < c.sep) {
+        const float tz = P * ne;
+        tsz[w * TS + k] = tz;
+        t0s = __fmaf_rn(tz, wT0[k], t0s);
       }
     }
-    block_sum(t0p, red, sc + S_T0, 24);
-    block_sum(ip, red, sc + S_INTEG, 24);
+    // the 32 threads of walker w: lanes w and w + 16 of every warp
+    t0s += __shfl_xor_sync(0xffffffffu, t0s, 16);
+    is += __shfl_xor_sync(0xffffffffu, is, 16);
+    if (lane < WT) {
+      part[warp * WT + w] = t0s;
+      part[(JT_WARPS + warp) * WT + w] = is;
+    }
   }
+  __syncthreads();
+  JT_MARK(2);
+
+  // ---- mass veto; T(0) and integrated Y summed over the warps in order ---
+  if (c.mass_veto) {
+    // np.gradient(m) > 0: central differences inside, one-sided at the
+    // edges; a NaN comparison is false and vetoes
+    const int w = tid % WT;
+    const float* m = mm + w * NP;
+    bool bad = false;
+#pragma unroll 4
+    for (int k = tid / WT; k < NP; k += nth / WT) {
+      const int lo = k == 0 ? 0 : k - 1, hi = k == NP - 1 ? NP - 1 : k + 1;
+      bad = bad | !(m[hi] > m[lo]);
+    }
+    if (bad) flags[2 * w] = 1;
+  }
+  if (tid < WT) {
+    float t0s = 0.f, is = 0.f;
+    for (int q = 0; q < JT_WARPS; ++q) {
+      t0s += part[q * WT + tid];
+      is += part[(JT_WARPS + q) * WT + tid];
+    }
+    sc[tid * SC_STRIDE + S_T0] = t0s;
+    sc[tid * SC_STRIDE + S_INTEG] = is;
+  }
+  __syncthreads();
+  JT_MARK(3);
 
   // ---- SZ: raw = pp @ L^T, lerp x calibration, model = prof @ G^T, chi^2 --
-  sz_chain_tile(c, coff, press, sc + S_T0, 24, tsz, NP, sc + S_CAL, 24, prof,
-                red, sc + S_CHI2, 24);
+  sz_chain_tile(c, st, pressT, sc + S_T0, SC_STRIDE, tsz, TS, sc + S_CAL,
+                SC_STRIDE, prof, R, res, sc + S_CHI2, SC_STRIDE);
 
   // ---- X-ray: midpoint profiles, two-tap count-rate lookup ---------------
+  float* xs = R;                                    // WT x NS x XS_N
+  float* e0 = xs + WT * NS * XS_N;                  // WT x NB x NS
+  float* e1 = e0 + WT * NB * NS;
+  float* cash = e1 + WT * NB * NS;                  // WT x NB x NA
   {
-    const float* midr = c.a[A_MIDR] + coff;
-    const float* lnmid = c.a[A_LNMID] + coff;
-    const float* LR0 = c.a[A_LR0] + coff;
-    const float* LR1 = c.a[A_LR1] + coff;
-    const float NaN = __int_as_float(0x7fc00000);
+    const float* midr = st + c.off[A_MIDR];
+    const float* lnmid = st + c.off[A_LNMID];
     for (int idx = tid; idx < WT * NS; idx += nth) {
-      int w = idx / NS, j = idx - w * NS;
-      const float* s = sc + w * 24;
-      float pm = gnfw_press(c, s, lnmid[j], nullptr);
+      const int w = idx / NS, j = idx - w * NS;
+      const Prof s = load_prof(sc + w * SC_STRIDE);
+      float x1;
+      float pm = gnfw_press(c, s, lnmid[j], &x1);
       float n2 = ne2_of(c, s, midr[j]);
-      float Tm = pm * rsqrtf(n2) * s[S_TTX];
+      float Tm = pm * rsqrtf(n2) * sc[w * SC_STRIDE + S_TTX];
       float tl = logf(nanmax_f(Tm, 1e-30f));
       float pos = (tl - c.t0g) * c.inv_dtg;
       bool bad = isnan(pos);
@@ -340,60 +657,200 @@ __device__ void joint_ll_tile(const LLConsts& c, size_t coff, const float* th,
         w1 = fmaxf(0.0f, 1.0f - fabsf(pos - (k0f + 1.0f)));
         k1 = k0 + 1;
       }
-      float zm = 1.0f - s[S_Z];
-      for (int b = 0; b < NB; ++b) {
-        const float* t0r = LR0 + b * c.nT;
-        const float* t1r = LR1 + b * c.nT;
-        float l0 = w0 * t0r[k0] + w1 * t0r[k1];
-        float l1 = w0 * t1r[k0] + w1 * t1r[k1];
-        e0[(w * NB + b) * NS + j] = bad ? NaN : expf(l0) * zm * n2;
-        e1[(w * NB + b) * NS + j] = expf(l1) * s[S_Z] * n2;
-      }
+      float* x = xs + idx * XS_N;
+      x[0] = __int_as_float(k0);
+      x[1] = __int_as_float(k1);
+      x[2] = w0;
+      x[3] = w1;
+      x[4] = n2;
+      x[5] = bad ? 1.0f : 0.0f;
     }
   }
   __syncthreads();
+  JT_MARK(9);
+  {
+    const float* LR0 = st + c.off[A_LR0];
+    const float* LR1 = st + c.off[A_LR1];
+    const float NaN = __int_as_float(0x7fc00000);
+    for (int idx = tid; idx < WT * NB * NS; idx += nth) {
+      const int w = idx / (NB * NS), rem = idx - w * NB * NS;
+      const int b = rem / NS, j = rem - b * NS;
+      const float* x = xs + (w * NS + j) * XS_N;
+      const int k0 = __float_as_int(x[0]), k1 = __float_as_int(x[1]);
+      const float w0 = x[2], w1 = x[3], n2 = x[4];
+      const float z = sc[w * SC_STRIDE + S_Z];
+      const float* t0r = LR0 + b * c.nT;
+      const float* t1r = LR1 + b * c.nT;
+      float l0 = w0 * t0r[k0] + w1 * t0r[k1];
+      float l1 = w0 * t1r[k0] + w1 * t1r[k1];
+      e0[idx] = x[5] != 0.0f ? NaN : expf(l0) * (1.0f - z) * n2;
+      e1[idx] = expf(l1) * z * n2;
+    }
+  }
+  __syncthreads();
+  JT_MARK(10);
 
   // ---- X-ray: projection, prediction, positivity veto, Cash -------------
   {
-    const float* V = c.a[A_VOLST] + coff;
-    const float* sigf = c.a[A_SIGF] + coff;
-    const float* bgf = c.a[A_BGF] + coff;
-    const float* cmf = c.a[A_CMF] + coff;
-    const float* ctf = c.a[A_CTF] + coff;
-    const int NA = c.n_ann, cells = NB * NA;
-    float cash[WT];
-    for (int w = 0; w < WT; ++w) cash[w] = 0.f;
-    for (int bi = tid; bi < cells; bi += nth) {
-      int b = bi / NA, i = bi - b * NA;
-      for (int w = 0; w < WT; ++w) {
-        const float* E0 = e0 + (w * NB + b) * NS;
-        const float* E1 = e1 + (w * NB + b) * NS;
-        float p0 = 0.f, p1 = 0.f;
+    const float* V = st + c.off[A_VOLST];
+    const float* sigf = st + c.off[A_SIGF];
+    const float* bgf = st + c.off[A_BGF];
+    const float* cmf = st + c.off[A_CMF];
+    const float* ctf = st + c.off[A_CTF];
+    const int cells = NB * NA;
+    // the projection: one thread per (walker, band), PROJ_CHUNK annuli at
+    // a time, each sum over the shells in order; p0 + p1 into cash
+    for (int row = tid; row < WT * NB; row += nth) {
+      const float* E0 = e0 + row * NS;
+      const float* E1 = e1 + row * NS;
+      for (int i0 = 0; i0 < NA; i0 += PROJ_CHUNK) {
+        float p0[PROJ_CHUNK], p1[PROJ_CHUNK];
+#pragma unroll
+        for (int q = 0; q < PROJ_CHUNK; ++q) p0[q] = p1[q] = 0.f;
         for (int j = 0; j < NS; ++j) {
-          float v = V[j * NA + i];
-          p0 += E0[j] * v;
-          p1 += E1[j] * v;
+          const float a0 = E0[j], a1 = E1[j];
+#pragma unroll
+          for (int q = 0; q < PROJ_CHUNK; ++q) {
+            const float v = i0 + q < NA ? V[j * NA + i0 + q] : 0.f;
+            p0[q] = __fmaf_rn(a0, v, p0[q]);
+            p1[q] = __fmaf_rn(a1, v, p1[q]);
+          }
         }
-        float pred = (p0 + p1) * sigf[bi]
-                     + sc[w * 24 + S_BSCALE] * bgf[bi];
-        if (!(pred > 0.0f) && cmf[bi] != 0.0f) flags[2 * w + 1] = 1;
-        float safe = (pred > 0.0f) ? pred : 1.0f;
-        cash[w] += cmf[bi] * (ctf[bi] * logf(safe) - safe);
+#pragma unroll
+        for (int q = 0; q < PROJ_CHUNK; ++q)
+          if (i0 + q < NA) cash[row * NA + i0 + q] = p0[q] + p1[q];
       }
     }
-    block_sum(cash, red, sc + S_CASH, 24);
+    __syncthreads();
+    for (int idx = tid; idx < WT * cells; idx += nth) {
+      const int w = idx / cells, bi = idx - w * cells;
+      const float pred = cash[idx] * sigf[bi]
+                         + sc[w * SC_STRIDE + S_BSCALE] * bgf[bi];
+      if (!(pred > 0.0f) && cmf[bi] != 0.0f) flags[2 * w + 1] = 1;
+      const float safe = (pred > 0.0f) ? pred : 1.0f;
+      cash[idx] = cmf[bi] * (ctf[bi] * logf(safe) - safe);
+    }
+    __syncthreads();
+    JT_MARK(11);
+    for (int w = warp; w < WT; w += JT_WARPS) {
+      float s = 0.f;
+      for (int bi = lane; bi < cells; bi += 32) s += cash[w * cells + bi];
+      s = warp_sum(s);
+      if (lane == 0) sc[w * SC_STRIDE + S_CASH] = s;
+    }
   }
+  __syncthreads();
+  JT_MARK(12);
 
   // ---- combine ------------------------------------------------------------
   if (tid < WT) {
-    const float* s = sc + tid * 24;
+    const float* s = sc + tid * SC_STRIDE;
     float total = s[S_TOTAL];
     if (flags[2 * tid]) total = -INF;
     total = total - 0.5f * s[S_CHI2];
-    float di = s[S_INTEG] - (c.a[A_MUI] + coff)[0];
+    float di = s[S_INTEG] - st[c.off[A_MUI]];
     total = total - 0.5f * di * di;
     total = total + (flags[2 * tid + 1] ? -INF : s[S_CASH]);
     out[tid] = isnan(total) ? -INF : total;
   }
   __syncthreads();
+  JT_MARK(13);
+}
+
+// ---- host side ------------------------------------------------------------
+// The tile takes at most MAX_D parameters and any number of radii.
+static inline bool tile_fits(const LLConsts& c) {
+  return c.D <= MAX_D && c.n_pix >= 1 && c.n_press >= 1;
+}
+
+// Where a launch keeps what its tiles read: own floats of shared memory
+// the kernel needs for itself, scratch floats of the tiles' profiles.
+// Both and the constants in shared memory when they fit in a block's
+// shared memory; else the constants read in place (c->stage = 0); else the
+// scratch too in a global workspace, scratch floats per block (*ws_floats).
+// *smem: the dynamic shared memory in bytes.
+static int plan_launch(LLConsts* c, size_t own, size_t scratch, size_t* smem,
+                       size_t* ws_floats) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const size_t limit = (size_t)optin / sizeof(float);
+  c->stage = own + scratch + c->n_buf <= limit;
+  *ws_floats = (c->stage || own + scratch <= limit) ? 0 : scratch;
+  *smem = (own + (c->stage ? c->n_buf : 0) + (*ws_floats ? 0 : scratch))
+          * sizeof(float);
+  return 0;
+}
+
+// Allocate the workspace of a plan (blocks x ws_floats floats, ordered on
+// the stream) into c->ws; release_workspace frees it after the launch.
+static int take_workspace(LLConsts* c, int blocks, size_t ws_floats,
+                          cudaStream_t stream) {
+  c->ws = nullptr;
+  c->ws_stride = ws_floats;
+  if (!ws_floats) return 0;
+  return (int)cudaMallocAsync((void**)&c->ws,
+                              (size_t)blocks * ws_floats * sizeof(float),
+                              stream);
+}
+static int release_workspace(const LLConsts& c, cudaStream_t stream) {
+  cudaError_t e = cudaGetLastError();
+  if (c.ws) {
+    cudaError_t f = cudaFreeAsync(c.ws, stream);
+    if (e == cudaSuccess) e = f;
+  }
+  return (int)e;
+}
+
+// Blocks of a launch that walks n_tiles tiles: as many as the card holds
+// at once with smem bytes of dynamic shared memory (occupancy x SMs), at
+// most n_tiles.  Returns a cudaError code (cudaErrorInvalidConfiguration
+// when a block does not fit on an SM).  The card's capacity is asked once
+// per kernel, device and size (the queries cost tens of microseconds of
+// host time, more than a small launch).
+template <typename Kernel>
+static int resident_blocks(Kernel kernel, size_t smem, int n_tiles,
+                           int* blocks) {
+  struct Entry { const void* fn; int dev; size_t smem; int cap; };
+  static Entry known[16];
+  static int n_known = 0;
+  *blocks = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int cap = 0;
+  for (int i = 0; i < (n_known < 16 ? n_known : 16); ++i)
+    if (known[i].fn == (const void*)kernel && known[i].dev == dev
+        && known[i].smem == smem)
+      cap = known[i].cap;
+  if (cap == 0) {
+    // allow the kernel every size a plan may give it on this device, so a
+    // launch of one size never finds the limit an other size set
+    int occ = 0, sms = 0, optin = 0;
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel,
+                                                        JT_THREADS, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+    cap = occ * sms;
+    known[n_known % 16] = Entry{(const void*)kernel, dev, smem, cap};
+    ++n_known;
+  }
+  *blocks = cap < n_tiles ? cap : n_tiles;
+  return 0;
+}
+
+extern "C" const char* kernel_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
 }

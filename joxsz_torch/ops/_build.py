@@ -32,9 +32,10 @@ SIGNATURES = {
         "launch_joint_ll": [_P, _I, _P, _P, _P, _P, _P],
     },
     "stretch_step": {
-        "launch_stretch_half": [_P, _P, _P, _P, _I, _I, _I, _U, _I, _F, _F,
-                                _I, _L, _P, _P, _P, _P],
-        "launch_swap": [_P, _P, _P, _I, _I, _I, _U, _I, _I, _F, _P],
+        "launch_stretch_steps": [_P, _P, _P, _P, _P, _P, _I, _I, _U, _I, _I,
+                                 _I, _P, _P, _F, _F, _I, _L, _P, _P, _P, _P,
+                                 _P],
+        "stretch_steps_config": [_I, _I, _P, _P, _P],
         "launch_coupled_half": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _F,
                                 _F, _P, _P, _P, _P],
     },
@@ -109,12 +110,18 @@ def kernel_library(name: str) -> ctypes.CDLL:
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
 
 
 def check_launch(err: int, what: str):
-    """Raise on a non-zero ``cudaGetLastError`` code from a launcher."""
+    """Raise on a non-zero CUDA error code from a launcher: a launch the
+    card refused (too much shared memory, a cooperative grid that cannot
+    be resident, no cooperative launch) or shapes the kernel does not
+    take."""
     if err != 0:
+        text = next(iter(_LIBS.values())).kernel_error_string(err).decode()
         raise RuntimeError(f"CUDA launch of {what} failed with cudaError "
-                           f"{err}")
+                           f"{err} ({text})")

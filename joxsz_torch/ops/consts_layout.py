@@ -28,6 +28,16 @@ INTS = ("n_press", "sep", "n_pix", "n_data", "n_sh", "n_ann", "n_band",
 FLOATS = ("c_gnfw", "alpha", "gamma", "mass_C", "t0g", "inv_dtg", "pos_hi")
 
 
+def check_conv_table(conv_T):
+    """Raise ``ValueError`` unless the y->mJy table's temperatures never
+    decrease: the kernels find the lerp's segment (the number of interior
+    knots <= t) by bisection, which needs a sorted table."""
+    t = np.asarray(conv_T, np.float64)
+    if t.size < 2 or not np.all(np.diff(t) >= 0):
+        raise ValueError("the y->mJy conversion table needs at least two "
+                         "temperatures in non-decreasing order")
+
+
 def pack_arrays(clusters: list[dict], device):
     """Pack one dict of arrays per cluster (same keys and shapes, any
     subset of ``ARRAYS``) into a (C, n) float32 buffer with identical

@@ -16,24 +16,24 @@ state, rolls the shard's rows to the top of the full draw and gathers
 partners by a one-hot product; those are layout devices of that chip.
 Here the state is unpacked as in the other step kernels (x (H_loc, D),
 lp (H_loc,), acc (H_loc,), x_fixed (H, D), contiguous float32), the
-gather is a row read, and a block of ``TILE_WALKERS`` rows runs the
-device code of the plain half-step (``csrc/stretch_step.cu::
-stretch_half_tile``) with two row counts: ``H_loc`` guards the moving
-rows, ``H`` clamps the partner.
+gather is a row read, and a tile of 16 rows runs the device code of the
+step kernel's half-step (``csrc/stretch_step.cu::stretch_half_tile``)
+with two row counts: ``H_loc`` guards the moving rows, ``H`` clamps the
+partner.
 
 Random bits: Philox-4x32-10 keyed (seed, 0), counter (row_off + i, step,
-which, 0) — the counter ``ops.step_kernel.stretch_half`` uses at K = 1.
+which, 0) — the counter ``ops.step_kernel.stretch_steps`` uses at K = 1.
 The likelihood's reductions do not depend on a walker's slot in its
 tile, so a coupled step over any number of shards is bit for bit the
-K = 1 half-step on the whole ensemble with the same seed (the TPU
+K = 1 step kernel on the whole ensemble with the same seed (the TPU
 kernels agree with each other in lp only to float32 ulps).
 
 One-hot partner law only; the hashed-roll law (``partner="roll"``,
 ``_hash_shift``) is not ported (``ROADMAP.md``, Queue B).
 
 What bounds it on the card: the likelihood of H_loc rows; at the mesh
-shapes (H_loc of 16 to 128 rows) a launch is a few tiles on 132 SMs and
-takes the latency of one tile.
+shapes (H_loc of 16 to 128 rows) a launch is one to eight tiles on 132
+SMs and takes the latency of one tile and its staging of the constants.
 
 Source: ``csrc/stretch_step.cu::coupled_half_kernel`` (+ ``joint_ll.cuh``).
 """

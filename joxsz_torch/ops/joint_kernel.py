@@ -21,11 +21,15 @@ C clusters stack into one (C, n) buffer with shared offsets and scalars:
 session's own ``pack_consts`` is a stack of one.
 
 CUDA kernel: ``csrc/joint_ll.cu`` over the shared device function in
-``csrc/joint_ll.cuh``; a block of 128 threads evaluates a tile of
-``TILE_WALKERS`` walkers, profiles in shared memory, constants in global
-memory (L^T is 313 x 86 f32, ~108 KB, and stays in L2), plain FP32 FMAs.
-What bounds it on the card: L2 reads of L^T/G^T and the per-radius
-transcendentals (the data it must move from device memory is tiny).
+``csrc/joint_ll.cuh``: as many blocks of 512 threads as the card holds at
+once, each staging the packed constants (L^T is 313 x 86 f32, ~108 KB, at
+the CL J1226 shapes) in shared memory once and walking tiles of 16
+walkers whose profiles live beside them (at shapes where these do not fit,
+the constants are read in place and then the profiles kept in global
+memory: ``csrc/joint_ll.cuh::plan_launch``); every phase is spread over the
+block, the long sums split across warps in a fixed order, plain FP32
+FMAs.  What bounds it on the card: operations (~84 k a walker against
+~60 bytes of input).
 
 ``joint_ll_plain`` is the same arithmetic in plain torch float32 (the
 mirror of ``ll_body``); the wrapper ``joint_ll`` runs it only for a CPU
@@ -40,12 +44,11 @@ import numpy as np
 import torch
 
 from .. import constants as K
-from .consts_layout import ROLES, LaunchParams, pack_arrays
+from .consts_layout import (ROLES, LaunchParams, check_conv_table,
+                            pack_arrays)
 from .sz_core import conv_slopes, sz_chain_plain, sz_padded_data
 
-# walkers per thread block (must match TILE_WALKERS in csrc/joint_ll.cuh)
-TILE_WALKERS = 4
-THREADS = 128
+# parameters a kernel row holds (MAX_D in csrc/joint_ll.cuh)
 MAX_D = 16
 
 
@@ -170,6 +173,7 @@ def _session_spec(sess) -> dict:
                 n_band=xr.counts_mask.shape[0], nT=nT,
                 n_conv=sz.conv_T.shape[0], D=len(p.thawed),
                 mass_veto=int(bool(m.exclude_unphysical_mass)))
+    check_conv_table(_np(sz.conv_T))
     if ints["n_pix"] != ints["sep"] + 1:
         raise ValueError("the SZ operator must have sep + 1 pixels")
     mass_C = float(K.keV_erg * K.kpc_cm

@@ -1,18 +1,18 @@
-"""Kernel 4: the cluster-grid stretch half-step.
+"""Kernel 4: the cluster-grid stretch steps.
 
 Replaces ``joxsz_tpu/ops/pallas_joint.py::make_multicluster_step_kernel``
 (constants: ``make_multicluster_consts`` -> ``joint_kernel.
-pack_consts_stack``).  One launch moves one half of every cluster's
-W-walker ensemble against that cluster's own constants (operators, flux,
-counts, tables): the grid is (walker tile, cluster), a block reads its
-cluster's constants at ``buf + cluster * stride`` and evaluates the joint
-log-posterior through the device function kernels 1 and 2 use.  It is
-``csrc/stretch_step.cu::stretch_half_kernel`` with the cluster axis
-switched on: beta = 1, partner = ``min(int(u1 H), H - 1)`` in the *same
-cluster's* fixed half, ``_stretch_z``, ``_gw_accept``, acceptance counted
-in float32.  The TPU kernel loops ``n_inner`` steps inside one grid step;
-a half-step needs the whole other half, so here the host loops launches,
-two per step (``sampling.kernel.run_multicluster_steps``).
+pack_consts_stack``).  One launch advances every cluster's W-walker
+ensemble by ``n_inner`` full steps against that cluster's own constants
+(operators, flux, counts, tables), as the TPU kernel does per call: it is
+``csrc/stretch_step.cu::stretch_steps_kernel`` with the cluster axis
+switched on — the moving half's tiles of all clusters spread over the
+persistent grid, a block stages its cluster's operands from ``buf +
+cluster * stride`` and evaluates the joint log-posterior through the
+device function kernels 1 and 6 use; beta = 1, partner = ``min(int(u1
+H), H - 1)`` in the *same cluster's* fixed half, ``_stretch_z``,
+``_gw_accept``, acceptance counted in float32, no swap sweep.  The kernel
+writes every cluster's thinned frames itself.
 
 Like the TPU kernel it keeps the unpacked state layout and the one-hot
 partner law only, which is meant for survey-scale ensembles (W up to
@@ -24,11 +24,12 @@ half, cluster): clusters never share bits and a cluster's stream does not
 depend on how many clusters there are (the TPU seeds its hardware PRNG
 with ``prng_seed(seed, cluster)``).
 
-What bounds it on the card: the likelihood of C*W/2 rows per launch, as
-kernel 2 at K = C rungs.  State: x (C, W, D), lp/acc (C, W), contiguous
-float32; the swap kernel never runs on it.
+What bounds it on the card: the likelihood of C*W/2 rows per half-step,
+as the step kernel at K = C rungs.  State: x (C, W, D), lp/acc (C, W),
+contiguous float32.
 
-``half_step_multicluster_plain`` is the plain torch version;
+``half_step_multicluster_plain`` is the plain torch half-step and
+``steps_multicluster_plain`` the plain version of a launch;
 ``multicluster_ll`` evaluates (C, B, D) -> (C, B) through kernel 1, one
 launch per cluster on that cluster's constants (init and lp0).
 """
@@ -38,8 +39,8 @@ from __future__ import annotations
 import torch
 
 from .joint_kernel import JointConstsStack, joint_ll, joint_ll_plain
-from .step_kernel import _M, half_step_plain, philox_stream
-from ..sampling.stretch import STRETCH_ZC
+from .step_kernel import (check_schedule, check_state_tensors, frames_out,
+                          half_step_plain, launch_steps, philox_stream)
 
 
 def multicluster_ll_plain(theta: torch.Tensor,
@@ -85,47 +86,67 @@ def half_step_multicluster_plain(x, lp, acc, which: int, bits,
         lambda flat: lp_fn(flat.reshape(C, H, D)).reshape(-1))
 
 
-def _check_state(x, lp, acc, stack: JointConstsStack):
+def steps_multicluster_plain(x, lp, acc, n_steps: int, bits_fn,
+                             stack: JointConstsStack, lp_fn=None,
+                             thin: int = 0, step0: int = 0):
+    """Plain version of one launch of kernel 4: steps ``step0 .. step0 +
+    n_steps - 1`` from state x (C, W, D), lp/acc (C, W), the bits of a
+    half-step from ``bits_fn(step, which)`` (C, H, >=3).  With ``thin`` >
+    0 every cluster is kept after every ``thin``-th step.  Returns ``(x,
+    lp, acc, chain (C, n_steps // thin, W, D), chain_lp (C, n_steps //
+    thin, W))`` as new tensors."""
     C, W, D = x.shape
-    if C != stack.n_clusters or W % 2 or D != stack.ints["D"]:
+    n_keep = n_steps // thin if thin else 0
+    chain = x.new_empty((C, n_keep, W, D))
+    chain_lp = lp.new_empty((C, n_keep, W))
+    for n in range(1, n_steps + 1):
+        for which in (0, 1):
+            x, lp, acc, _, _ = half_step_multicluster_plain(
+                x, lp, acc, which, bits_fn(step0 + n - 1, which), stack,
+                lp_fn)
+        if thin and n % thin == 0:
+            chain[:, n // thin - 1] = x
+            chain_lp[:, n // thin - 1] = lp
+    return x, lp, acc, chain, chain_lp
+
+
+def stretch_steps_multicluster(x, lp, acc, seed: int, n_steps: int,
+                               stack: JointConstsStack, thin: int = 0,
+                               step0: int = 0, out=None):
+    """Advance every cluster's ensemble x (C, W, D), lp/acc (C, W) in
+    place by steps ``step0 .. step0 + n_steps - 1`` of the chunk seeded by
+    ``seed``, cluster c against ``stack.clusters[c]`` (one launch of
+    kernel 4 for CUDA tensors, its plain version for CPU tensors).
+    Returns every cluster's frames after every ``thin``-th step ``(chain
+    (C, n_steps // thin, W, D), chain_lp (C, n_steps // thin, W))``
+    (empty for thin 0), written into ``out`` when given."""
+    C, W, D = x.shape
+    if C != stack.n_clusters or D != stack.ints["D"] or \
+            lp.shape != (C, W) or acc.shape != (C, W):
         raise ValueError(
             f"state must be ({stack.n_clusters}, even W, "
             f"{stack.ints['D']}), got {tuple(x.shape)}")
-    for t in (x, lp, acc):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("sampler state must be contiguous float32")
-        if t.device != stack.device:
-            raise ValueError(f"state on {t.device}, constants on "
-                             f"{stack.device}")
-    if lp.shape != (C, W) or acc.shape != (C, W):
-        raise ValueError("lp and acc must be (C, W)")
-
-
-def stretch_half_multicluster(x, lp, acc, which: int, seed: int, step: int,
-                              stack: JointConstsStack):
-    """Advance the moving half ``which`` of every cluster in place
-    (kernel 4 for CUDA tensors, its plain version for CPU tensors)."""
-    _check_state(x, lp, acc, stack)
-    C, W, _ = x.shape
+    check_schedule(W, n_steps, thin, step0)
+    check_state_tensors((x, lp, acc), stack.device)
+    n_keep = n_steps // thin if thin else 0
+    chain, chain_lp = frames_out(out, (C, n_keep, W, D), (C, n_keep, W),
+                                 x.device)
     if x.device.type == "cpu":
-        bits = multicluster_bits(seed, x.device, step, which, C, W // 2)
-        xn, lpn, accn, _, _ = half_step_multicluster_plain(
-            x, lp, acc, which, bits, stack)
-        x.copy_(xn)
-        lp.copy_(lpn)
-        acc.copy_(accn)
-        return
-    from ._build import kernel_library, check_launch
-
-    lib = kernel_library("stretch_step")
-    p = stack.params
-    err = lib.launch_stretch_half(
-        x.data_ptr(), lp.data_ptr(), acc.data_ptr(), None, C, W, which,
-        seed & _M, step, STRETCH_ZC[0], STRETCH_ZC[1], 1, stack.stride,
-        stack.buf.data_ptr(), p.iv_ptr, p.fv_ptr,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(err, "stretch_half_multicluster")
-    stretch_half_multicluster.launches += 1
+        got = steps_multicluster_plain(
+            x, lp, acc, n_steps,
+            lambda step, which: multicluster_bits(seed, "cpu", step, which,
+                                                  C, W // 2),
+            stack, thin=thin, step0=step0)
+        for t, v in zip((x, lp, acc, chain, chain_lp), got):
+            t.copy_(v)
+        return chain, chain_lp
+    if n_steps == 0:
+        return chain, chain_lp
+    launch_steps(x, lp, acc, None, None, None, seed, step0, n_steps, thin,
+                 chain, chain_lp, 1, stack.stride, stack.buf, stack.params,
+                 "stretch_steps_multicluster")
+    stretch_steps_multicluster.launches += 1
+    return chain, chain_lp
 
 
-stretch_half_multicluster.launches = 0
+stretch_steps_multicluster.launches = 0

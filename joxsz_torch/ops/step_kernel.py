@@ -1,18 +1,21 @@
-"""Kernels 2 and 3: the stretch half-step and the swap sweep.
+"""The step kernel: n_inner full stretch steps of K rungs in one launch.
 
-Kernel 2 replaces the half-step inside ``joxsz_tpu/ops/pallas_joint.py::
-make_step_kernel`` (K = 1, the plain sampler) and ``make_tempered_step_
-kernel`` (K rungs): one launch moves one half of every rung — Philox bits,
-stretch factor, one-hot-law partner, proposal, the joint log-posterior
-through the device function kernel 1 uses, beta-scaled acceptance.
-Kernel 3 replaces the tempered kernel's swap sweep at one rung boundary.
-A half-step needs the whole other half, so the host loops over launches:
-two half-steps and K-1 swap boundaries per step (``sampling.kernel``).
+Replaces ``joxsz_tpu/ops/pallas_joint.py::make_step_kernel`` (K = 1, the
+plain sampler) and ``make_tempered_step_kernel`` (K rungs, with its swap
+sweep), which run ``n_inner`` full steps per call: ``stretch_steps`` is
+one cooperative launch of ``csrc/stretch_step.cu::stretch_steps_kernel``
+that advances the state by a whole chunk of steps — per step half 0,
+half 1 (Philox bits, stretch factor, one-hot-law partner, proposal, the
+joint log-posterior through the device function kernel 1 uses,
+beta-scaled acceptance) and the K-1 swap boundaries in order, with grid
+barriers between them — and writes the cold rung's thinned frames
+itself.  The cluster grid (``ops.multicluster_kernel``) is the same
+kernel with the cluster axis on.
 
-What bounds them on the card: kernel 2 is the likelihood of K*W/2 rows
-plus a few row reads/writes (the same L2/transcendental bound as kernel 1);
-kernel 3 moves 2 rows of D floats per accepted pair — a few hundred KB —
-so its time is launch latency.
+What bounds it on the card: the likelihood of K*W/2 rows per half-step
+(~84 k FP32 operations a walker, so operations), plus two or three grid
+barriers a step; the swap sweep moves 2 rows of D floats per accepted
+pair on one block.
 
 The TPU kernels drew from the TPU's hardware PRNG; here every draw is
 Philox-4x32-10 keyed on (seed, 0) with counter (row, step, which, group):
@@ -23,6 +26,11 @@ j for swaps, ``group`` is 0 here (the cluster-grid step of
 words are the draws (z, partner, accept).
 ``philox4x32_10`` below is the same generator in torch int64, so the
 plain versions and the kernels consume identical bits.
+
+``steps_plain`` is the plain version of a launch (the two half-steps and
+the swap sweep of ``tempered_step_plain`` per step, frames kept as the
+kernel keeps them) on bits from any source; the wrapper runs it only for
+CPU tensors.
 
 Sources: ``csrc/stretch_step.cu`` (+ ``csrc/joint_ll.cuh``).
 """
@@ -80,8 +88,9 @@ def philox_stream(seed: int, device):
 
 
 def half_step_plain(x, lp, acc, beta, which: int, bits, lp_fn):
-    """Plain version of kernel 2 on state x (K, W, D), lp/acc (K, W);
-    ``beta`` (K,) float32; ``bits`` (K*H, >=3) for this (step, which).
+    """Plain version of one half-step of the step kernel on state x (K,
+    W, D), lp/acc (K, W); ``beta`` (K,) float32; ``bits`` (K*H, >=3) for
+    this (step, which).
     Returns ``(x, lp, acc, accept (K, H), margin (K, H))`` as new tensors."""
     K, W, D = x.shape
     H = W // 2
@@ -97,9 +106,9 @@ def half_step_plain(x, lp, acc, beta, which: int, bits, lp_fn):
 
 
 def swap_plain(x, lp, kk: int, seed: int, step: int, bits, db: float):
-    """Plain version of kernel 3 at boundary ``kk``; ``bits`` (H, >=1)
-    per half as a (2, H) pair of draws.  Returns
-    ``(x, lp, accept (2, H), margin)``."""
+    """Plain version of the step kernel's swap at boundary ``kk``; ``bits``
+    (H, >=1) per half as a (2, H) pair of draws.  Returns ``(x, lp,
+    accept (2, H), margin)``."""
     H = x.shape[1] // 2
     shift = rotation_shift(seed, step, kk, H)
     return swap_update(x, lp, kk, shift, uniforms(bits), db)
@@ -124,83 +133,157 @@ def tempered_step_plain(x, lp, acc, beta, seed: int, step: int, bits_fn,
     return x, lp, acc, swaps
 
 
-def _check_state(x, lp, acc, c: JointConsts):
+def steps_plain(x, lp, acc, beta, db, seed: int, n_steps: int, bits_fn,
+                lp_fn, thin: int = 0, step0: int = 0):
+    """Plain version of one launch of the step kernel: steps ``step0 ..
+    step0 + n_steps - 1`` of ``tempered_step_plain`` from state x (K, W,
+    D), lp/acc (K, W), bits from ``bits_fn(step, which, n_rows,
+    n_words)``.  With ``thin`` > 0 the cold rung is kept after every
+    ``thin``-th step.  Returns ``(x, lp, acc, swaps (K-1,) accepted
+    counts, chain (n_steps // thin, W, D), chain_lp (n_steps // thin,
+    W))`` as new tensors."""
     K, W, D = x.shape
-    if W % 2 or D != c.ints["D"]:
-        raise ValueError(f"state must be (K, even W, {c.ints['D']}), got "
-                         f"{tuple(x.shape)}")
-    for t in (x, lp, acc):
+    n_keep = n_steps // thin if thin else 0
+    chain = x.new_empty((n_keep, W, D))
+    chain_lp = lp.new_empty((n_keep, W))
+    swaps = [0] * (K - 1)
+    for n in range(1, n_steps + 1):
+        x, lp, acc, sw = tempered_step_plain(
+            x, lp, acc, beta, seed, step0 + n - 1, bits_fn, lp_fn, db)
+        swaps = [a + b for a, b in zip(swaps, sw)]
+        if thin and n % thin == 0:
+            chain[n // thin - 1] = x[0]
+            chain_lp[n // thin - 1] = lp[0]
+    return x, lp, acc, swaps, chain, chain_lp
+
+
+def check_schedule(W: int, n_steps: int, thin: int, step0: int):
+    """The arguments every step-kernel launch shares: an even walker
+    count, n_steps >= 0 a multiple of thin (thin 0: no frames), step0 >=
+    0."""
+    if W % 2:
+        raise ValueError(f"need an even number of walkers, got {W}")
+    if n_steps < 0 or thin < 0 or step0 < 0:
+        raise ValueError("n_steps, thin and step0 must be non-negative")
+    if thin and n_steps % thin:
+        raise ValueError(f"n_steps ({n_steps}) must be a multiple of thin "
+                         f"({thin})")
+
+
+def check_state_tensors(tensors, device):
+    for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("sampler state must be contiguous float32")
-        if t.device != c.device:
-            raise ValueError(f"state on {t.device}, constants on {c.device}")
-    if lp.shape != (K, W) or acc.shape != (K, W):
-        raise ValueError("lp and acc must be (K, W)")
+        if t.device != device:
+            raise ValueError(f"state on {t.device}, constants on {device}")
 
 
-def stretch_half(x, lp, acc, beta, which: int, seed: int, step: int,
-                 c: JointConsts):
-    """Advance the moving half ``which`` of every rung in place (kernel 2
-    for CUDA tensors, its plain version for CPU tensors)."""
-    _check_state(x, lp, acc, c)
-    K, W, _ = x.shape
-    if x.device.type == "cpu":
-        bits = philox_stream(seed, x.device)(step, which, K * (W // 2), 4)
-        xn, lpn, accn, _, _ = half_step_plain(
-            x, lp, acc, beta, which, bits,
-            lambda th: joint_ll_plain(th, c))
-        x.copy_(xn)
-        lp.copy_(lpn)
-        acc.copy_(accn)
-        return
+def frames_out(out, shape_x, shape_lp, device):
+    """The frame tensors a launch writes: ``out`` = (chain, chain_lp)
+    checked against the shapes, or new ones."""
+    if out is None:
+        return (torch.empty(shape_x, dtype=torch.float32, device=device),
+                torch.empty(shape_lp, dtype=torch.float32, device=device))
+    chain, chain_lp = out
+    if tuple(chain.shape) != tuple(shape_x) or \
+            tuple(chain_lp.shape) != tuple(shape_lp):
+        raise ValueError(f"frames must be {tuple(shape_x)} and "
+                         f"{tuple(shape_lp)}")
+    check_state_tensors((chain, chain_lp), device)
+    return chain, chain_lp
+
+
+def launch_steps(x, lp, acc, sacc, beta, db, seed: int, step0: int,
+                 n_steps: int, thin: int, chain, chain_lp, per_cluster: int,
+                 cstride: int, buf, params, what: str):
+    """One cooperative launch of ``stretch_steps_kernel`` on CUDA
+    tensors (raises when the card refuses it)."""
     from ._build import kernel_library, check_launch
 
-    if beta.dtype != torch.float32 or beta.shape != (K,) or \
-            beta.device != x.device:
-        raise ValueError("beta must be a float32 (K,) tensor on the "
-                         "state's device")
+    G, W, _ = x.shape
+    bar = torch.zeros(1, dtype=torch.int32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = kernel_library("stretch_step")
-    err = lib.launch_stretch_half(
-        x.data_ptr(), lp.data_ptr(), acc.data_ptr(), beta.data_ptr(), K, W,
-        which, seed & _M, step, STRETCH_ZC[0], STRETCH_ZC[1], 0, 0,
-        c.buf.data_ptr(), c.params.iv_ptr, c.params.fv_ptr,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(err, "stretch_half")
-    stretch_half.launches += 1
+    with torch.cuda.device(x.device):
+        err = lib.launch_stretch_steps(
+            x.data_ptr(), lp.data_ptr(), acc.data_ptr(), ptr(sacc),
+            ptr(beta), ptr(db), G, W, seed & _M, step0, n_steps, thin,
+            ptr(chain) if chain.numel() else None,
+            ptr(chain_lp) if chain_lp.numel() else None, STRETCH_ZC[0],
+            STRETCH_ZC[1], per_cluster, cstride, bar.data_ptr(),
+            buf.data_ptr(), params.iv_ptr, params.fv_ptr,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    check_launch(err, what)
 
 
-stretch_half.launches = 0
+def step_kernel_config(c, G: int, W: int) -> tuple[int, int, bool, int]:
+    """(blocks, dynamic shared memory bytes, constants staged in shared
+    memory, floats of global scratch per block (0: the tiles' scratch is
+    in shared memory)) of a step-kernel launch on G groups of W walkers on
+    the current card."""
+    import ctypes
+
+    from ._build import kernel_library, check_launch
+
+    out = (ctypes.c_int * 4)()
+    err = kernel_library("stretch_step").stretch_steps_config(
+        G, W, c.params.iv_ptr, c.params.fv_ptr, out)
+    check_launch(err, "stretch_steps_config")
+    return out[0], out[1], bool(out[2]), out[3]
 
 
-def swap(x, lp, sacc, kk: int, seed: int, step: int, db: float):
-    """Swap sweep at boundary ``kk`` in place, adding the accepted count
-    to ``sacc[kk]`` (int32, on the state's device): kernel 3 for CUDA
-    tensors, its plain version for CPU tensors."""
+def stretch_steps(x, lp, acc, sacc, beta, db, seed: int, n_steps: int,
+                  c: JointConsts, thin: int = 0, step0: int = 0, out=None):
+    """Advance K rungs x (K, W, D), lp/acc (K, W) in place by steps
+    ``step0 .. step0 + n_steps - 1`` of the chunk seeded by ``seed``: per
+    step two half-steps at inverse temperatures ``beta`` (K,) float32 and
+    the K-1 swap boundaries at rung differences ``db`` (K-1,) float32
+    (``sampling.kernel.rung_tensors``), both on the state's device,
+    adding accepted swaps to ``sacc`` (int32, at least K-1 long).  One
+    launch of the step kernel for CUDA tensors, its plain version for CPU
+    tensors.  Returns the cold rung's frames after every ``thin``-th step
+    ``(chain (n_steps // thin, W, D), chain_lp (n_steps // thin, W))``
+    (empty for thin 0), written into ``out`` when given."""
     K, W, D = x.shape
-    H = W // 2
-    if not (0 <= kk < K - 1):
-        raise ValueError(f"boundary {kk} outside 0..{K - 2}")
+    check_schedule(W, n_steps, thin, step0)
+    if D != c.ints["D"] or lp.shape != (K, W) or acc.shape != (K, W):
+        raise ValueError(f"state must be x (K, W, {c.ints['D']}), lp and "
+                         f"acc (K, W); got {tuple(x.shape)}, "
+                         f"{tuple(lp.shape)}, {tuple(acc.shape)}")
+    check_state_tensors((x, lp, acc, beta, db), c.device)
+    if beta.shape != (K,) or db.shape != (K - 1,):
+        raise ValueError(f"need {K} betas and {K - 1} rung differences")
+    if sacc.dtype != torch.int32 or sacc.device != x.device or \
+            sacc.numel() < K - 1:
+        raise ValueError("sacc must be int32 with K-1 entries on the "
+                         "state's device")
+    n_keep = n_steps // thin if thin else 0
+    chain, chain_lp = frames_out(out, (n_keep, W, D), (n_keep, W), x.device)
     if x.device.type == "cpu":
-        bits = philox_stream(seed, x.device)
-        u = torch.stack([bits(step, 16 + 2 * kk + hb, H, 1)[:, 0]
-                         for hb in (0, 1)])
-        xn, lpn, accept, _ = swap_plain(x, lp, kk, seed, step, u, db)
-        x.copy_(xn)
-        lp.copy_(lpn)
-        sacc[kk] += int(accept.sum())
-        return
-    from ._build import kernel_library, check_launch
+        xn, lpn, accn, swaps, ch, ch_lp = steps_plain(
+            x, lp, acc, beta, db.tolist(), seed, n_steps,
+            philox_stream(seed, "cpu"),
+            lambda th: joint_ll_plain(th, c), thin, step0)
+        for t, v in ((x, xn), (lp, lpn), (acc, accn), (chain, ch),
+                     (chain_lp, ch_lp)):
+            t.copy_(v)
+        for kk, n in enumerate(swaps):
+            sacc[kk] += n
+        return chain, chain_lp
+    if n_steps == 0:
+        return chain, chain_lp
+    launch_steps(x, lp, acc, sacc, beta, db if K > 1 else None, seed, step0,
+                 n_steps, thin, chain, chain_lp, 0, 0, c.buf, c.params,
+                 "stretch_steps")
+    stretch_steps.launches += 1
+    if K > 1:
+        stretch_steps.launches_tempered += 1
+    return chain, chain_lp
 
-    if sacc.dtype != torch.int32 or sacc.device != x.device:
-        raise ValueError("sacc must be int32 on the state's device")
-    shift = rotation_shift(seed, step, kk, H)
-    lib = kernel_library("stretch_step")
-    err = lib.launch_swap(
-        x.data_ptr(), lp.data_ptr(), sacc.data_ptr(), W, D, kk, seed & _M,
-        step, shift, db, torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(err, "swap")
-    swap.launches += 1
 
-
-swap.launches = 0
-
+# launches of the step kernel on rung state, and those of them at K > 1
+stretch_steps.launches = 0
+stretch_steps.launches_tempered = 0

@@ -17,12 +17,15 @@ spacing give an infinite slope, as the reference's division does.
 
 CUDA kernel: ``csrc/sz_core.cu`` over the device function
 ``csrc/joint_ll.cuh::sz_chain_tile`` that the joint-likelihood kernel
-calls too; a block of 128 threads takes a tile of 4 walkers, stages
-their ``pp`` and ``t_all`` rows in shared memory, FP32 FMAs only (no
-tensor cores: a TF32 pass feeding chi^2 loses the digits the likelihood
-needs), the conversion table as run-time data.  What bounds it on the
-card: the two products (2 n_press n_pix + 2 n_pix n_data operations per
-walker against ~(n_press + n_pix + 2) floats moved), so operations.
+calls too; a block of 512 threads stages the constants in shared memory
+once and walks tiles of 16 walkers, staging their ``pp`` and ``t_all``
+rows; the k axis of ``pp @ L^T`` is split over eight warp pairs and
+summed in a fixed order (``ksplit_matmul`` is the plain mirror), FP32
+FMAs only (no tensor cores: a TF32 pass feeding chi^2 loses the digits
+the likelihood needs), the conversion table as run-time data.  What
+bounds it on the card: the two products (2 n_press n_pix + 2 n_pix
+n_data operations per walker against ~(n_press + n_pix + 2) floats
+moved), so operations.
 
 ``sz_core_plain`` is the same arithmetic in plain torch in the dtype it
 is given; the wrapper ``sz_core`` runs it only for CPU tensors and
@@ -36,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .consts_layout import LaunchParams, pack_arrays
+from .consts_layout import LaunchParams, check_conv_table, pack_arrays
 
 
 def sz_padded_data(flux, flux_err):
@@ -62,10 +65,29 @@ def conv_slopes(conv_T, conv_V):
         return np.append(np.diff(conv_V) / np.diff(conv_T), 0.0)
 
 
+# k chunks of pp @ L^T in the kernel (KSPLIT in csrc/joint_ll.cuh)
+KSPLIT = 8
+
+
+def ksplit_matmul(pp, LT):
+    """pp @ L^T summed as the kernel sums it: the k axis in KSPLIT chunks
+    of ceil(n / KSPLIT), each chunk a product of its own, then the chunk
+    sums combined as s_i += s_i+h for h = 4, 2, 1."""
+    n = LT.shape[0]
+    kc = -(-n // KSPLIT)
+    s = [pp[:, i * kc:(i + 1) * kc] @ LT[i * kc:(i + 1) * kc]
+         for i in range(KSPLIT)]
+    h = KSPLIT // 2
+    while h:
+        s = [s[i] + s[i + h] for i in range(h)]
+        h //= 2
+    return s[0]
+
+
 def sz_chain_plain(pp, t_all, cal, A: dict):
     """-chi^2/2 (B,) of the SZ chain on arrays ``A`` (LT, GT, flux, wres,
     convT, convV, convS) in the dtype of ``pp``; ``cal`` (B, 1)."""
-    raw = pp @ A["LT"]                                      # (B, n_pix)
+    raw = ksplit_matmul(pp, A["LT"])                        # (B, n_pix)
     cidx = torch.zeros_like(t_all, dtype=torch.long)
     for k in range(1, A["convT"].shape[0] - 1):
         cidx = cidx + (t_all >= A["convT"][k]).long()
@@ -95,6 +117,7 @@ class SZCoreConsts:
 def pack_sz_consts(op, conv_table, flux, flux_err, device) -> SZCoreConsts:
     dev = torch.device(device)
     t_tab, v_tab = (np.asarray(a, dtype=np.float64) for a in conv_table)
+    check_conv_table(t_tab)
     f, w = sz_padded_data(flux, flux_err)
     arrs = {"LT": np.asarray(op.L, np.float64).T,
             "GT": np.asarray(op.G, np.float64).T, "flux": f, "wres": w,

@@ -5,11 +5,11 @@ layouts of a walker mesh, and one of a cluster mesh:
 
 * **independent ensembles** (``run_sharded_kernel_ensembles``,
   ``run_sharded_tempered_ensembles``): every shard advances its walker
-  block as an ensemble of its own through kernels 2-3, on its own Philox
-  seed, with no traffic between shards.  The ensembles target the same
-  posterior, so the joined chains are valid samples; below ``2*ndim+2``
-  walkers per shard the move cannot span the parameter space
-  (``_guard_per_device_walkers``).
+  block as an ensemble of its own through the step kernel (one launch per
+  chunk of steps), on its own Philox seed, with no traffic between
+  shards.  The ensembles target the same posterior, so the joined chains
+  are valid samples; below ``2*ndim+2`` walkers per shard the move cannot
+  span the parameter space (``_guard_per_device_walkers``).
 * **one coupled ensemble** (``run_coupled_sharded_ensemble``): a single
   ensemble of W walkers over the mesh.  Each step gathers half B to every
   shard, moves each shard's rows of half A through kernel 6
@@ -22,8 +22,9 @@ layouts of a walker mesh, and one of a cluster mesh:
   posterior invariant, so the composition is a valid sampler.  Frames
   come from the windows only; the result declares their spacing.
 * **cluster blocks** (``make_sharded_multicluster_step``): the survey's
-  cluster-grid kernel (kernel 4) on a block of C / n_dev clusters per
-  shard.  Clusters are independent posteriors: exact parallelism.
+  cluster-grid step kernel (kernel 4), one launch per call and shard on a
+  block of C / n_dev clusters.  Clusters are independent posteriors:
+  exact parallelism.
 
 A shard is a set of tensors on its mesh device; data moves between
 shards only through ``mesh.scatter`` / ``gather`` / ``all_gather``.  Each
@@ -42,9 +43,10 @@ import torch
 from .mesh import Mesh, all_gather, gather, on_device, scatter
 from ..ops.coupled_kernel import coupled_half
 from ..ops.joint_kernel import JointConsts, JointConstsStack, joint_ll
-from ..ops.multicluster_kernel import stretch_half_multicluster
-from ..sampling.kernel import (chain_chunk_schedule, kernel_step,
-                               min_walkers_per_device, rung_differences)
+from ..ops.multicluster_kernel import stretch_steps_multicluster
+from ..ops.step_kernel import stretch_steps
+from ..sampling.kernel import (chain_chunk_schedule, min_walkers_per_device,
+                               rung_tensors)
 from ..sampling.stretch import EnsembleResult
 from ..sampling.tempered import TemperedResult
 
@@ -86,29 +88,18 @@ def _per_device_layout(W: int, n_dev: int):
 def _independent_steps(shards: list, betas, seeds, n_steps: int,
                        thin: int | None):
     """Advance every shard's ensemble (x (K, w_loc, D), lp, acc, sacc,
-    consts on its device) in place by ``n_steps`` on ``seeds[s]``.  With
-    ``thin``, returns the cold-rung frames per shard as device tensors
-    ``[(chain (n_keep, w_loc, D), chain_lp (n_keep, w_loc))]``."""
-    db = rung_differences(betas)
+    consts on its device) in place by ``n_steps`` on ``seeds[s]``: one
+    launch of the step kernel per shard, every shard's launched before
+    any is waited for.  With ``thin``, returns the cold-rung frames per
+    shard as device tensors ``[(chain (n_keep, w_loc, D), chain_lp
+    (n_keep, w_loc))]``."""
+    rungs = [rung_tensors(betas, sh[0].device) for sh in shards]
     frames = []
-    for x, lp, *_ in shards:
-        n_keep = n_steps // thin if thin else 0
-        frames.append((
-            torch.empty((n_keep,) + x.shape[1:], dtype=torch.float32,
-                        device=x.device),
-            torch.empty((n_keep,) + lp.shape[1:], dtype=torch.float32,
-                        device=x.device)))
-    beta = [torch.as_tensor(np.asarray(betas, np.float64),
-                            dtype=torch.float32, device=sh[0].device)
-            for sh in shards]
-    for i in range(n_steps):
-        for s, (x, lp, acc, sacc, consts) in enumerate(shards):
-            with on_device(x.device):
-                kernel_step(x, lp, acc, sacc, beta[s], db, int(seeds[s]), i,
-                            consts)
-                if thin and (i + 1) % thin == 0:
-                    frames[s][0][(i + 1) // thin - 1] = x[0]
-                    frames[s][1][(i + 1) // thin - 1] = lp[0]
+    for s, (x, lp, acc, sacc, consts) in enumerate(shards):
+        with on_device(x.device):
+            frames.append(stretch_steps(x, lp, acc, sacc, *rungs[s],
+                                        int(seeds[s]), n_steps, consts,
+                                        thin=thin or 0))
     return frames
 
 
@@ -244,7 +235,7 @@ def run_coupled_sharded_ensemble(consts: JointConsts, p0: torch.Tensor,
     """ONE ensemble of W walkers over the mesh's shards through kernel 6:
     ``p0`` (W, D), H = W / 2 divisible by the number of shards.  Step i
     draws at (seed, i); the result is, bit for bit, that of
-    ``stretch_half`` at K = 1 on the whole ensemble with the same seed
+    ``stretch_steps`` at K = 1 on the whole ensemble with the same seed
     and step numbers, for any number of shards.  It pays two launches and
     two gathers per shard and step, so it is meant for ensembles too
     small per shard for independent ones
@@ -280,7 +271,7 @@ def run_hybrid_coupled_ensemble(consts: JointConsts, p0: torch.Tensor,
                                 axis: str = "walker",
                                 allow_small: bool = False) -> EnsembleResult:
     """``n_windows`` windows, each ``sync_every - 1`` steps of independent
-    per-shard ensembles (kernel 2, no traffic) and then one step of the
+    per-shard ensembles (the step kernel, no traffic) and then one step of the
     whole ensemble coupled across the mesh (kernel 6, partners from the
     full other half).  The coupled step costs 2 launches and 2 gathers
     per shard once per window instead of every step.
@@ -347,8 +338,8 @@ def make_sharded_multicluster_step(stack: JointConstsStack, mesh: Mesh,
                                    n_inner: int, thin: int | None = None,
                                    axis: str = "cluster"):
     """The survey's cluster-grid step over a mesh: shard s advances its
-    block of C / n_dev clusters through kernel 4 against its block of
-    the constants, with no traffic between shards.
+    block of C / n_dev clusters through kernel 4 (one launch per call)
+    against its block of the constants, with no traffic between shards.
 
     Returns ``fn(x (C, W, D), lp (C, W), acc (C, W), seeds (n_dev,)) ->
     (x, lp, acc[, chain (C, n_keep, W, D), chain_lp (C, n_keep, W)])``,
@@ -371,22 +362,12 @@ def make_sharded_multicluster_step(stack: JointConstsStack, mesh: Mesh,
 
     def run(x, lp, acc, seeds):
         xs, ls, as_ = (scatter(t.to(home), devices) for t in (x, lp, acc))
-        n_keep = n_inner // thin if thin else 0
-        frames = [(torch.empty((c_loc, n_keep) + x.shape[1:],
-                               dtype=torch.float32, device=d),
-                   torch.empty((c_loc, n_keep) + lp.shape[1:],
-                               dtype=torch.float32, device=d))
-                  for d in devices]
-        for i in range(n_inner):
-            for s, d in enumerate(devices):
-                with on_device(d):
-                    for which in (0, 1):
-                        stretch_half_multicluster(
-                            xs[s], ls[s], as_[s], which, int(seeds[s]), i,
-                            blocks[s])
-                    if thin and (i + 1) % thin == 0:
-                        frames[s][0][:, (i + 1) // thin - 1] = xs[s]
-                        frames[s][1][:, (i + 1) // thin - 1] = ls[s]
+        frames = []
+        for s, d in enumerate(devices):
+            with on_device(d):
+                frames.append(stretch_steps_multicluster(
+                    xs[s], ls[s], as_[s], int(seeds[s]), n_inner, blocks[s],
+                    thin=thin or 0))
         out = tuple(gather(t, home) for t in (xs, ls, as_))
         if thin is None:
             return out

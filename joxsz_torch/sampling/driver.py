@@ -13,10 +13,11 @@ fused one of ``JointModel.log_like_batch_fused``):
   2. walker initialisation around the MLE, rejection-redrawn to finite
      log-probabilities (kernel 1);
   3. "preliminary" rounds of ``prelim_iterations`` plain steps repeated
-     while the best log-probability still improves (kernels 1-2);
-  4. ``nburn`` plain burn-in steps (kernel 2);
+     while the best log-probability still improves (kernel 1, the step
+     kernel);
+  4. ``nburn`` plain burn-in steps (the step kernel);
   5. ``nsteps`` sampling steps thinned by ``nthin``, K-rung tempered when
-     ``n_temper_rungs > 1`` (kernels 2-3), else plain;
+     ``n_temper_rungs > 1`` (the step kernel), else plain;
   6. auto-extend: further ``nsteps`` chunks from the final state (the
      full replica ladder) until the cold chain spans >= 20 x the worst
      integrated autocorrelation time and its tau-thinned split-R-hat is

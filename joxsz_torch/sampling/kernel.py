@@ -3,14 +3,16 @@
 Torch counterpart of ``joxsz_tpu/sampling/kernel.py``: ``KernelSampler``
 runs the plain stretch-move ensemble (K = 1: prelim rounds and burn-in)
 and ``run_tempered_kernel`` the K-rung tempered ensemble (the sampling
-phase and its auto-extensions), both as a host loop of kernel launches
-per step — two half-steps (kernel 2) and K-1 swap boundaries (kernel 3)
-— with initial log-probs from kernel 1.  The cold-rung chain is copied
-every ``thin`` steps into a preallocated device tensor and fetched once.
+phase and its auto-extensions), both as one launch of the step kernel
+per chunk of steps (``ops.step_kernel.stretch_steps``: the two
+half-steps and the K-1 swap boundaries of every step of the chunk), with
+initial log-probs from kernel 1.  The kernel writes the cold rung's
+frames every ``thin`` steps into a preallocated device tensor, fetched
+once.
 
-``run_multicluster_steps`` is the loop of the survey fit over the
-cluster-grid half-step (kernel 4): C ensembles against C sets of
-constants, two launches per step, one Philox seed per call.
+``run_multicluster_steps`` runs the survey fit's C ensembles against C
+sets of constants: one launch of the cluster-grid step kernel (kernel 4)
+per call, one Philox seed per call.
 
 ``KernelSampler.run_sharded`` / ``run_tempered_sharded`` send a sampling
 call over a device mesh (``parallel.kernel_sharded``): independent
@@ -36,8 +38,8 @@ from .stretch import EnsembleResult
 from .tempered import TemperedResult
 from ..ops.joint_kernel import (JointConsts, JointConstsStack, joint_ll,
                                 pack_consts)
-from ..ops.multicluster_kernel import stretch_half_multicluster
-from ..ops.step_kernel import stretch_half, swap
+from ..ops.multicluster_kernel import stretch_steps_multicluster
+from ..ops.step_kernel import stretch_steps
 
 _CHUNK_STEPS = 100      # steps per Philox seed
 
@@ -68,19 +70,20 @@ def min_walkers_per_device(ndim: int) -> int:
 
 def rung_differences(betas) -> list[float]:
     """beta_k - beta_k+1 per rung boundary, rounded to float32 as the
-    swap kernel takes it."""
+    swap sweep takes it."""
     return [float(np.float32(betas[k] - betas[k + 1]))
             for k in range(len(betas) - 1)]
 
 
-def kernel_step(x, lp, acc, sacc, beta, db, seed: int, i: int,
-                consts: JointConsts):
-    """Step ``i`` of one K-rung ensemble in place: two half-steps
-    (kernel 2) and the K-1 swap boundaries (kernel 3)."""
-    stretch_half(x, lp, acc, beta, 0, seed, i, consts)
-    stretch_half(x, lp, acc, beta, 1, seed, i, consts)
-    for kk, d in enumerate(db):
-        swap(x, lp, sacc, kk, seed, i, d)
+def rung_tensors(betas, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(beta (K,), db (K-1,)) float32 on ``device``: what the step kernel
+    takes for a ladder ``betas``, made once per call so that no launch
+    waits on a copy."""
+    beta = torch.as_tensor(np.asarray(betas, np.float64),
+                           dtype=torch.float32, device=device)
+    db = torch.tensor(rung_differences(betas), dtype=torch.float32,
+                      device=device)
+    return beta, db
 
 
 class KernelSampler:
@@ -111,25 +114,21 @@ class KernelSampler:
         ``n_steps``; returns (chain, chain_lp, sacc) of the cold rung."""
         K, W, D = x.shape
         dev = self.device
-        beta = torch.as_tensor(np.asarray(betas, np.float64),
-                               dtype=torch.float32, device=dev)
-        db = rung_differences(betas)
+        beta, db = rung_tensors(betas, dev)
         sacc = torch.zeros(max(K - 1, 1), dtype=torch.int32, device=dev)
         n_saved = n_steps // thin if store_chain else 0
         chain = torch.empty((n_saved, W, D), dtype=torch.float32, device=dev)
         chain_lp = torch.empty((n_saved, W), dtype=torch.float32,
                                device=dev)
+        frame = 0
         chunks = chain_chunk_schedule(n_steps, thin)
-        done = frame = 0
         for n_inner, seed in zip(chunks, _seeds(rng, len(chunks))):
-            for i in range(n_inner):
-                kernel_step(x, lp, acc, sacc, beta, db, seed, i,
-                            self.consts)
-                done += 1
-                if store_chain and done % thin == 0:
-                    chain[frame] = x[0]
-                    chain_lp[frame] = lp[0]
-                    frame += 1
+            n_keep = n_inner // thin if store_chain else 0
+            stretch_steps(x, lp, acc, sacc, beta, db, seed, n_inner,
+                          self.consts, thin=thin if store_chain else 0,
+                          out=(chain[frame:frame + n_keep],
+                               chain_lp[frame:frame + n_keep]))
+            frame += n_keep
         return chain, chain_lp, sacc[:K - 1]
 
     def run(self, p0: torch.Tensor, n_steps: int, rng: np.random.Generator,
@@ -178,8 +177,8 @@ class KernelSampler:
                     rng: np.random.Generator, mesh, thin: int = 1,
                     verbose: bool = False) -> EnsembleResult | None:
         """Plain sampling over a mesh: independent per-shard ensembles
-        through kernel 2 (``run_sharded_kernel_ensembles``).  Below 64
-        walkers per shard, where such ensembles mix worse, the run goes
+        through the step kernel (``run_sharded_kernel_ensembles``).  Below
+        64 walkers per shard, where such ensembles mix worse, the run goes
         to the hybrid coupled sampler instead (windows of local steps and
         one step coupled across the mesh, kernel 6), with ``sync_every``
         = 1 (mod thin) near 100, provided the run's first call is long
@@ -232,7 +231,7 @@ class KernelSampler:
                              rng: np.random.Generator, mesh,
                              thin: int = 1) -> TemperedResult | None:
         """Tempered sampling over a mesh: independent K-rung ensembles
-        per shard (kernels 2-3).  Returns None for a layout the runner
+        per shard (the step kernel).  Returns None for a layout the runner
         refuses."""
         from ..parallel import kernel_sharded
 
@@ -282,24 +281,13 @@ def run_multicluster_steps(stack: JointConstsStack, x: torch.Tensor,
                            n_steps: int, seed: int, thin: int | None = None):
     """Advance the C ensembles x (C, W, D), lp/acc (C, W) in place by
     ``n_steps`` stretch steps, cluster c against ``stack.clusters[c]``;
-    step i draws Philox bits at (seed, i).  With ``thin``, returns the
-    frames kept every ``thin`` steps as device tensors ``(chain (C,
-    n_keep, W, D), chain_lp (C, n_keep, W))``, else None."""
-    C, W, D = x.shape
-    n_keep = 0
-    if thin is not None:
-        if thin <= 0 or n_steps % thin:
-            raise ValueError(f"n_steps ({n_steps}) must be a positive "
-                             f"multiple of thin ({thin})")
-        n_keep = n_steps // thin
-        chain = torch.empty((C, n_keep, W, D), dtype=torch.float32,
-                            device=x.device)
-        chain_lp = torch.empty((C, n_keep, W), dtype=torch.float32,
-                               device=x.device)
-    for i in range(n_steps):
-        stretch_half_multicluster(x, lp, acc, 0, seed, i, stack)
-        stretch_half_multicluster(x, lp, acc, 1, seed, i, stack)
-        if n_keep and (i + 1) % thin == 0:
-            chain[:, (i + 1) // thin - 1] = x
-            chain_lp[:, (i + 1) // thin - 1] = lp
-    return (chain, chain_lp) if n_keep else None
+    step i draws Philox bits at (seed, i); one launch of kernel 4.  With
+    ``thin``, returns the frames kept every ``thin`` steps as device
+    tensors ``(chain (C, n_keep, W, D), chain_lp (C, n_keep, W))``, else
+    None."""
+    if thin is not None and (thin <= 0 or n_steps % thin):
+        raise ValueError(f"n_steps ({n_steps}) must be a positive "
+                         f"multiple of thin ({thin})")
+    frames = stretch_steps_multicluster(x, lp, acc, seed, n_steps, stack,
+                                        thin=thin or 0)
+    return frames if thin is not None else None

@@ -10,6 +10,12 @@ check and its tests fit a dataset made here from a seed with numpy:
     count-rate table (NH = 0.0183) and the reference parametrisation's
     13 thawed parameters.
 
+At another ``redshift`` the same recipe gives more pressure radii (542
+for a cluster at z = 0.3); the dataset then carries a copy of the
+count-rate table relabelled at that redshift, so its X-ray rates are CL
+J1226's, and the data are drawn from the same model, so a fit still
+recovers ``TRUTH``.
+
 The counts and fluxes are the port's own float64 model at ``TRUTH`` plus
 Poisson / Gaussian noise, so a fit should recover ``TRUTH``.  Smaller
 ``n_annuli``, ``n_sz``, ``max_radius_arcsec`` and ``extent_kpc`` give the
@@ -18,6 +24,7 @@ small sessions the CPU tests use.
 
 from __future__ import annotations
 
+import json
 import pathlib
 
 import numpy as np
@@ -73,9 +80,25 @@ def _write_files(root: pathlib.Path, n_annuli: int, n_sz: int,
     return err
 
 
+def _table_at(root: pathlib.Path, redshift: float) -> str:
+    """The bundled count-rate table, or a copy of it under ``root``
+    relabelled at ``redshift``."""
+    d = dict(np.load(TABLE_PATH))
+    meta = json.loads(bytes(d["meta"]).decode())
+    if meta["z"] == redshift:
+        return str(TABLE_PATH)
+    meta["z"] = redshift
+    d["meta"] = np.bytes_(json.dumps(meta))
+    out = root / "X" / "ctrate.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **d)
+    return str(out)
+
+
 def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
                             n_sz: int = 19, max_radius_arcsec: float = 118.0,
                             extent_kpc: float = 5000.0,
+                            redshift: float = 0.888,
                             bands=CL1226_BANDS_EV) -> JoXSZConfig:
     """Write the dataset under ``out_dir`` and return its config (the
     default sizes are the CL J1226 shapes).  Deterministic in ``seed``."""
@@ -87,6 +110,7 @@ def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
     rng = np.random.default_rng(seed)
     cfg = JoXSZConfig(
         cluster_extent_kpc=extent_kpc,
+        redshift=redshift,
         sz=SZConfig(tf_file=str(root / "SZ" / "tf.dat"),
                     flux_file=str(root / "SZ" / "flux.dat"),
                     conversion_file=str(root / "SZ" / "conv.dat"),
@@ -94,7 +118,7 @@ def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
         xray=XrayConfig(fg_template=str(root / "X" / "fg_%04i_%04i.dat"),
                         bg_template=str(root / "X" / "bg_%04i_%04i.dat"),
                         bands_eV=tuple(tuple(b) for b in bands),
-                        table_path=str(TABLE_PATH)),
+                        table_path=_table_at(root, redshift)),
         mcmc=MCMCConfig(seed=seed),
     )
     # pass 1: placeholder data, to evaluate the model at TRUTH

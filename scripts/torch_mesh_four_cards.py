@@ -4,9 +4,9 @@
 script needs N cards and holds the same runners on a mesh of N distinct
 cards against the mesh of N shards on ``cuda:0``:
 
-  1. kernel 6 over N shards on N cards equals kernel 2 at K = 1 on one
-     card, bit for bit (``chip_smoke.compare_coupled``), at W = 128 and
-     W = 1024;
+  1. kernel 6 over N shards on N cards equals the step kernel at K = 1
+     on one card after every step, bit for bit
+     (``chip_smoke.compare_coupled``), at W = 128 and W = 1024;
   2. every runner of ``joxsz_torch.parallel.kernel_sharded`` (hybrid,
      coupled, independent plain and tempered ensembles, cluster blocks)
      gives bit-identical chains on the two meshes, and its wall time on
@@ -86,8 +86,8 @@ def main() -> int:
             (W, 13))), dtype=torch.float32, device="cuda").contiguous()
         starts[W] = x0
         cs.compare_coupled(x0, joint_ll(x0, c), c, 4242, N, devices=cards)
-        print(f"[1] W={W}: kernel 6 over {N} shards on {N} cards == kernel 2 "
-              "at K=1 on one card, bit for bit")
+        print(f"[1] W={W}: kernel 6 over {N} shards on {N} cards == the "
+              "step kernel at K=1 on one card, bit for bit")
 
     betas = default_betas(4)
     runners = {

@@ -20,7 +20,8 @@ import torch
 from joxsz_torch.build import build_session
 from joxsz_torch.ops.coupled_kernel import coupled_half, coupled_half_plain
 from joxsz_torch.ops.joint_kernel import joint_ll_plain, pack_consts
-from joxsz_torch.ops.step_kernel import stretch_half
+from joxsz_torch.ops.step_kernel import stretch_steps
+from joxsz_torch.sampling.kernel import rung_tensors
 from joxsz_tpu.ops.pallas_joint import (make_coupled_half_kernel,
                                         make_joint_core)
 
@@ -86,14 +87,16 @@ def test_plain_half_matches_interpret_kernel(sessions, n_shards):
 
 @pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
 def test_cpu_wrapper_is_the_k1_half_step(sessions, n_shards):
-    """Any split of the moving half gives the bits of ``stretch_half`` at
-    K = 1 on the whole ensemble (same seed, same step), without a launch;
-    stored lp equals a fresh evaluation."""
+    """Any split of the moving half gives the bits of the step kernel's
+    plain path (``stretch_steps``) at K = 1 on the whole ensemble (same
+    seed, same step) after every full step, without a launch; stored lp
+    equals a fresh evaluation."""
     sess, c, _, x0, _ = sessions
     x = torch.tensor(x0)[None].clone()
     lp = joint_ll_plain(x[0], c)[None]
     acc = torch.zeros_like(lp)
-    beta = torch.ones(1)
+    beta, db = rung_tensors([1.0], "cpu")
+    sacc = torch.zeros(1, dtype=torch.int32)
     xa, la, aa = x[0, :H].clone(), lp[0, :H].clone(), acc[0, :H].clone()
     xb, lb, ab = x[0, H:].clone(), lp[0, H:].clone(), acc[0, H:].clone()
     H_loc = H // n_shards
@@ -105,17 +108,17 @@ def test_cpu_wrapper_is_the_k1_half_step(sessions, n_shards):
     for step in range(2):
         for which, (xm, lm, am), fixed in ((0, (xa, la, aa), xb),
                                            (1, (xb, lb, ab), xa)):
-            stretch_half(x, lp, acc, beta, which, SEED, step, c)
             parts = [blocks(t) for t in (xm, lm, am)]
             for s in range(n_shards):
                 coupled_half(parts[0][s], parts[1][s], parts[2][s], fixed,
                              which, SEED, step, s * H_loc, c)
             for t, p in zip((xm, lm, am), parts):
                 t.copy_(torch.cat(p))
+        stretch_steps(x, lp, acc, sacc, beta, db, SEED, 1, c, step0=step)
+        assert torch.equal(torch.cat([xa, xb]), x[0])
+        assert torch.equal(torch.cat([la, lb]), lp[0])
+        assert torch.equal(torch.cat([aa, ab]), acc[0])
     assert coupled_half.launches == n0
-    assert torch.equal(torch.cat([xa, xb]), x[0])
-    assert torch.equal(torch.cat([la, lb]), lp[0])
-    assert torch.equal(torch.cat([aa, ab]), acc[0])
     assert float(acc.sum()) > 0
     assert torch.equal(joint_ll_plain(x[0], c), lp[0])
 
@@ -154,8 +157,9 @@ def test_coupled_half_argument_checks(sessions):
 
 @pytest.mark.gpu
 def test_coupled_kernel_is_the_k1_kernel_on_the_card(sessions, tmp_path):
-    """On the card: kernel 6 over 1, 2 and 4 shards equals kernel 2 at
-    K = 1 bit for bit (a full-width repeat is in ``chip_smoke.py``)."""
+    """On the card: kernel 6 over 1, 2 and 4 shards equals the step
+    kernel at K = 1 bit for bit after a full step (a full-width repeat is
+    in ``chip_smoke.py``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     sess, _, _, x0, _ = sessions
@@ -165,15 +169,21 @@ def test_coupled_kernel_is_the_k1_kernel_on_the_card(sessions, tmp_path):
     x = torch.tensor(x0, device="cuda")[None].contiguous()
     lp = joint_ll(x[0], c)[None]
     acc = torch.zeros_like(lp)
-    beta = torch.ones(1, device="cuda")
+    beta, db = rung_tensors([1.0], "cuda")
+    sacc = torch.zeros(1, dtype=torch.int32, device="cuda")
+    xr, lr, ar = x.clone(), lp.clone(), acc.clone()
+    stretch_steps(xr, lr, ar, sacc, beta, db, SEED, 1, c)
     for n_shards in (1, 2, 4):
         H_loc = H // n_shards
-        xr, lr, ar = x.clone(), lp.clone(), acc.clone()
-        stretch_half(xr, lr, ar, beta, 0, SEED, 0, c)
-        for s in range(n_shards):
-            sl = slice(s * H_loc, (s + 1) * H_loc)
-            xm, lm, am = (t[0, sl].clone() for t in (x, lp, acc))
-            coupled_half(xm, lm, am, x[0, H:].contiguous(), 0, SEED, 0,
-                         s * H_loc, c)
-            assert torch.equal(xm, xr[0, sl]) and torch.equal(lm, lr[0, sl])
-            assert torch.equal(am, ar[0, sl])
+        halves = [[t[0, h * H:(h + 1) * H].clone() for t in (x, lp, acc)]
+                  for h in (0, 1)]
+        for which in (0, 1):
+            fixed = halves[1 - which][0].clone()
+            for s in range(n_shards):
+                sl = slice(s * H_loc, (s + 1) * H_loc)
+                xm, lm, am = (t[sl].clone() for t in halves[which])
+                coupled_half(xm, lm, am, fixed, which, SEED, 0, s * H_loc, c)
+                for t, v in zip(halves[which], (xm, lm, am)):
+                    t[sl] = v
+        for k, ref in enumerate((xr, lr, ar)):
+            assert torch.equal(torch.cat([h[k] for h in halves]), ref[0])

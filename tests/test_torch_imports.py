@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``joxsz_torch`` (nor the chip check
-``chip_smoke.py``) imports ``jax`` or anything of ``joxsz_tpu``.
+``chip_smoke.py``, nor the port's scripts ``scripts/torch_*.py``) imports
+``jax`` or anything of ``joxsz_tpu``.
 
 Checked twice: statically, on every import statement of every source
 file, and dynamically, by importing every module in a fresh interpreter
@@ -24,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "joxsz_tpu")
 
 
 def _sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "scripts").glob("torch_*.py")))
 
 
 def _modules():

@@ -13,10 +13,13 @@ comparison compute on identical data.
   array by array (the TPU's lane padding cut off), and ``StackMismatch``
   on every mismatch ``_cluster_arrays`` names;
 * ``half_step_multicluster_plain`` against ``make_multicluster_step_
-  kernel(interpret=True, thin=1)`` step for step, both fed the
-  interpret-mode hash bits (with the cluster id folded in): positions to
-  1e-5, accept counts equal, lp at rtol 2e-4 / atol 0.5 (float32 roundoff
-  of ~1e4-magnitude sums in two arithmetic orders);
+  kernel(interpret=True, thin=1)`` step for step, and the plain path of
+  one launch of the cluster-grid step kernel (``steps_multicluster_
+  plain``) over a chunk of n_inner = 4 steps at thin 1 and 2, both fed
+  the interpret-mode hash bits (with the cluster id folded in): frames
+  shaped as the JAX chain, positions to 1e-5, accept counts equal, lp at
+  rtol 2e-4 / atol 0.5 (float32 roundoff of ~1e4-magnitude sums in two
+  arithmetic orders);
 * ``simulate_survey``: shapes, the original mask kept, the support guard.
 """
 
@@ -36,7 +39,8 @@ from joxsz_torch.ops.joint_kernel import (StackMismatch, joint_ll_plain,
                                           pack_consts, pack_consts_stack)
 from joxsz_torch.ops.multicluster_kernel import (
     half_step_multicluster_plain, multicluster_bits, multicluster_ll,
-    multicluster_ll_plain, stretch_half_multicluster)
+    multicluster_ll_plain, steps_multicluster_plain,
+    stretch_steps_multicluster)
 from joxsz_torch.ops.step_kernel import philox_stream
 from joxsz_torch.sampling.kernel import run_multicluster_steps
 from joxsz_torch.simulate import simulate_observation, simulate_survey
@@ -389,6 +393,38 @@ def test_half_step_matches_interpret_kernel(setup):
     assert not np.allclose(xk[0], xk[1])
 
 
+@pytest.mark.parametrize("thin", [1, 2])
+def test_steps_match_interpret_kernel(setup, thin):
+    """One launch's plain path over a chunk of 4 steps against the TPU
+    kernel's n_inner = 4 call, frames read at thin 1 and 2."""
+    sess, js32 = setup["sess"], setup["js32"]
+    jsz32, jxr32 = setup["jax32"]
+    stack = pack_consts_stack(sess, *setup["port32"])
+    n_inner = 4
+    x0 = truth_rows(sess.params, C * W, seed=22, spread=0.02).astype(
+        np.float32).reshape(C, W, -1)
+    full = _build_spec(js32)
+    consts = make_multicluster_consts(js32, jsz32, jxr32, spec=full)
+    lp0 = multicluster_ll(torch.tensor(x0), stack).numpy()
+    step = make_multicluster_step_kernel(
+        js32, jsz32, jxr32, n_inner=n_inner, n_walkers=W, interpret=True,
+        thin=thin, consts=consts, spec=full)
+    xk, lpk, acck, chain, chain_lp = (np.asarray(v) for v in step(
+        jnp.asarray(x0), jnp.asarray(lp0), jnp.zeros((C, W)), SEED))
+    x, lp, acc, frames, frames_lp = steps_multicluster_plain(
+        torch.tensor(x0), torch.tensor(lp0), torch.zeros(C, W), n_inner,
+        lambda step, which: hash_bits(SEED, step, which, C, W // 2), stack,
+        thin=thin)
+    assert chain.shape == frames.shape == (C, n_inner // thin, W, 13)
+    np.testing.assert_allclose(frames.numpy(), chain, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(frames_lp.numpy(), chain_lp, rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_array_equal(acc.numpy(), acck)
+    assert 0 < acck.sum() < n_inner * C * W
+    np.testing.assert_allclose(x.numpy(), xk, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(lp.numpy(), lpk, rtol=RTOL, atol=ATOL)
+
+
 def test_cluster_streams_do_not_depend_on_the_cluster_count():
     H = 8
     b3 = multicluster_bits(77, "cpu", 5, 1, 3, H)
@@ -407,20 +443,27 @@ def test_cpu_wrapper_updates_in_place_without_launches(setup):
     lp0 = multicluster_ll(x0, stack)
     assert torch.equal(lp0, multicluster_ll_plain(x0, stack))
     x, lp, acc = x0.clone(), lp0.clone(), torch.zeros(C, W)
-    before = stretch_half_multicluster.launches
-    stretch_half_multicluster(x, lp, acc, 0, SEED, 2, stack)
-    assert stretch_half_multicluster.launches == before
-    want = half_step_multicluster_plain(
-        x0, lp0, torch.zeros(C, W), 0,
-        multicluster_bits(SEED, "cpu", 2, 0, C, W // 2), stack)
+    before = stretch_steps_multicluster.launches
+    chain, chain_lp = stretch_steps_multicluster(x, lp, acc, SEED, 2, stack,
+                                                 thin=1, step0=2)
+    assert stretch_steps_multicluster.launches == before
+    want = steps_multicluster_plain(
+        x0, lp0, torch.zeros(C, W), 2,
+        lambda step, which: multicluster_bits(SEED, "cpu", step, which, C,
+                                              W // 2), stack, thin=1,
+        step0=2)
     assert torch.equal(x, want[0]) and torch.equal(lp, want[1])
     assert torch.equal(acc, want[2]) and float(acc.sum()) > 0
+    assert torch.equal(chain, want[3]) and torch.equal(chain_lp, want[4])
+    assert chain.shape == (C, 2, W, 13) and torch.equal(chain[:, -1], x)
     # stored lp is each cluster's own likelihood of the stored position
     for c in range(C):
         assert torch.equal(joint_ll_plain(x[c], stack.clusters[c]), lp[c])
     with pytest.raises(ValueError, match="state must be"):
-        stretch_half_multicluster(x[:2].contiguous(), lp[:2].contiguous(),
-                                  acc[:2].contiguous(), 0, SEED, 0, stack)
+        stretch_steps_multicluster(x[:2].contiguous(), lp[:2].contiguous(),
+                                   acc[:2].contiguous(), SEED, 1, stack)
+    with pytest.raises(ValueError, match="multiple of thin"):
+        stretch_steps_multicluster(x, lp, acc, SEED, 3, stack, thin=2)
 
 
 def test_run_multicluster_steps_thins(setup):

@@ -34,6 +34,7 @@ from joxsz_torch.ops import coupled_kernel, step_kernel
 from joxsz_torch.ops.joint_kernel import (joint_ll_plain, pack_consts,
                                           pack_consts_stack)
 from joxsz_torch.ops.multicluster_kernel import multicluster_ll
+from joxsz_torch.ops.step_kernel import stretch_steps
 from joxsz_torch.parallel import (kernel_sharded, make_mesh, all_gather,
                                   gather, run_multi_cluster,
                                   run_sharded_ensemble, scatter)
@@ -43,9 +44,9 @@ from joxsz_torch.parallel.kernel_sharded import (
     run_sharded_tempered_ensembles)
 from joxsz_torch.sampling.batched import run_batched_ensembles
 from joxsz_torch.sampling.driver import run_fit
-from joxsz_torch.sampling.kernel import (KernelSampler, _seeds, kernel_step,
+from joxsz_torch.sampling.kernel import (KernelSampler, _seeds,
                                          min_walkers_per_device,
-                                         rung_differences,
+                                         rung_tensors,
                                          run_multicluster_steps)
 from joxsz_torch.sampling.stretch import run_ensemble
 from joxsz_torch.simulate import simulate_survey
@@ -396,7 +397,7 @@ def test_kernel_sharded_matches_per_device_runs(base):
     assert res.chain.shape == (3, W, D) and res.log_prob.shape == (3, W)
     seeds = np.random.default_rng(3).integers(0, 2 ** 31 - 1,
                                               size=(1, n_dev))[0]
-    beta = torch.ones(1)
+    beta, db = rung_tensors([1.0], "cpu")
     for d in range(n_dev):
         s = slice(d * w_loc, (d + 1) * w_loc)
         x = x0[None, s].clone()
@@ -404,7 +405,8 @@ def test_kernel_sharded_matches_per_device_runs(base):
         acc = torch.zeros_like(lp)
         sacc = torch.zeros(1, dtype=torch.int32)
         for i in range(n_steps):
-            kernel_step(x, lp, acc, sacc, beta, [], int(seeds[d]), i, c)
+            stretch_steps(x, lp, acc, sacc, beta, db, int(seeds[d]), 1, c,
+                          step0=i)
             if (i + 1) % thin == 0:
                 k = (i + 1) // thin - 1
                 np.testing.assert_array_equal(res.chain[k, s], x[0].numpy())
@@ -443,7 +445,7 @@ def test_tempered_kernel_sharded_matches_per_device(base):
     assert res.acceptance_fraction.shape == (K, W)
     seeds = np.random.default_rng(4).integers(0, 2 ** 31 - 1,
                                               size=(1, n_dev))[0]
-    beta = torch.tensor(betas)
+    beta, db = rung_tensors(betas, "cpu")
     sacc_tot = np.zeros(K - 1)
     for d in range(n_dev):
         s = slice(d * w_loc, (d + 1) * w_loc)
@@ -452,8 +454,8 @@ def test_tempered_kernel_sharded_matches_per_device(base):
         acc = torch.zeros_like(lp)
         sacc = torch.zeros(K - 1, dtype=torch.int32)
         for i in range(n_steps):
-            kernel_step(x, lp, acc, sacc, beta, rung_differences(betas),
-                        int(seeds[d]), i, c)
+            stretch_steps(x, lp, acc, sacc, beta, db, int(seeds[d]), 1, c,
+                          step0=i)
         assert torch.equal(res.final_state[0][:, s], x)
         np.testing.assert_array_equal(res.chain[-1, s], x[0].numpy())
         sacc_tot += sacc.numpy()
@@ -607,7 +609,7 @@ def test_run_fit_mesh_takes_the_hybrid_and_its_spacing(base):
     """A run long enough for four windows at 28 walkers per device goes to
     the hybrid; the stopping rule reads the declared spacing."""
     ks = KernelSampler(base["c"])
-    n0 = (step_kernel.stretch_half.launches,
+    n0 = (step_kernel.stretch_steps.launches,
           coupled_kernel.coupled_half.launches)
     res = _fit(base, ks, cpu_mesh(2), nsteps=404, auto_extend=1,
                target_rhat=1e9)
@@ -618,7 +620,7 @@ def test_run_fit_mesh_takes_the_hybrid_and_its_spacing(base):
     assert np.all(np.isfinite(res.log_prob))
     assert 0.05 < float(np.mean(res.acceptance_fraction)) < 0.9
     assert res.timings["tau_steps"] > 0
-    assert n0 == (step_kernel.stretch_half.launches,
+    assert n0 == (step_kernel.stretch_steps.launches,
                   coupled_kernel.coupled_half.launches)   # CPU: no launches
 
 

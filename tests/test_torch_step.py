@@ -1,13 +1,17 @@
-"""Port parity: the stretch and swap steps against the Pallas step kernels.
+"""Port parity: the step kernel's plain path against the Pallas step kernels.
 
-The CUDA kernels draw Philox bits; the Pallas kernels in interpret mode
-draw from an integer hash (``pallas_joint.py::_make_random_bits``).  The
-port's plain step takes its bits from a callable, so here it is fed a
-copy of that hash and must then follow ``make_step_kernel`` (K = 1) and
-``make_tempered_step_kernel`` (K = 2) step for step: positions to 1e-5,
-accept counts and swap counts equal, log-probs to the joint kernel's
-tolerance.  The Philox generator itself is pinned to the published
-known-answer vectors of Philox-4x32-10.
+The CUDA step kernel draws Philox bits; the Pallas kernels in interpret
+mode draw from an integer hash (``pallas_joint.py::_make_random_bits``).
+The plain version of one launch (``steps_plain``) takes its bits from a
+callable, so here it is fed a copy of that hash and must then follow
+``make_step_kernel`` (K = 1) and ``make_tempered_step_kernel`` (K = 2)
+over a whole chunk of n_inner = 4 steps at thin 1 and 2: frames shaped
+(n_inner // thin, W, D) as the JAX chains are, positions to 1e-5, accept
+counts and swap counts equal, log-probs to the joint kernel's tolerance.
+The Philox generator itself is pinned to the published known-answer
+vectors of Philox-4x32-10, and the wrapper's argument checks and its
+CPU path (in place, no launch, one call == one call per step) are held
+here.
 """
 
 import jax.numpy as jnp
@@ -18,10 +22,10 @@ import torch
 from joxsz_torch.build import build_session
 from joxsz_torch.ops.joint_kernel import joint_ll_plain, pack_consts
 from joxsz_torch.ops.step_kernel import (philox4x32_10, philox_stream,
-                                         stretch_half, swap,
+                                         steps_plain, stretch_steps,
                                          tempered_step_plain)
 from joxsz_torch.sampling.kernel import (KernelSampler, chain_chunk_schedule,
-                                         run_tempered_kernel)
+                                         run_tempered_kernel, rung_tensors)
 from joxsz_torch.sampling.stretch import uniforms
 from joxsz_torch.sampling.tempered import rotation_shift
 from joxsz_tpu.ops.pallas_joint import (make_joint_core, make_step_kernel,
@@ -69,53 +73,49 @@ def _start(sess, js32, K: int):
     return x0, lp0
 
 
-def _port_steps(c, x0, lp0, betas, n_steps):
-    """The port's plain tempered step on the hash stream; returns the
-    cold rung after each step, final state, and swap counts."""
-    K = len(betas)
-    x = torch.tensor(x0)
-    lp = torch.tensor(lp0)
-    acc = torch.zeros(lp.shape)
-    beta = torch.tensor(betas, dtype=torch.float32)
-    db = [float(np.float32(betas[k] - betas[k + 1])) for k in range(K - 1)]
-    frames, frames_lp, sacc = [], [], np.zeros(max(K - 1, 1))
-    for step in range(n_steps):
-        x, lp, acc, swaps = tempered_step_plain(
-            x, lp, acc, beta, SEED, step, hash_stream(SEED),
-            lambda th: joint_ll_plain(th, c), db)
-        sacc[:K - 1] += swaps
-        frames.append(x[0].numpy())
-        frames_lp.append(lp[0].numpy())
-    return np.stack(frames), np.stack(frames_lp), x, lp, acc, sacc[:K - 1]
+def _port_steps(c, x0, lp0, betas, n_steps, thin):
+    """The plain path of one step-kernel launch on the hash stream;
+    returns its frames, final state and swap counts."""
+    beta, db = rung_tensors(betas, "cpu")
+    x, lp, acc, swaps, chain, chain_lp = steps_plain(
+        torch.tensor(x0), torch.tensor(lp0), torch.zeros(lp0.shape), beta,
+        db.tolist(), SEED, n_steps, hash_stream(SEED),
+        lambda th: joint_ll_plain(th, c), thin)
+    return chain.numpy(), chain_lp.numpy(), x, lp, acc, np.array(swaps)
 
 
-def test_plain_step_matches_interpret_kernel(sessions):
+@pytest.mark.parametrize("thin", [1, 2])
+def test_plain_step_matches_interpret_kernel(sessions, thin):
     sess, c, js32 = sessions
     x0, lp0 = _start(sess, js32, 1)
     step = make_step_kernel(js32, n_inner=STEPS, n_walkers=W,
-                            interpret=True, thin=1, partner="onehot")
+                            interpret=True, thin=thin, partner="onehot")
     xk, lpk, acck, chain, chain_lp = (np.asarray(v) for v in step(
         jnp.asarray(x0[0]), jnp.asarray(lp0[0]), jnp.zeros(W), SEED))
-    frames, frames_lp, x, lp, acc, _ = _port_steps(c, x0, lp0, [1.0], STEPS)
-    assert chain.shape == frames.shape == (STEPS, W, x0.shape[-1])
+    frames, frames_lp, x, lp, acc, _ = _port_steps(c, x0, lp0, [1.0], STEPS,
+                                                   thin)
+    assert chain.shape == frames.shape == (STEPS // thin, W, x0.shape[-1])
     np.testing.assert_allclose(frames, chain, rtol=1e-5, atol=0)
     np.testing.assert_allclose(frames_lp, chain_lp, rtol=RTOL, atol=ATOL)
     np.testing.assert_array_equal(acc[0].numpy(), acck)
     assert 0 < acck.sum() < STEPS * W
     np.testing.assert_allclose(x[0].numpy(), xk, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(lp[0].numpy(), lpk, rtol=RTOL, atol=ATOL)
 
 
-def test_tempered_step_matches_interpret_kernel(sessions):
+@pytest.mark.parametrize("thin", [1, 2])
+def test_tempered_step_matches_interpret_kernel(sessions, thin):
     sess, c, js32 = sessions
     betas = [1.0, 0.6]
     x0, lp0 = _start(sess, js32, 2)
     step = make_tempered_step_kernel(js32, betas, n_inner=STEPS,
-                                     n_walkers=W, interpret=True, thin=1,
+                                     n_walkers=W, interpret=True, thin=thin,
                                      partner="onehot")
     xk, lpk, acck, sacck, chain, chain_lp = (np.asarray(v) for v in step(
         jnp.asarray(x0), jnp.asarray(lp0), jnp.zeros((2, W)), SEED))
     frames, frames_lp, x, lp, acc, sacc = _port_steps(c, x0, lp0, betas,
-                                                      STEPS)
+                                                      STEPS, thin)
+    assert chain.shape == frames.shape == (STEPS // thin, W, x0.shape[-1])
     np.testing.assert_allclose(frames, chain, rtol=1e-5, atol=0)
     np.testing.assert_allclose(frames_lp, chain_lp, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(x.numpy(), xk, rtol=1e-5, atol=0)
@@ -177,28 +177,84 @@ def test_rotation_shift_is_the_kernel_expression(seed):
             assert rotation_shift(seed, i, kk, H) == want
 
 
+def _state(sess, c, K):
+    x = torch.tensor(truth_rows(sess.params, K * W, seed=4, spread=0.02),
+                     dtype=torch.float32).reshape(K, W, -1).contiguous()
+    lp = joint_ll_plain(x.reshape(K * W, -1), c).reshape(K, W)
+    return x, lp, torch.zeros_like(lp)
+
+
 def test_cpu_wrappers_update_in_place_without_launches(sessions):
-    sess, c, js32 = sessions
-    x0, _ = _start(sess, js32, 2)
-    lp0 = joint_ll_plain(torch.tensor(x0).reshape(2 * W, -1), c).reshape(
-        2, W).numpy()
-    x, lp = torch.tensor(x0), torch.tensor(lp0)
-    acc = torch.zeros_like(lp)
-    beta = torch.tensor([1.0, 0.6])
+    """On CPU tensors ``stretch_steps`` runs its plain version on the
+    Philox bits, in place, and counts no launch."""
+    sess, c, _ = sessions
+    x0, lp0, acc0 = _state(sess, c, 2)
+    x, lp, acc = x0.clone(), lp0.clone(), acc0.clone()
+    beta, db = rung_tensors([1.0, 0.6], "cpu")
     sacc = torch.zeros(1, dtype=torch.int32)
-    n_half, n_swap = stretch_half.launches, swap.launches
-    stretch_half(x, lp, acc, beta, 0, SEED, 0, c)
-    stretch_half(x, lp, acc, beta, 1, SEED, 0, c)
-    swap(x, lp, sacc, 0, SEED, 0, float(np.float32(0.4)))
-    assert (stretch_half.launches, swap.launches) == (n_half, n_swap)
-    want = tempered_step_plain(
-        torch.tensor(x0), torch.tensor(lp0), torch.zeros_like(lp), beta,
-        SEED, 0, philox_stream(SEED, "cpu"),
-        lambda th: joint_ll_plain(th, c), [float(np.float32(0.4))])
+    n0 = (stretch_steps.launches, stretch_steps.launches_tempered)
+    chain, chain_lp = stretch_steps(x, lp, acc, sacc, beta, db, SEED, 4, c,
+                                    thin=2)
+    assert (stretch_steps.launches, stretch_steps.launches_tempered) == n0
+    want = steps_plain(x0, lp0, acc0, beta, db.tolist(), SEED, 4,
+                       philox_stream(SEED, "cpu"),
+                       lambda th: joint_ll_plain(th, c), 2)
     assert torch.equal(x, want[0]) and torch.equal(lp, want[1])
     assert torch.equal(acc, want[2]) and int(sacc[0]) == want[3][0]
+    assert torch.equal(chain, want[4]) and torch.equal(chain_lp, want[5])
+    assert chain.shape == (2, W, 13) and torch.equal(chain[-1], x[0])
     fresh = joint_ll_plain(x.reshape(2 * W, -1), c).reshape(2, W)
     assert torch.equal(fresh, lp)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_chunk_equals_one_call_per_step(sessions, K):
+    """Steps are numbered within the chunk: one call of n steps equals n
+    calls of one step at step0 = 0 .. n-1 (the per-step entry the card's
+    identity checks use), frames included."""
+    sess, c, _ = sessions
+    x0, lp0, acc0 = _state(sess, c, K)
+    beta, db = rung_tensors([1.0, 0.6][:K], "cpu")
+    sa, sb = (torch.zeros(1, dtype=torch.int32) for _ in range(2))
+    xa, la, aa = x0.clone(), lp0.clone(), acc0.clone()
+    chain, chain_lp = stretch_steps(xa, la, aa, sa, beta, db, SEED, 3, c,
+                                    thin=1)
+    xb, lb, ab = x0.clone(), lp0.clone(), acc0.clone()
+    for i in range(3):
+        stretch_steps(xb, lb, ab, sb, beta, db, SEED, 1, c, step0=i)
+        assert torch.equal(chain[i], xb[0])
+        assert torch.equal(chain_lp[i], lb[0])
+    assert torch.equal(xa, xb) and torch.equal(la, lb)
+    assert torch.equal(aa, ab) and torch.equal(sa, sb)
+    assert float(aa.sum()) > 0
+
+
+def _bad_calls():
+    return {
+        "odd W": dict(shape=(2, W - 1)),
+        "thin": dict(n_steps=5, thin=2),
+        "dtype": dict(dtype=torch.float64),
+        "device": dict(device="meta"),
+        "betas": dict(betas=[1.0, 0.6, 0.36]),
+        "sacc": dict(sacc_dtype=torch.int64),
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_bad_calls()))
+def test_stretch_steps_argument_checks(sessions, what):
+    sess, c, _ = sessions
+    kw = _bad_calls()[what]
+    K, w = kw.get("shape", (2, W))
+    x = torch.zeros((K, w, 13), dtype=kw.get("dtype", torch.float32),
+                    device=kw.get("device", "cpu"))
+    lp = torch.zeros((K, w), dtype=x.dtype, device=x.device)
+    beta, db = rung_tensors(kw.get("betas", [1.0, 0.6]), "cpu")
+    sacc = torch.zeros(1, dtype=kw.get("sacc_dtype", torch.int32))
+    n0 = stretch_steps.launches
+    with pytest.raises(ValueError):
+        stretch_steps(x, lp, lp.clone(), sacc, beta, db, SEED,
+                      kw.get("n_steps", 4), c, thin=kw.get("thin", 2))
+    assert stretch_steps.launches == n0
 
 
 def test_chain_chunk_schedule():

@@ -19,7 +19,7 @@ import torch
 from joxsz_torch import survey
 from joxsz_torch.build import build_session
 from joxsz_torch.models.multicluster import stack_sz_data
-from joxsz_torch.ops.multicluster_kernel import stretch_half_multicluster
+from joxsz_torch.ops.multicluster_kernel import stretch_steps_multicluster
 from joxsz_torch.sampling.batched import batched_init, run_batched_ensembles
 from joxsz_torch.simulate import simulate_survey
 from joxsz_torch.synth import config_json, write_synthetic_dataset
@@ -111,14 +111,14 @@ def test_stack_mismatch_falls_back_with_the_warning(base):
     sess, sv, truths = _survey_inputs(cfg, 2, 3)
     sz = [m.model.sz_data for m in sv.mocks]
     sz[1] = dataclasses.replace(sz[1], conv_val=sz[1].conv_val * 1.05)
-    before = stretch_half_multicluster.launches
+    before = stretch_steps_multicluster.launches
     with pytest.warns(UserWarning, match="step-kernel specialisation"):
         res = survey.fit_survey(
             sess, stack_sz_data(sz), sv.xray_stack, truths, n_walkers=16,
             n_burn=10, n_steps=10, thin=5, seed=4)
     assert res.timings is None and res.chain.shape == (2, 2, 16, 13)
     assert np.all(np.isfinite(res.log_prob))
-    assert stretch_half_multicluster.launches == before
+    assert stretch_steps_multicluster.launches == before
     # a homogeneous stack takes the kernel route and warns nothing
     with warnings.catch_warnings():
         warnings.simplefilter("error")

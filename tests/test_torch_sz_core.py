@@ -170,6 +170,26 @@ def test_consts_and_counts(setup):
                                         + c.buf.numel())
 
 
+@pytest.mark.parametrize("t_keV, ok", [
+    ([0.0, 5.0, 10.0, 20.0], True),
+    ([0.0, 5.0, 5.0, 20.0], True),          # a repeated knot
+    ([0.0, 10.0, 5.0, 20.0], False),
+    ([5.0], False),
+])
+def test_conversion_table_must_not_decrease(setup, t_keV, ok):
+    """The kernels find the lerp's segment by bisection: the packer takes
+    a table whose temperatures never decrease and refuses any other."""
+    sess, _, conv, flux, err = setup
+    t = np.asarray(t_keV)
+    table = (t, -11.0 * (1 - 0.017 * t))
+    if ok:
+        c = pack_sz_consts(sess.sz_operator, table, flux, err, "cpu")
+        assert c.ints["n_conv"] == t.size
+    else:
+        with pytest.raises(ValueError, match="non-decreasing"):
+            pack_sz_consts(sess.sz_operator, table, flux, err, "cpu")
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_on_card(setup):
     if not torch.cuda.is_available():
