@@ -6,9 +6,11 @@ synthetic CL J1226-shaped dataset — the flagless fit (``joxsz_torch.run.
 main``: MLE, prelim rounds, burn-in and W=1024 x K=4 tempered sampling
 with auto-extend, the card's production schedule), the survey fit
 (``joxsz_torch.survey.main --mock 4`` at W=1024, 1000 + 1000 steps), the
-fused-likelihood fit (``run.main --fused --no-step-kernel``) and the mesh
+fused-likelihood fit (``run.main --fused --no-step-kernel``), the mesh
 fit (``run_fit(mesh=...)`` over four shards, ``run --mesh``, ``survey
---mesh``) — and checks their output.  Phases:
+--mesh``) and the model families' fits (``run.main --pressure knots
+--temperature vikhlinin`` at the production schedule, ``--sz-only``, and
+the others) — and checks their output.  Phases:
 
   1. card name / power limit, kernel build time;
   2. synthetic dataset from ``--seed``, session on ``cuda``, shapes;
@@ -91,7 +93,28 @@ fit (``run_fit(mesh=...)`` over four shards, ``run --mesh``, ``survey
      ``run --mesh 1`` and ``survey --mock 4 --mesh 1`` through their
      entry points.
 
-Prints the kernel JSON line, the card line, and as the last line
+ 14. (run after phase 13) every model family of the likelihood (knot
+     pressure, Vikhlinin temperature, double density, line_scale,
+     SZ-only, config #4 = knots + Vikhlinin T, and all four at once),
+     each a session of the synthetic dataset built as ``run`` builds it
+     from the family's flags: kernel 1 on 4096 rows around ``synth.
+     truth_theta`` as phase 3 checks it (with rows vetoed by the box, by
+     r_c > r_s and by the mass veto, and rows colder and hotter than the
+     count-rate table's grid), the step kernel at K=1 and K=4, W=1024 for
+     5 steps as phase 4 checks it, and for config #4 kernel 6 over 2
+     shards as phase 11 checks it; their times beside their bounds;
+ 15. (run after phase 12) the families' fits through ``run.main`` with
+     their flags, one child process each, all at once, launch counters
+     set to 0 just before each fit and read just after: config #4 and
+     SZ-only at the production schedule (config #4 with --auto-extend 15
+     must reach split-R-hat <= 1.01), config #4 over a mesh of one card
+     at 32 walkers (below 2 D + 2: the coupled sampler, kernel 6), the
+     other families --quick at W=1024 x K=4; finite chains, acceptance in
+     (0.02, 0.6), exactly one step-kernel launch per chunk.
+
+Prints the kernel JSON line (the six kernels on the flagship's paths,
+then each kernel for each family, "name[family]"), the card line, and as
+the last line
 ``{"ok": true, "device": {...}}``; exits non-zero, with no result line,
 when a phase fails or no GPU is visible.
 
@@ -103,6 +126,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -129,6 +153,35 @@ W_MESH, N_SHARDS, THIN_MESH, MESH_WINDOWS = 128, 4, 5, 40
 STEPS_CMP_COUPLED = 5
 STEPS_CMP_LARGE = 5             # phase 13: steps at the larger shapes
 TIME_STEPS = 100                # steps per timed launch: one chunk
+# the model families (phases 14-15): tag, the run flags that select it,
+# the thawed D on the synthetic CL J1226 (7 pressure knots), and how
+# phase 15 fits it: "production" (the card's production schedule), "mesh"
+# (--quick over a mesh of one card at 32 walkers, below 2 D + 2: the
+# coupled sampler, kernel 6) or "quick" (--quick at W=1024 x K=4)
+KNOTS_VIKH = ("--pressure", "knots", "--temperature", "vikhlinin")
+FAMILIES = (
+    ("knots", ("--pressure", "knots"), 16, "quick"),
+    ("vikhlinin_T", ("--temperature", "vikhlinin"), 18, "quick"),
+    ("double_density", ("--density", "double"), 16, "quick"),
+    ("line_scale", ("--line-systematic",), 14, "quick"),
+    ("sz_only", ("--sz-only",), 10, "production"),
+    ("config4", KNOTS_VIKH, 21, "production"),
+    ("widest", KNOTS_VIKH + ("--density", "double", "--line-systematic"),
+     25, "quick"),
+)
+FAMILY_MESH_FIT = ("config4_mesh", KNOTS_VIKH, 21, "mesh")
+FAMILY_MESH_W = 32              # phase 15: walkers of the mesh fit
+# phase 15: config #4's extension budget: its tau is ~2300 steps on the
+# synthetic data (20 tau ~ 46 k steps, 6 production chunks)
+CONFIG4_EXTEND = 15
+# phase 15: the families' acceptance bar; the SZ-only posterior is wide
+# and walled by its prior boxes (0.066 at the production schedule); a
+# broken sampler accepts nothing, or nearly everything
+FAMILY_ACCEPTANCE = (0.02, 0.6)
+STEPS_CMP_FAM = 5               # phase 14: steps held against the plain
+TIME_STEPS_FAM = 20             # phase 14: steps per timed launch
+TIGHT_BELOW = 1e5               # phase 14: |ll| under which TIGHT_ATOL holds
+FAMILY_FIT_TIMEOUT = 600        # phase 15: seconds a family fit may take
 
 
 def card_line() -> str:
@@ -175,8 +228,9 @@ def device_time_per_launch(fn, reps: int):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        # device events carry the demangled signature: "name(float*, ...)"
-        name = e.key.split("(")[0]
+        # device events carry the demangled signature: "name(float*, ...)";
+        # a family's kernel ("x_fam_kernel") counts under its name "x_kernel"
+        name = e.key.split("(")[0].replace("_fam_", "_")
         if us > 0 and name.endswith("_kernel"):
             per[name] = us / e.count
             total += us
@@ -198,9 +252,14 @@ def phase_build():
     dt = time.time() - t0
     print(f"[1] kernels built in {dt:.1f} s into {_build.BUILD_INFO['dir']}")
     for name, log in _build.BUILD_INFO.get("ptxas", {}).items():
+        fn = "?"
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {name}: {line.strip()}")
+            if "Function properties for" in line:
+                # the mangled name: _Z<length><name>...
+                m = re.search(r"_Z(\d+)(\w+)", line)
+                fn = m.group(2)[:int(m.group(1))] if m else line.split()[-1]
+            elif "registers" in line or "spill" in line:
+                print(f"    {name}: {fn}: {line.strip()}")
     return dt
 
 
@@ -253,11 +312,22 @@ def check_joint(sess, c, seed: int, n: int):
     """Kernel 1 on n rows (ll_rows) against the plain float32 and float64
     versions.  Returns (float32 rows, max |err| vs plain f32, vs plain
     f64, vetoed rows)."""
+    return check_joint_rows(sess, c, ll_rows(sess, seed, n))
+
+
+def check_joint_rows(sess, c, rows64, tight_below: float = math.inf):
+    """Kernel 1 on the (n, D) float64 rows ``rows64``, a sixteenth of
+    them vetoed each by the box, by r_c > r_s and by the HSE mass, against
+    the plain float32 and float64 versions: identical -inf masks, finite
+    values within RTOL / ATOL, and within TIGHT_ATOL of plain f32 where
+    |log-posterior| < ``tight_below`` (far below the posterior's peak,
+    blown-up Cash terms of 1e6 and more, one float32 ulp of the sum is
+    itself 0.06 or more)."""
     import numpy as np
     import torch
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
 
-    rows64 = ll_rows(sess, seed, n)
+    n = rows64.shape[0]
     rows = rows64.to(torch.float32).contiguous()
     k = joint_ll(rows, c)
     p = joint_ll_plain(rows, c)
@@ -272,12 +342,17 @@ def check_joint(sess, c, seed: int, n: int):
           "differs from the plain float64 version")
     n_veto = int((~fin).sum())
     check(n_veto >= 3 * n // 16, f"only {n_veto} vetoed rows")
-    err32 = float(np.max(np.abs(k[fin] - p[fin])))
+    near = fin & (np.abs(p) < tight_below)
+    gap = np.abs(k - p)
+    err32 = float(np.max(gap[near]))
     err64 = float(np.max(np.abs(k[fin] - f64[fin])))
+    worst = int(np.argmax(np.where(near, gap, -1.0)))
     check(np.allclose(k[fin], p[fin], rtol=RTOL, atol=ATOL),
-          f"kernel 1 vs plain f32: max abs err {err32}")
+          f"kernel 1 vs plain f32: max abs err "
+          f"{float(np.max(gap[fin]))}")
     check(err32 < TIGHT_ATOL, f"kernel 1 vs plain f32: max abs err {err32} "
-          f">= {TIGHT_ATOL}")
+          f">= {TIGHT_ATOL} (row {worst}: kernel {k[worst]}, plain f32 "
+          f"{p[worst]}, plain f64 {f64[worst]})")
     check(np.allclose(k[fin], f64[fin], rtol=RTOL, atol=ATOL),
           f"kernel 1 vs plain f64: max abs err {err64}")
     return rows, err32, err64, n_veto
@@ -1392,6 +1467,327 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
     return launches
 
 
+
+# ---- the model families (phases 14 and 15) --------------------------------
+
+def family_session(cfg, flags):
+    """The session of the model family that the run flags ``flags`` select
+    on the dataset of ``cfg``, on the card, as ``run.main`` builds it."""
+    import copy
+    from joxsz_torch import run
+    from joxsz_torch.build import build_session
+
+    args = run.build_parser().parse_args(list(flags))
+    fcfg = run.apply_model_flags(copy.deepcopy(cfg), args)
+    return build_session(fcfg, device="cuda", sz_only=args.sz_only)
+
+
+def family_rows(sess, center, seed: int, n: int):
+    """n rows within 3% of ``center``; every 16th out of the box, every
+    16th + 1 with r_c > r_s, every 16th + 2 with a falling HSE mass (the
+    knots in reverse order for knot pressure); in an X-ray session rows
+    16th + 3 colder than the count-rate table's grid and 16th + 4 hot
+    (T_X above the grid for UPP; T_0 out of its box for Vikhlinin)."""
+    import numpy as np
+    import torch
+
+    p = sess.params
+    ix = p.thawed.index
+    rng = np.random.default_rng(seed)
+    rows = center[None] * (1 + 0.03 * rng.standard_normal((n, center.size)))
+    rows[0::16, ix("log(n_0)")] = 5.0
+    rows[1::16, ix("log(r_c)")], rows[1::16, ix("log(r_s)")] = 3.0, 2.0
+    knots = "logP_0" in p.thawed
+    if knots:
+        k = slice(ix("logP_0"), ix("logP_0") + sess.model.pressure.n_knots)
+        rows[2::16, k] = rows[2::16, k][:, ::-1]
+    else:
+        for name, v in (("b", 14.0), ("a", 5.0), ("r_p", 150.0),
+                        (r"\beta", 0.2)):
+            rows[2::16, ix(name)] = v
+    if sess.model.xray_data is not None:
+        if "T_0" in p.thawed:
+            rows[3::16, ix("T_0")], rows[3::16, ix("T_{min}/T_0")] = 0.5, 0.05
+            rows[4::16, ix("T_0")] = 200.0
+        elif knots:
+            rows[3::16, k] -= 3.0
+            rows[4::16, ix("log(T_X/T_{SZ})")] = 0.98
+            rows[4::16, k] += 1.0
+        else:
+            rows[3::16, ix("P_0")] = 2e-4
+            rows[4::16, ix("log(T_X/T_{SZ})")] = 0.98
+            rows[4::16, ix("P_0")] = 1.5
+    return torch.tensor(rows, dtype=torch.float64, device=sess.device)
+
+
+def family_start(c, center, k: int, w: int, rng):
+    """A (k, w, D) state within 1% of ``center``, rows redrawn until every
+    log-posterior is finite, its lp by kernel 1 and zero accept counts."""
+    import torch
+    from joxsz_torch.ops.joint_kernel import joint_ll
+
+    D = center.size
+    x = torch.empty((k * w, D), dtype=torch.float32, device=c.device)
+    lp = torch.full((k * w,), -float("inf"), device=c.device)
+    for _ in range(50):
+        bad = ~torch.isfinite(lp)
+        if not bool(bad.any()):
+            break
+        nb = int(bad.sum())
+        x[bad] = torch.tensor(center[None] * (1 + 0.01 * rng.standard_normal(
+            (nb, D))), dtype=torch.float32, device=c.device)
+        lp[bad] = joint_ll(x[bad].contiguous(), c)
+    check(bool(torch.isfinite(lp).all()), "non-finite family start state")
+    return (x.reshape(k, w, D).contiguous(), lp.reshape(k, w),
+            torch.zeros((k, w), device=c.device))
+
+
+def phase_families(cfg, seed: int) -> list:
+    """Phase 14: every model family's branch of kernel 1, the step kernel
+    and (config #4) kernel 6 against their plain versions, as phases 3, 4
+    and 11 hold the flagship's, and their times beside their bounds.
+    Returns one kernels-line entry per kernel and family (launches from
+    phase 15)."""
+    import numpy as np
+    import torch
+    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_bytes,
+                                              joint_ll_flops, joint_ll_plain,
+                                              pack_consts)
+    from joxsz_torch.ops.step_kernel import (philox_stream, steps_plain,
+                                             stretch_steps)
+    from joxsz_torch.sampling.kernel import rung_tensors
+    from joxsz_torch.sampling.tempered import default_betas
+    from joxsz_torch.synth import truth_theta
+
+    card = card_line()
+    entries = []
+    W, K, n = W_SMOKE, K_SMOKE, TIME_STEPS_FAM
+    for tag, flags, D, _ in FAMILIES:
+        sess = family_session(cfg, flags)
+        c = pack_consts(sess)
+        check(c.ints["D"] == D, f"{tag}: D={c.ints['D']}, want {D}")
+        center = truth_theta(sess)
+        rows, err1, err64, n_veto = check_joint_rows(
+            sess, c, family_rows(sess, center, seed, B_LL), TIGHT_BELOW)
+        ms1 = cuda_ms(lambda: joint_ll(rows, c), reps=20)
+        us1 = device_time_per_launch(lambda: joint_ll(rows, c),
+                                     reps=20)[0].get("joint_ll_kernel")
+        plain1 = cuda_ms(lambda: joint_ll_plain(rows, c), reps=3)
+        flops = joint_ll_flops(c)
+        bound1 = 1e3 * max(joint_ll_bytes(c, B_LL) / PEAK_BYTES_S,
+                           flops * B_LL / PEAK_F32_S)
+        print(f"[14] {tag} (D={D}, {flags}): kernel 1 on {B_LL} rows "
+              f"({n_veto} vetoed): max |err| {err1:.4g} vs plain f32, "
+              f"{err64:.4g} vs plain f64; {ms1:.4f} ms ("
+              + (f"{us1:.2f} us on the device" if us1 else
+                 "device us not measured")
+              + f"; plain {plain1:.3f} ms, bound {bound1:.4f} ms: "
+              f"{flops} FP32 operations a walker) on {card}")
+        step_seed = int(np.random.default_rng(seed + 20).integers(
+            0, 2 ** 31 - 1))
+        rng = np.random.default_rng(seed + 21)
+        errs, steps = {}, {}
+        for k, betas in ((1, np.ones(1)), (K, default_betas(K))):
+            errs[k] = compare_steps(*family_start(c, center, k, W, rng),
+                                    betas, c, step_seed, STEPS_CMP_FAM,
+                                    f"[14] {tag}:")[3]
+            x, lp, acc = family_start(c, center, k, W, rng)
+            beta, db = rung_tensors(betas, c.device)
+            sacc = torch.zeros(max(k - 1, 1), dtype=torch.int32,
+                               device=c.device)
+            fn = lambda: stretch_steps(x, lp, acc, sacc, beta, db,  # noqa
+                                       step_seed, n, c)
+            ms = cuda_ms(fn, reps=3, warmup=1)
+            us = device_time_per_launch(fn, reps=3)[0].get(
+                "stretch_steps_kernel")
+            x, lp, acc = family_start(c, center, k, W, rng)
+            plain = cuda_ms(lambda: steps_plain(
+                x, lp, acc, beta, db.tolist(), step_seed, n,
+                philox_stream(step_seed, c.device),
+                lambda th: joint_ll_plain(th, c)), reps=1, warmup=0)
+            bound = steps_bound(c, k, W, n)
+            steps[k] = (ms, plain, bound)
+            print(f"[14] {tag}: step kernel K={k}, W={W}: "
+                  f"{1e3 * ms / n:.2f} us per step by CUDA events, "
+                  + (f"{us / n:.2f} us of device time" if us else
+                     "device time not measured")
+                  + f" (bound {1e3 * bound / n:.2f} us; plain "
+                  f"{plain / n:.2f} ms a step) on {card}")
+        base = dict(route="cuda", library_ms=None, bound_by="operations")
+        entries += [
+            dict(base, name=f"joint_ll[{tag}]",
+                 source="joxsz_torch/csrc/joint_ll.cu",
+                 replaces="joxsz_tpu/ops/pallas_joint.py:1033",
+                 max_abs_err=err1, ms=ms1, plain_ms=plain1, bound_ms=bound1,
+                 bound_by=("bytes" if joint_ll_bytes(c, B_LL) / PEAK_BYTES_S
+                           > flops * B_LL / PEAK_F32_S else "operations")),
+            dict(base, name=f"stretch_steps[{tag}]",
+                 source="joxsz_torch/csrc/stretch_step.cu",
+                 replaces="joxsz_tpu/ops/pallas_joint.py:1242",
+                 max_abs_err=errs[1], ms=steps[1][0], plain_ms=steps[1][1],
+                 bound_ms=steps[1][2]),
+            dict(base, name=f"stretch_steps_tempered[{tag}]",
+                 source="joxsz_torch/csrc/stretch_step.cu",
+                 replaces="joxsz_tpu/ops/pallas_joint.py:2105",
+                 max_abs_err=errs[K], ms=steps[K][0], plain_ms=steps[K][1],
+                 bound_ms=steps[K][2])]
+        if tag == "config4":
+            from joxsz_torch.ops.coupled_kernel import (coupled_half,
+                                                        coupled_half_plain)
+
+            x0, lp0, _ = family_start(c, center, 1, W, rng)
+            _, n_near, e6, _, _, _ = compare_coupled(x0[0], lp0[0], c,
+                                                     step_seed, 2)
+            H_loc = FAMILY_MESH_W // 2
+            xm, lm = x0[0, :H_loc].clone(), lp0[0, :H_loc].clone()
+            am = torch.zeros_like(lm)
+            fixed = x0[0, W // 2:W // 2 + H_loc].contiguous()
+            run6 = lambda: coupled_half(xm, lm, am, fixed, 0,  # noqa: E731
+                                        step_seed, 0, 0, c)
+            ms6 = cuda_ms(run6, reps=50)
+            b = philox_stream(step_seed, c.device)(0, 0, H_loc, 4)
+            plain6 = cuda_ms(lambda: coupled_half_plain(
+                xm, lm, am, fixed, 0, b,
+                lambda th: joint_ll_plain(th, c)), reps=5)
+            bound6, by6 = coupled_bound(c, H_loc, H_loc)
+            print(f"[14] {tag}: kernel 6 over 2 shards at W={W}, "
+                  f"{STEPS_CMP_COUPLED} steps == the step kernel at K=1 "
+                  f"after every step, {n_near} near-threshold differences "
+                  f"vs plain, max |lp err| {e6:.4g}; {ms6:.4f} ms at "
+                  f"{H_loc} rows against {H_loc} (the mesh fit's shard; "
+                  f"plain {plain6:.3f} ms, bound {bound6:.5f} ms by {by6})")
+            entries.append(dict(
+                base, name=f"coupled_half[{tag}]",
+                source="joxsz_torch/csrc/stretch_step.cu",
+                replaces="joxsz_tpu/ops/pallas_joint.py:1657",
+                max_abs_err=e6, ms=ms6, plain_ms=plain6, bound_ms=bound6,
+                bound_by=by6))
+        del sess, c
+    return entries
+
+
+def family_fit(tag: str, seed: int, base: str):
+    """One model family's fit through ``run.main`` (a child process of
+    phase 15): the launch counters set to 0 just before it and read just
+    after; prints what phase 15 checks as a JSON line, last."""
+    import numpy as np
+    from joxsz_torch import run
+    from joxsz_torch.config import JoXSZConfig, MCMCConfig
+    from joxsz_torch.sampling.kernel import chain_chunk_schedule
+    from joxsz_torch.synth import config_json
+
+    _, flags, D, how = {f[0]: f for f in FAMILIES + (FAMILY_MESH_FIT,)}[tag]
+    cfg = JoXSZConfig.from_json(open(base).read())
+    argv = list(flags)
+    if how == "production":
+        cfg.mcmc = MCMCConfig.converged_gpu()
+        if tag == "config4":
+            argv += ["--auto-extend", str(CONFIG4_EXTEND)]
+    else:
+        cfg.mcmc = MCMCConfig(nwalkers=W_SMOKE, n_temper_rungs=K_SMOKE)
+        argv.append("--quick")
+    if how == "mesh":
+        argv += ["--mesh", "1", "--walkers", str(FAMILY_MESH_W), "--temper",
+                 "0"]
+    cfg.mcmc.seed = seed
+    cfg.save_dir = f"{base}.{tag}"
+    path = config_json(cfg, f"{base}.{tag}.json")
+    zero_launches()
+    t0 = time.time()
+    res = run.main(["--config", path] + argv)
+    wall = time.time() - t0
+    launches = read_launches()
+    t = res.timings
+    m = cfg.mcmc
+    nburn, nsteps, nthin, prelim = ((200, 400, 5, 100) if "--quick" in argv
+                                    else (m.nburn, m.nsteps, m.nthin,
+                                          m.prelim_iterations))
+    n1 = t["prelim_rounds"] * len(chain_chunk_schedule(prelim, 1)) + len(
+        chain_chunk_schedule(nburn, 1))
+    n4 = (1 + t["auto_extend_rounds"]) * len(chain_chunk_schedule(nsteps,
+                                                                  nthin))
+    print(json.dumps({
+        "tag": tag, "wall": wall, "mle_s": t["mle_s"],
+        "mle_device": t["mle_device"], "split_rhat": t["split_rhat"],
+        "acceptance": float(np.mean(res.acceptance_fraction)),
+        "launches": launches, "want": [n1, n4 if how != "mesh" else 0],
+        "shape": list(res.chain.shape), "D": D,
+        "finite": bool(np.all(np.isfinite(res.chain))
+                       and np.all(np.isfinite(res.log_prob)))}))
+
+
+def phase_family_fits(cfg, tmp: str, seed: int) -> dict:
+    """Phase 15: every model family fitted through ``run.main`` with its
+    flags, each in a child process of its own, all at once (their float64
+    MLEs run on the host's cores): config #4 and SZ-only at the card's
+    production schedule (config #4 with an auto-extend budget of
+    CONFIG4_EXTEND), config #4 over a mesh of one card at 32 walkers (the
+    coupled sampler), the others --quick at W=1024 x K=4.  Checks finite
+    chains of the family's width, acceptance in FAMILY_ACCEPTANCE, one
+    step-kernel launch per chunk (kernel 6 for the mesh fit), and split-
+    R-hat <= 1.01 for config #4's production fit.  Returns each fit's
+    record (launches by kernel)."""
+    import os
+    from joxsz_torch.synth import config_json
+
+    base = config_json(cfg, f"{tmp}/family_base.json")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    fits = FAMILIES + (FAMILY_MESH_FIT,)
+    print(f"[15] family fits through the CLI, {len(fits)} child processes "
+          "at once: " + ", ".join(f"{t} ({h})" for t, _, _, h in fits))
+    procs = []
+    try:
+        for tag, _, _, _ in fits:
+            log = open(f"{tmp}/family_{tag}.log", "w")
+            procs.append((tag, log, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--family-fit",
+                 tag, "--seed", str(seed), "--base", base],
+                stdout=log, stderr=subprocess.STDOUT, env=env)))
+        t_end = time.time() + FAMILY_FIT_TIMEOUT
+        for tag, log, proc in procs:
+            proc.wait(timeout=max(1.0, t_end - time.time()))
+            log.close()
+    finally:
+        for _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    out = {}
+    for tag, _, proc in procs:
+        text = open(f"{tmp}/family_{tag}.log").read()
+        lines = text.strip().splitlines()
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"family fit {tag} failed (rc "
+                                 f"{proc.returncode}):\n" + text[-3000:])
+        r = json.loads(lines[-1])
+        for line in lines:
+            if line.startswith(("session built", "wall time", "split-Rhat",
+                                "acceptance")):
+                print(f"[15] {tag}: {line}")
+        L = r["launches"]
+        print(f"[15] {tag}: {r['wall']:.1f} s, MLE {r['mle_s']:.1f} s on "
+              f"the {r['mle_device']}, split-R-hat {r['split_rhat']:.4f}, "
+              f"acceptance {r['acceptance']:.3f}, launches {L}")
+        check(r["finite"] and r["shape"][1:] == [
+            FAMILY_MESH_W if tag == "config4_mesh" else W_SMOKE, r["D"]],
+            f"{tag}: chain {r['shape']} or non-finite values")
+        lo, hi = FAMILY_ACCEPTANCE
+        check(lo < r["acceptance"] < hi,
+              f"{tag}: acceptance {r['acceptance']} outside ({lo}, {hi})")
+        n1, n4 = r["want"]
+        check(L["joint_ll"] > 0 and L["stretch_steps"] == n1
+              and L["stretch_steps_tempered"] == n4,
+              f"{tag}: launches {L}, want {n1} + {n4} step-kernel launches")
+        if tag == "config4_mesh":
+            check(L["coupled_half"] > 0, f"{tag}: kernel 6 not launched")
+        if tag == "config4":
+            check(r["split_rhat"] <= 1.01,
+                  f"{tag}: split-R-hat {r['split_rhat']} > 1.01")
+        out[tag] = r
+    return out
+
+
 def all_launches() -> dict:
     from joxsz_torch.ops.coupled_kernel import coupled_half
     from joxsz_torch.ops.joint_kernel import joint_ll
@@ -1549,6 +1945,8 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--family-fit", help=argparse.SUPPRESS)
+    ap.add_argument("--base", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -1560,6 +1958,9 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.family_fit:
+        family_fit(args.family_fit, args.seed, args.base)
+        return 0
     tmp = tempfile.mkdtemp(prefix="joxsz_smoke_")
     try:
         card = card_line()
@@ -1574,6 +1975,7 @@ def main() -> int:
         k6 = phase_coupled(sess, c, args.seed)
         del sess, c
         phase_large_shapes(args.seed)
+        kf = phase_families(cfg, args.seed)
         launches, path, mle_theta = phase_main_path(cfg, tmp, args.seed)
         for k in (k1, k2, k3):
             k["launches"] = launches[k["name"]]
@@ -1581,11 +1983,16 @@ def main() -> int:
         k5["launches"] = phase_fused_path(cfg, tmp, args.seed)[k5["name"]]
         k6["launches"] = phase_mesh_path(cfg, tmp, path, args.seed,
                                          mle_theta)[k6["name"]]
+        fits = phase_family_fits(cfg, tmp, args.seed)
+        for k in kf:
+            kernel, tag = k["name"][:-1].split("[")
+            fit = fits["config4_mesh" if kernel == "coupled_half" else tag]
+            k["launches"] = fit["launches"][kernel]
         order = ("name", "route", "source", "replaces", "launches",
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")
         kernels = [{key: k[key] for key in order}
-                   for k in (k1, k2, k3, k4, k5, k6)]
+                   for k in (k1, k2, k3, k4, k5, k6, *kf)]
         r4 = rows[f"K={K_SMOKE}, W={W_SMOKE}"]
         print(f"tempered step W={W_SMOKE} K={K_SMOKE}: "
               f"{1e3 * r4['ms'] / TIME_STEPS:.2f} us by CUDA events, "

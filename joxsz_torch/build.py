@@ -14,6 +14,7 @@ parity tests evaluate one function in both packages.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import pathlib
 
 import numpy as np
@@ -26,8 +27,9 @@ from .geometry import (build_beam, build_map_geometry, build_filter_image,
                        Annuli, MapGeometry)
 from .io.readers import (read_xy, read_transfer_function,
                          read_conversion_table, load_band)
-from .models import (GNFWPressure, VikhlininDensity, UPPTemperature, SZData,
-                     XrayData, CountRateTable, JointModel, Param, ParamSet,
+from .models import (GNFWPressure, KnotPressure, VikhlininDensity,
+                     UPPTemperature, VikhlininTemperature, SZData, XrayData,
+                     CountRateTable, JointModel, Param, ParamSet,
                      build_reference_params)
 from .ops.szkernel import build_sz_operator, SZOperator
 
@@ -53,25 +55,15 @@ class FitSession:
         return self.model.params
 
 
-def _check_family(cfg: JoXSZConfig):
-    # this slice of the port carries the flagship family only
-    if (cfg.pressure_model, cfg.temperature_model, cfg.density_mode) != (
-            "gnfw", "upp", "single"):
-        raise NotImplementedError(
-            "joxsz_torch supports the flagship family (gnfw pressure, upp "
-            "temperature, single density) only; the knots, Vikhlinin-T "
-            "and double-density families are queued in ROADMAP.md")
-    if cfg.xray is None:
-        raise NotImplementedError("SZ-only fits are not ported yet")
-    if cfg.xray.line_systematic:
-        raise NotImplementedError("the line_scale nuisance is not ported yet")
-
-
-def build_session(cfg: JoXSZConfig, device=None,
-                  dtype=torch.float64) -> FitSession:
-    """Build the joint session on ``device`` (default: the card)."""
+def build_session(cfg: JoXSZConfig, device=None, dtype=torch.float64,
+                  sz_only: bool = False) -> FitSession:
+    """Build the session on ``device`` (default: the card), as
+    ``joxsz_tpu/build.py::build_session``: the config's model family
+    (pressure ``gnfw``/``knots``, temperature ``upp``/``vikhlinin``,
+    density ``single``/``double``), the SZ-only (preprofit) fit when
+    ``sz_only`` or the config has no X-ray part, and the ``line_scale``
+    nuisance thawed by ``xray.line_systematic``."""
     dev = resolve_device(device)
-    _check_family(cfg)
     cosmo = Cosmology(z=cfg.redshift, H0=cfg.H0, WM=cfg.WM, WV=cfg.WV)
 
     flux = read_xy(cfg.sz.flux_file, ncol=3)
@@ -100,34 +92,131 @@ def build_session(cfg: JoXSZConfig, device=None,
         device=dev, calc_integ=cfg.sz.calc_integ, integ_mu=cfg.sz.integ_mu,
         integ_sig=cfg.sz.integ_sig)
 
-    pressure = GNFWPressure("p")
-    density = VikhlininDensity("ne")
-    temperature = UPPTemperature(pressure, density, "T")
+    if cfg.pressure_model == "knots":
+        pressure = KnotPressure(np.geomspace(
+            geom.r_press_kpc[0], geom.r_press_kpc[-1], cfg.n_pressure_knots),
+            name="p")
+    elif cfg.pressure_model == "gnfw":
+        pressure = GNFWPressure("p")
+    else:
+        raise ValueError(f"unknown pressure_model {cfg.pressure_model!r}")
+    density = VikhlininDensity("ne", mode=cfg.density_mode)
+    temperature = _temperature(cfg.temperature_model, pressure, density)
 
-    bands = [load_band(cfg.xray.fg_template, cfg.xray.bg_template, b)
-             for b in cfg.xray.bands_eV]
-    annuli = Annuli(edges_arcmin=bands[0].edges_arcmin, cosmology=cosmo)
-    table_path = cfg.xray.table_path
-    if table_path is None or not pathlib.Path(table_path).exists():
-        raise FileNotFoundError(
-            f"count-rate table {table_path!r} not found: the port needs an "
-            "explicit xray.table_path (table generation is not ported)")
-    expect = {"z": cfg.redshift, "NH_1022pcm2": cfg.xray.NH_1022pcm2,
-              "bands_eV": tuple(cfg.xray.bands_eV),
-              "model_version": SPECTRAL_MODEL_VERSION}
-    table = CountRateTable.from_npz(table_path, dtype=dtype, device=dev,
-                                    expect=expect)
-    xray_data = XrayData.build(bands, annuli, table, dtype=dtype, device=dev)
+    annuli = xray_data = edges_logkpc = None
+    if cfg.xray is not None and not sz_only:
+        bands = [load_band(cfg.xray.fg_template, cfg.xray.bg_template, b)
+                 for b in cfg.xray.bands_eV]
+        annuli = Annuli(edges_arcmin=bands[0].edges_arcmin, cosmology=cosmo)
+        edges_logkpc = annuli.edges_logkpc
+        table = CountRateTable.from_npz(
+            find_table(cfg, dtype), dtype=dtype, device=dev,
+            expect=table_expect(cfg))
+        xray_data = XrayData.build(bands, annuli, table, dtype=dtype,
+                                   device=dev)
 
-    params = build_reference_params(pressure, density, temperature,
-                                    Z_solar=cfg.xray.Z_solar,
-                                    edges_logkpc=annuli.edges_logkpc)
+    params = build_reference_params(
+        pressure, density, temperature,
+        Z_solar=cfg.xray.Z_solar if cfg.xray is not None else 0.3,
+        edges_logkpc=edges_logkpc)
+    if xray_data is None:
+        # SZ-only: freeze what only the X-ray likelihood constrains
+        # (joxsz_tpu/build.py:231-237)
+        for name in ("Z", "backscale", "log(T_X/T_{SZ})", "line_scale"):
+            if name in params:
+                params.freeze(name)
+    elif cfg.xray.line_systematic:
+        params.thaw("line_scale")
     model = JointModel(pressure=pressure, density=density,
                        temperature=temperature, params=params,
                        sz_data=sz_data, xray_data=xray_data,
                        exclude_unphysical_mass=cfg.exclude_unphysical_mass)
     return FitSession(model=model, sz_operator=op, device=dev, config=cfg,
                       cosmology=cosmo, geometry=geom, annuli=annuli)
+
+
+def _temperature(name: str, pressure, density):
+    if name == "upp":
+        return UPPTemperature(pressure, density, "T")
+    if name == "vikhlinin":
+        return VikhlininTemperature("T")
+    raise ValueError(f"unknown temperature_model {name!r}")
+
+
+def family(model: JointModel) -> tuple[str, str, str]:
+    """The model's (pressure, temperature, density mode) as the config
+    names them, e.g. ("knots", "vikhlinin", "single")."""
+    p = "knots" if isinstance(model.pressure, KnotPressure) else "gnfw"
+    t = ("vikhlinin" if isinstance(model.temperature, VikhlininTemperature)
+         else "upp")
+    return p, t, model.density.mode
+
+
+def family_name(model: JointModel) -> str:
+    """The model family as the CLI prints it, e.g. "knots pressure +
+    vikhlinin T + single density"."""
+    return "{} pressure + {} T + {} density".format(*family(model))
+
+
+# -- the count-rate table -----------------------------------------------------
+
+def table_expect(cfg: JoXSZConfig) -> dict:
+    """The metadata a count-rate table must carry for ``cfg``."""
+    return {"z": cfg.redshift, "NH_1022pcm2": cfg.xray.NH_1022pcm2,
+            "bands_eV": tuple(cfg.xray.bands_eV),
+            "model_version": SPECTRAL_MODEL_VERSION}
+
+
+def find_table(cfg: JoXSZConfig, dtype=torch.float64) -> str:
+    """The count-rate table of ``cfg``: ``xray.table_path`` where it
+    exists, else the first of ``data/tables/ctrate_<key>.npz`` and the
+    bundled ``data/tables/cl1226_ctrate.npz`` whose metadata match the
+    config's redshift, column, bands and spectral-model version
+    (``joxsz_tpu/build.py:194-221``; <key> is ``TableSpec.key``).  Table
+    generation is not ported: where none matches, this raises."""
+    path = cfg.xray.table_path
+    if path is not None and pathlib.Path(path).exists():
+        return path
+    spec = TableSpec(rmf=cfg.xray.rmf, arf=cfg.xray.arf,
+                     bands_eV=tuple(cfg.xray.bands_eV), z=cfg.redshift,
+                     NH_1022pcm2=cfg.xray.NH_1022pcm2)
+    tables = pathlib.Path(__file__).resolve().parents[1] / "data" / "tables"
+    for cand in (tables / f"ctrate_{spec.key()}.npz",
+                 tables / "cl1226_ctrate.npz"):
+        if not cand.exists():
+            continue
+        try:
+            CountRateTable.from_npz(str(cand), dtype=dtype,
+                                    device=torch.device("cpu"),
+                                    expect=table_expect(cfg))
+        except ValueError:
+            continue
+        return str(cand)
+    raise NotImplementedError(
+        f"no count-rate table matches z={cfg.redshift}, NH="
+        f"{cfg.xray.NH_1022pcm2}, these bands and spectral model "
+        f"v{SPECTRAL_MODEL_VERSION}, and table generation is not ported "
+        "(ROADMAP.md Queue A item 5): point xray.table_path at a table")
+
+
+@dataclasses.dataclass(frozen=True)
+class TableSpec:
+    """What a generated count-rate table depends on: the fields, defaults
+    and repr of ``joxsz_tpu/tablegen/generate.py::TableSpec``, whose
+    repr keys the generated tables' file names."""
+
+    rmf: str
+    arf: str
+    bands_eV: tuple
+    z: float
+    NH_1022pcm2: float
+    Tmin: float = 0.06
+    Tmax: float = 60.0
+    nT: int = 64
+    model_version: int = SPECTRAL_MODEL_VERSION
+
+    def key(self) -> str:
+        return hashlib.sha256(repr(self).encode()).hexdigest()[:12]
 
 
 # -- the arrays that define a session ----------------------------------------
@@ -141,8 +230,7 @@ def session_arrays(sess: FitSession) -> dict:
     def n(t):
         return t.detach().cpu().numpy().astype(np.float64)
 
-    counts = np.where(n(xr.counts_mask) > 0, n(xr.counts_filled), np.nan)
-    return {
+    out = {
         "sz.L": op.L, "sz.G": op.G, "sz.w_T0": op.w_T0, "sz.w_y0": op.w_y0,
         "sz.integ_w": op.integ_w, "sz.y_prefactor": op.y_prefactor,
         "sz.r_press_kpc": n(sz.r_press_kpc), "sz.sep": sz.sep,
@@ -150,21 +238,31 @@ def session_arrays(sess: FitSession) -> dict:
         "sz.flux_err": n(sz.flux_err), "sz.conv_T": n(sz.conv_T),
         "sz.conv_val": n(sz.conv_val), "sz.calc_integ": sz.calc_integ,
         "sz.integ_mu": sz.integ_mu, "sz.integ_sig": sz.integ_sig,
-        "xray.counts": counts, "xray.exposures": n(xr.exposures),
-        "xray.areascales": n(xr.areascales), "xray.areas": n(xr.areas),
-        "xray.backrates": n(xr.backrates), "xray.vols_norm": n(xr.vols_norm),
-        "xray.midpt_kpc": n(xr.midpt_kpc),
-        "xray.norm_per_cm3": xr.norm_per_cm3,
-        "table.Tlog": n(xr.table.Tlog),
-        "table.lograte_Z0": n(xr.table.lograte_Z0),
-        "table.lograte_Z1": n(xr.table.lograte_Z1),
         "params.names": list(p.names),
         "params.values": np.array([p[k].val for k in p.names]),
         "params.frozen": np.array([p[k].frozen for k in p.names]),
         "params.lo": p.lo, "params.hi": p.hi, "params.is_gauss": p.is_gauss,
         "params.mu": p.mu, "params.sigma": p.sigma,
         "exclude_unphysical_mass": m.exclude_unphysical_mass,
+        **dict(zip(("model.pressure", "model.temperature",
+                    "model.density_mode"), family(m))),
     }
+    if isinstance(m.pressure, KnotPressure):
+        out["model.knots_logr"] = m.pressure.knots_logr
+    if xr is not None:
+        out.update({
+            "xray.counts": np.where(n(xr.counts_mask) > 0,
+                                    n(xr.counts_filled), np.nan),
+            "xray.exposures": n(xr.exposures),
+            "xray.areascales": n(xr.areascales), "xray.areas": n(xr.areas),
+            "xray.backrates": n(xr.backrates),
+            "xray.vols_norm": n(xr.vols_norm),
+            "xray.midpt_kpc": n(xr.midpt_kpc),
+            "xray.norm_per_cm3": xr.norm_per_cm3,
+            "table.Tlog": n(xr.table.Tlog),
+            "table.lograte_Z0": n(xr.table.lograte_Z0),
+            "table.lograte_Z1": n(xr.table.lograte_Z1)})
+    return out
 
 
 def session_from_arrays(arrays: dict, device=None,
@@ -176,9 +274,13 @@ def session_from_arrays(arrays: dict, device=None,
     conv_T, conv_val, calc_integ, integ_mu, integ_sig}``,
     ``xray.{counts (NaN = masked), exposures, areascales, areas,
     backrates, vols_norm, midpt_kpc, norm_per_cm3}``, ``table.{Tlog,
-    lograte_Z0, lograte_Z1}``, ``params.{names, values, frozen}`` over
+    lograte_Z0, lograte_Z1}`` (the ``xray`` and ``table`` keys absent or
+    None for an SZ-only session), ``params.{names, values, frozen}`` over
     every parameter and ``params.{lo, hi, is_gauss, mu, sigma}`` over the
-    thawed ones, and ``exclude_unphysical_mass``."""
+    thawed ones, ``exclude_unphysical_mass``, and the model family
+    ``model.{pressure ("gnfw" | "knots"), knots_logr (knots: the knots'
+    log10 radii), temperature ("upp" | "vikhlinin"), density_mode
+    ("single" | "double")}`` (the flagship's where absent)."""
     dev = resolve_device(device)
     a = arrays
     L = np.asarray(a["sz.L"], dtype=np.float64)
@@ -194,17 +296,18 @@ def session_from_arrays(arrays: dict, device=None,
         a["sz.r_press_kpc"], int(a["sz.sep"]), dtype=dtype, device=dev,
         calc_integ=bool(a["sz.calc_integ"]),
         integ_mu=float(a["sz.integ_mu"]), integ_sig=float(a["sz.integ_sig"]))
-    table = CountRateTable.from_arrays(a["table.Tlog"],
-                                       a["table.lograte_Z0"],
-                                       a["table.lograte_Z1"], dtype=dtype,
-                                       device=dev)
-    xray_data = XrayData.from_arrays(
-        counts=a["xray.counts"], exposures=a["xray.exposures"],
-        areascales=a["xray.areascales"], areas=a["xray.areas"],
-        backrates=a["xray.backrates"], vols_norm=a["xray.vols_norm"],
-        midpt_kpc=a["xray.midpt_kpc"],
-        norm_per_cm3=float(a["xray.norm_per_cm3"]), table=table,
-        dtype=dtype, device=dev)
+    xray_data = None
+    if a.get("xray.counts") is not None:
+        table = CountRateTable.from_arrays(
+            a["table.Tlog"], a["table.lograte_Z0"], a["table.lograte_Z1"],
+            dtype=dtype, device=dev)
+        xray_data = XrayData.from_arrays(
+            counts=a["xray.counts"], exposures=a["xray.exposures"],
+            areascales=a["xray.areascales"], areas=a["xray.areas"],
+            backrates=a["xray.backrates"], vols_norm=a["xray.vols_norm"],
+            midpt_kpc=a["xray.midpt_kpc"],
+            norm_per_cm3=float(a["xray.norm_per_cm3"]), table=table,
+            dtype=dtype, device=dev)
 
     names = [str(s) for s in a["params.names"]]
     frozen = np.asarray(a["params.frozen"], dtype=bool)
@@ -226,9 +329,14 @@ def session_from_arrays(arrays: dict, device=None,
             prior_sigma=float(a["params.sigma"][i]) if gauss else None)))
     params = ParamSet(plist)
 
-    pressure = GNFWPressure("p")
-    density = VikhlininDensity("ne")
-    temperature = UPPTemperature(pressure, density, "T")
+    if a.get("model.pressure", "gnfw") == "knots":
+        pressure = KnotPressure(knots_logr=a["model.knots_logr"], name="p")
+    else:
+        pressure = GNFWPressure("p")
+    density = VikhlininDensity("ne", mode=a.get("model.density_mode",
+                                                 "single"))
+    temperature = _temperature(a.get("model.temperature", "upp"), pressure,
+                               density)
     model = JointModel(pressure=pressure, density=density,
                        temperature=temperature, params=params,
                        sz_data=sz_data, xray_data=xray_data,

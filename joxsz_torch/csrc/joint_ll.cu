@@ -7,7 +7,7 @@
 // first row and are not written.
 #include "joint_ll.cuh"
 
-template <bool FIT>
+template <bool FIT, bool FAM>
 __device__ __forceinline__ void joint_ll_body(const float* __restrict__ theta,
                                               int B, float* __restrict__ out,
                                               const LLConsts& c,
@@ -27,25 +27,30 @@ __device__ __forceinline__ void joint_ll_body(const float* __restrict__ theta,
       th[idx] = d < c.D ? theta[(size_t)row * c.D + d] : 0.0f;
     }
     __syncthreads();
-    joint_ll_tile<FIT>(c, st, th, res, sm);
+    joint_ll_tile<FIT, FAM>(c, st, th, res, sm);
     if (threadIdx.x < WT && row0 + threadIdx.x < B)
       out[row0 + threadIdx.x] = res[threadIdx.x];
   }
 }
 
-__global__ void __launch_bounds__(JT_THREADS, 1)
-joint_ll_kernel(const float* __restrict__ theta, int B,
-                float* __restrict__ out, LLConsts c) {
-  extern __shared__ __align__(16) float smem[];
-  joint_ll_body<true>(theta, B, out, c, smem);
-}
+// the flagship (FAM = false) and every family (_fam_), each where the plan
+// fits and in its _large_ twin
+#define JOINT_LL_KERNEL(name, FIT, FAM)                                     \
+  __global__ void __launch_bounds__(JT_THREADS, 1)                          \
+  name(const float* __restrict__ theta, int B, float* __restrict__ out,     \
+       LLConsts c) {                                                        \
+    extern __shared__ __align__(16) float smem[];                           \
+    joint_ll_body<FIT, FAM>(theta, B, out, c, smem);                        \
+  }
+JOINT_LL_KERNEL(joint_ll_kernel, true, false)
+JOINT_LL_KERNEL(joint_ll_large_kernel, false, false)
+JOINT_LL_KERNEL(joint_ll_fam_kernel, true, true)
+JOINT_LL_KERNEL(joint_ll_fam_large_kernel, false, true)
 
-__global__ void __launch_bounds__(JT_THREADS, 1)
-joint_ll_large_kernel(const float* __restrict__ theta, int B,
-                      float* __restrict__ out, LLConsts c) {
-  extern __shared__ __align__(16) float smem[];
-  joint_ll_body<false>(theta, B, out, c, smem);
-}
+typedef void (*LLKernel)(const float*, int, float*, LLConsts);
+static const LLKernel LL_KERNELS[2][2] = {
+    {joint_ll_kernel, joint_ll_large_kernel},
+    {joint_ll_fam_kernel, joint_ll_fam_large_kernel}};
 
 extern "C" int launch_joint_ll(const float* theta, int B, float* out,
                                const float* buf, const int* iv,
@@ -55,7 +60,7 @@ extern "C" int launch_joint_ll(const float* theta, int B, float* out,
   size_t smem = 0, ws = 0;
   int err = plan_launch(&c, TILE_WALKERS * (MAX_D + 1), tile_layout(c).total,
                         &smem, &ws);
-  auto kernel = c.stage && !ws ? joint_ll_kernel : joint_ll_large_kernel;
+  auto kernel = pick_kernel(c, ws, LL_KERNELS);
   int blocks = 0;
   if (!err)
     err = resident_blocks(kernel, smem,

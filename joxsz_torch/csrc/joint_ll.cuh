@@ -4,10 +4,23 @@
 // the constants in shared memory, and the launch helpers.
 //
 // Replaces the body ll_body of joxsz_tpu/ops/pallas_joint.py (specialised
-// by _build_spec): gNFW pressure + single Vikhlinin density + UPP
-// temperature, box/Gaussian priors, the HSE-mass monotonicity veto, the SZ
-// chain and the X-ray chain.  Arithmetic follows ll_body step for step in
-// float32 (the plain torch mirror is ops/joint_kernel.py::joint_ll_plain).
+// by _build_spec): box/Gaussian priors, the HSE-mass monotonicity veto, the
+// SZ chain and the X-ray chain, for every model family ll_body has:
+// pressure gNFW or knots, density single or double Vikhlinin, temperature
+// UPP (T = P/ne), Vikhlinin or none (SZ-only, no X-ray block), and the
+// line_scale nuisance.  The family is a set of ints in LLConsts, uniform
+// over the launch, so every branch below is taken by the whole block
+// (ops/consts_layout.py::detect_family resolves it).  The tile is a
+// template on FAM as well as FIT: FAM = false compiles the flagship (gNFW +
+// UPP + single density, X-ray, line_scale frozen, D <= 16) with no family
+// branch at all, so its registers and time stay those of the flagship-only
+// tile; FAM = true serves every family (is_flagship picks).  Knot pressure
+// is a clamped lerp of the walker's knot values in log10 r: per radius a
+// table row (segment i, weight of knot i, weight of knot i + 1) and two
+// FP32 products, never a tensor-core product (a reduced-precision product
+// there feeds exp and chi^2); its mass veto reads one point per segment.
+// Arithmetic follows ll_body step for step in float32 (the plain torch
+// mirror is ops/joint_kernel.py::joint_ll_plain).
 //
 // Layout: one block of JT_THREADS threads evaluates TILE_WALKERS walkers.
 // The whole packed constants buffer (~128 KB at the CL J1226 shapes, L^T
@@ -56,16 +69,16 @@
 #define TILE_WALKERS 16
 #define JT_THREADS 512
 #define JT_WARPS (JT_THREADS / 32)
-#define MAX_D 16
-#define N_ROLES 13
-#define N_ARRAYS 25
-#define N_INTS 11
+#define MAX_D 32                       // parameters a tile row holds
+#define N_ROLES 24
+#define N_ARRAYS 28
+#define N_INTS 17
 #define N_FLOATS 7
 #define PPW 8                          // walkers of one warp's register tile
 #define KSPLIT (JT_WARPS * PPW / TILE_WALKERS)   // k chunks of pp @ L^T
 #define PIX_LANE 3                     // map radii per lane: lane + 32 j
 #define PIX_PASS (32 * PIX_LANE)       // map radii per pass of pp @ L^T
-#define SC_STRIDE 25                   // scalar slots per walker (odd: banks)
+#define SC_STRIDE 29                   // scalar slots per walker (odd: banks)
 #define XS_N 6                         // X-ray tap slots per (walker, shell)
 #define GT_CHUNK 10                    // data points per pass of prof @ G^T
 #define PROJ_CHUNK 8                   // annuli per pass of the projection
@@ -89,14 +102,25 @@ extern "C" int read_phase_clocks(long long* out) {
 #endif
 static_assert(PPW % 4 == 0 && TILE_WALKERS % PPW == 0,
               "a register tile holds whole float4s of a tile's walkers");
+static_assert(JT_THREADS == TILE_WALKERS * MAX_D,
+              "the priors take one warp-sized group per walker");
 
-// thawed-parameter roles (ops/consts_layout.py::ROLES)
+// thawed-parameter roles (ops/consts_layout.py::ROLES); R_KC0 is the first
+// knot value, the others follow it
 enum Role { R_LOGN0, R_BETA, R_LOGRC, R_LOGRS, R_EPS, R_TRATIO, R_Z, R_P0,
-            R_A, R_B, R_RP, R_BSCALE, R_CAL };
-// packed arrays (ops/consts_layout.py::ARRAYS)
+            R_A, R_B, R_RP, R_BSCALE, R_CAL, R_T0, R_TMINR, R_RCOOL, R_ACOOL,
+            R_RT, R_CT, R_LOGN02, R_BETA2, R_LOGRC2, R_LS, R_KC0 };
+// packed arrays (ops/consts_layout.py::ARRAYS); KG, KM: knot table rows
+// (segment, w0, w1) of the pressure radii and the shell midpoints; KV:
+// rows (segment, w0, w1, s0, s1, r) of the mass-veto radii
 enum Arr { A_R, A_LNR, A_LT, A_GT, A_FLUX, A_WRES, A_WT0, A_WINT, A_MIDR,
            A_LNMID, A_LR0, A_LR1, A_VOLST, A_SIGF, A_BGF, A_CMF, A_CTF, A_LO,
-           A_HI, A_WG, A_MU, A_CONVT, A_CONVV, A_CONVS, A_MUI };
+           A_HI, A_WG, A_MU, A_CONVT, A_CONVV, A_CONVS, A_MUI, A_KG, A_KM,
+           A_KV };
+// family codes (ops/consts_layout.py)
+enum Fam { P_GNFW = 0, P_KNOTS = 1, T_UPP = 0, T_VIKH = 1, T_NONE = 2,
+           D_SINGLE = 0, D_DOUBLE = 1 };
+#define LN10F 2.30258512496948242f     // float32(ln 10), as ll_body's LN10
 
 struct LLConsts {
   const float* buf;          // cluster 0's packed constants
@@ -106,7 +130,7 @@ struct LLConsts {
   int off[N_ARRAYS];         // float offset of each array in buf
   int n_buf;                 // floats a block stages (all arrays, r4)
   int n_press, sep, n_pix, n_data, n_sh, n_ann, n_band, nT, n_conv, D,
-      mass_veto;
+      mass_veto, p_fam, t_fam, d_fam, n_knots, has_xray, has_ls;
   int cix[N_ROLES];
   float c_gnfw, alpha, gamma, mass_C, t0g, inv_dtg, pos_hi;
 };
@@ -127,7 +151,8 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
   LLConsts c;
   int* ints[N_INTS] = {&c.n_press, &c.sep, &c.n_pix, &c.n_data, &c.n_sh,
                        &c.n_ann, &c.n_band, &c.nT, &c.n_conv, &c.D,
-                       &c.mass_veto};
+                       &c.mass_veto, &c.p_fam, &c.t_fam, &c.d_fam,
+                       &c.n_knots, &c.has_xray, &c.has_ls};
   for (int i = 0; i < N_INTS; ++i) *ints[i] = iv[i];
   for (int i = 0; i < N_ROLES; ++i) c.cix[i] = iv[N_INTS + i];
   for (int i = 0; i < N_ARRAYS; ++i) c.off[i] = iv[N_INTS + N_ROLES + i];
@@ -140,10 +165,12 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
   c.stage = 1;
   const int NP = c.n_press, PIX = c.n_pix, ND = c.n_data, NS = c.n_sh,
             NBA = c.n_band * c.n_ann, NBT = c.n_band * c.nT;
+  const int NK = c.p_fam == P_KNOTS;
   const int size[N_ARRAYS] = {NP, NP, NP * PIX, PIX * ND, ND, ND, c.sep, NP,
                               NS, NS, NBT, NBT, NS * c.n_ann, NBA, NBA, NBA,
                               NBA, c.D, c.D, c.D, c.D, c.n_conv, c.n_conv,
-                              c.n_conv, 1};
+                              c.n_conv, 1, NK * 3 * NP, NK * 3 * NS,
+                              NK * c.mass_veto * 6 * (c.n_knots - 1)};
   int end = 0;
   for (int i = 0; i < N_ARRAYS; ++i) end = imax(end, c.off[i] + size[i]);
   c.n_buf = r4(end);
@@ -272,10 +299,12 @@ __device__ inline void block_tiles(int n_tiles, int* t0, int* t1) {
   *t1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
 }
 
-// Per-walker scalars, one slot each in the tile's scalar area.
+// Per-walker scalars, one slot each in the tile's scalar area (the
+// Vikhlinin T's and the double density's after the flagship's).
 enum Scal { S_P0, S_A, S_BCA, S_LNRP, S_BMC, S_N0SQ, S_RCI, S_RSI, S_EC,
             S_ES, S_TTX, S_Z, S_BSCALE, S_CAL, S_TOTAL, S_T0, S_INTEG,
-            S_CHI2, S_CASH, N_SCAL };
+            S_CHI2, S_CASH, S_T0V, S_TMINR, S_RCLI, S_ACOOL, S_RTI, S_CTH,
+            S_N02SQ, S_RC2I, S_E2, N_SCAL };
 static_assert(N_SCAL <= SC_STRIDE, "scalar slots");
 
 // The profile scalars of one walker, in registers.
@@ -287,14 +316,49 @@ __device__ __forceinline__ Prof load_prof(const float* s) {
               s[S_RCI], s[S_RSI], s[S_EC], s[S_ES]};
 }
 
+// ne^2 at r; scw: the walker's scalar slots (the double mode's term)
+template <bool FAM>
 __device__ __forceinline__ float ne2_of(const LLConsts& c, const Prof& s,
-                                        float r) {
+                                        const float* scw, float r) {
   float xc = r * s.rci;
   float xs = r * s.rsi;
   float xs_g = (c.gamma == 3.0f) ? xs * xs * xs : powf(xs, c.gamma);
   float ne2 = s.n0sq * expf(-s.ec * log1pf(xc * xc) - s.es * log1pf(xs_g));
   if (c.alpha != 0.0f) ne2 = ne2 * powf(xc, -c.alpha);
+  if (FAM && c.d_fam == D_DOUBLE) {
+    // the beta-model term n02^2 (1 + (r/rc2)^2)^(-3 beta2)
+    const float x2 = r * scw[S_RC2I];
+    ne2 = ne2 + scw[S_N02SQ] * expf(scw[S_E2] * log1pf(x2 * x2));
+  }
   return ne2;
+}
+
+// The Vikhlinin temperature at r (b_t = 2): T0 (x^ac + Tmin/T0) / (x^ac +
+// 1) (1 + (r/rt)^2)^(-ct/2), x = r / rcool, as ll_body's vikh_T.
+__device__ __forceinline__ float vikh_T(const float* scw, float r) {
+  const float xcl = expf(scw[S_ACOOL] * logf(r * scw[S_RCLI]));
+  const float xt = r * scw[S_RTI];
+  const float cool = (xcl + scw[S_TMINR]) / (xcl + 1.0f);
+  return scw[S_T0V] * cool * expf(scw[S_CTH] * log1pf(xt * xt));
+}
+
+// The gNFW scalars of the walker whose parameter row is t.
+__device__ __forceinline__ void gnfw_scalars(const LLConsts& c,
+                                             const float* t, float* s) {
+  float a = t[c.cix[R_A]], b = t[c.cix[R_B]];
+  s[S_P0] = t[c.cix[R_P0]];
+  s[S_A] = a;
+  s[S_BCA] = (b - c.c_gnfw) / a;
+  s[S_BMC] = b - c.c_gnfw;
+  s[S_LNRP] = logf(t[c.cix[R_RP]]);
+}
+
+// log10 P of the knot lerp at a table row kt = (segment i, w0, w1): knot
+// values v (the walker's row from its first knot), two FP32 products.
+__device__ __forceinline__ float knot_log10(const float* kt, const float* v,
+                                            int w0 = 1, int w1 = 2) {
+  const int i = (int)kt[0];
+  return __fmaf_rn(v[i + 1], kt[w1], __fmul_rn(v[i], kt[w0]));
 }
 
 __device__ __forceinline__ float gnfw_press(const LLConsts& c, const Prof& s,
@@ -485,7 +549,8 @@ __device__ inline void sz_chain_tile(const LLConsts& c, const float* st,
 // tile_layout(c).total floats of shared memory, unused when the plan put
 // the scratch in the global workspace.  A thread's walker in the
 // per-radius phases is tid % WT (the block's size is a multiple of WT).
-template <bool FIT>
+// FAM: see the head of this file (the caller picks it by is_flagship).
+template <bool FIT, bool FAM>
 __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
                                               const float* st,
                                               const float* th, float* out,
@@ -509,10 +574,13 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   JT_MARK(0);
 
   // ---- priors and r_c <= r_s veto: one thread per (walker, parameter),
-  // ---- beside them one thread per walker for its profile scalars
-  if (tid < WT * MAX_D) {
-    const int w = tid / MAX_D, d = tid - w * MAX_D;
+  // ---- PL lanes a walker; the flagship's scalars by 16 threads beside
+  // ---- them, a family's by lanes 1-4 of the walker's warp
+  constexpr int PL = FAM ? MAX_D : 16;
+  if (tid < WT * PL) {
+    const int w = tid / PL, d = tid - w * PL;
     const float* t = th + w * MAX_D;
+    float* s = sc + w * SC_STRIDE;
     float g = 0.f;
     int out_box = 0;
     if (d < c.D) {
@@ -521,29 +589,52 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       const float dr = v - st[c.off[A_MU] + d];
       g = st[c.off[A_WG] + d] * dr * dr;
     }
-    // fixed order over the 16 lanes of this walker
+    // fixed order over the lanes of this walker (lanes >= D add zeros)
 #pragma unroll
-    for (int o = MAX_D / 2; o > 0; o >>= 1) {
-      g += __shfl_xor_sync(0xffffffffu, g, o, MAX_D);
-      out_box |= __shfl_xor_sync(0xffffffffu, out_box, o, MAX_D);
+    for (int o = PL / 2; o > 0; o >>= 1) {
+      g += __shfl_xor_sync(0xffffffffu, g, o, PL);
+      out_box |= __shfl_xor_sync(0xffffffffu, out_box, o, PL);
     }
     if (d == 0) {
       float total = out_box ? -INF : -0.5f * g;
       if (t[c.cix[R_LOGRC]] > t[c.cix[R_LOGRS]]) total = -INF;
-      sc[w * SC_STRIDE + S_TOTAL] = total;
+      s[S_TOTAL] = total;
       flags[2 * w] = 0;
       flags[2 * w + 1] = 0;
+    } else if (FAM && d == 1) {
+      float n0 = powf(10.0f, t[c.cix[R_LOGN0]]);
+      s[S_N0SQ] = n0 * n0;
+      s[S_RCI] = powf(10.0f, -t[c.cix[R_LOGRC]]);
+      s[S_RSI] = powf(10.0f, -t[c.cix[R_LOGRS]]);
+      s[S_EC] = 3.0f * t[c.cix[R_BETA]] - c.alpha / 2.0f;
+      s[S_ES] = t[c.cix[R_EPS]] / c.gamma;
+      s[S_CAL] = t[c.cix[R_CAL]];
+      if (c.has_xray) {
+        if (c.t_fam != T_VIKH) s[S_TTX] = powf(10.0f, t[c.cix[R_TRATIO]]);
+        // line_scale scales exactly the metal-line part: Z_eff = Z * s
+        s[S_Z] = c.has_ls ? t[c.cix[R_Z]] * t[c.cix[R_LS]] : t[c.cix[R_Z]];
+        s[S_BSCALE] = t[c.cix[R_BSCALE]];
+      }
+    } else if (FAM && d == 2 && c.p_fam == P_GNFW) {
+      gnfw_scalars(c, t, s);
+    } else if (FAM && d == 3 && c.t_fam == T_VIKH) {
+      s[S_T0V] = t[c.cix[R_T0]];
+      s[S_TMINR] = t[c.cix[R_TMINR]];
+      s[S_RCLI] = 1.0f / t[c.cix[R_RCOOL]];
+      s[S_ACOOL] = t[c.cix[R_ACOOL]];
+      s[S_RTI] = 1.0f / t[c.cix[R_RT]];
+      s[S_CTH] = -0.5f * t[c.cix[R_CT]];
+    } else if (FAM && d == 4 && c.d_fam == D_DOUBLE) {
+      float n02 = powf(10.0f, t[c.cix[R_LOGN02]]);
+      s[S_N02SQ] = n02 * n02;
+      s[S_RC2I] = powf(10.0f, -t[c.cix[R_LOGRC2]]);
+      s[S_E2] = -3.0f * t[c.cix[R_BETA2]];
     }
-  } else if (tid - WT * MAX_D < WT) {
-    const int w = tid - WT * MAX_D;
+  } else if (!FAM && tid - WT * PL < WT) {
+    const int w = tid - WT * PL;
     const float* t = th + w * MAX_D;
     float* s = sc + w * SC_STRIDE;
-    float a = t[c.cix[R_A]], b = t[c.cix[R_B]];
-    s[S_P0] = t[c.cix[R_P0]];
-    s[S_A] = a;
-    s[S_BCA] = (b - c.c_gnfw) / a;
-    s[S_BMC] = b - c.c_gnfw;
-    s[S_LNRP] = logf(t[c.cix[R_RP]]);
+    gnfw_scalars(c, t, s);
     float n0 = powf(10.0f, t[c.cix[R_LOGN0]]);
     s[S_N0SQ] = n0 * n0;
     s[S_RCI] = powf(10.0f, -t[c.cix[R_LOGRC]]);
@@ -558,9 +649,9 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   __syncthreads();
   JT_MARK(1);
 
-  // ---- pressure, T_SZ and HSE mass on the pressure grid, and the partial
-  // ---- sums of T(0) and integrated Y: a thread's walker's scalars in
-  // ---- registers
+  // ---- pressure, T_SZ and (gNFW) HSE mass on the pressure grid, and the
+  // ---- partial sums of T(0) and integrated Y: a thread's walker's
+  // ---- scalars in registers
   float* mm = R;                                    // WT x n_press
   float* part = prof;                   // 2 x JT_WARPS x WT partial sums
   {
@@ -568,20 +659,29 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
     const float* lnr = st + c.off[A_LNR];
     const float* wT0 = st + c.off[A_WT0];
     const float* wint = st + c.off[A_WINT];
+    const float* KG = st + c.off[A_KG];
     const int w = tid % WT, kstep = nth / WT;
-    const Prof s = load_prof(sc + w * SC_STRIDE);
+    const float* scw = sc + w * SC_STRIDE;
+    const float* kv = th + w * MAX_D + c.cix[R_KC0];
+    const Prof s = load_prof(scw);
     float t0s = 0.f, is = 0.f;
     for (int k = tid / WT; k < NP; k += kstep) {
       const float rk = r[k];
-      float x;
-      const float P = gnfw_press(c, s, lnr[k], &x);
-      const float ne = rsqrtf(ne2_of(c, s, rk));
-      const float f = 1.0f - expf(-x);
+      float P;
+      const float ne = rsqrtf(ne2_of<FAM>(c, s, scw, rk));
+      if (FAM && c.p_fam == P_KNOTS) {
+        P = expf(LN10F * knot_log10(KG + 3 * k, kv));
+      } else {
+        float x;
+        P = gnfw_press(c, s, lnr[k], &x);
+        const float f = 1.0f - expf(-x);
+        mm[w * NP + k] = P * rk * (c.c_gnfw + s.bmc * f) * ne * c.mass_C;
+      }
       pressT[k * WT + w] = P;
-      mm[w * NP + k] = P * rk * (c.c_gnfw + s.bmc * f) * ne * c.mass_C;
       is = __fmaf_rn(P, wint[k], is);
       if (k < c.sep) {
-        const float tz = P * ne;
+        const float tz = (FAM && c.t_fam == T_VIKH) ? vikh_T(scw, rk)
+                                                    : P * ne;
         tsz[w * TS + k] = tz;
         t0s = __fmaf_rn(tz, wT0[k], t0s);
       }
@@ -598,7 +698,30 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   JT_MARK(2);
 
   // ---- mass veto; T(0) and integrated Y summed over the warps in order ---
-  if (c.mass_veto) {
+  if (FAM && c.mass_veto && c.p_fam == P_KNOTS) {
+    // the segment-averaged mass at one log-midpoint per segment: M = -P
+    // slope r / ne C, strictly increasing and ending positive
+    const int NM = c.n_knots - 1;
+    const float* KV = st + c.off[A_KV];
+    for (int idx = tid; idx < WT * NM; idx += nth) {
+      const int w = idx / NM, j = idx - w * NM;
+      const float* scw = sc + w * SC_STRIDE;
+      const float* kv = th + w * MAX_D + c.cix[R_KC0];
+      const float* row = KV + 6 * j;
+      const float pm = expf(LN10F * knot_log10(row, kv));
+      const float sl = knot_log10(row, kv, 3, 4);
+      const float rm = row[5];
+      mm[idx] = -pm * sl * rm
+                * rsqrtf(ne2_of<FAM>(c, load_prof(scw), scw, rm)) * c.mass_C;
+    }
+    __syncthreads();
+    if (tid < WT) {
+      const float* m = mm + tid * NM;
+      bool bad = !(m[NM - 1] > 0.0f);
+      for (int j = 0; j + 1 < NM; ++j) bad = bad | !(m[j + 1] > m[j]);
+      if (bad) flags[2 * tid] = 1;
+    }
+  } else if (c.mass_veto) {
     // np.gradient(m) > 0: central differences inside, one-sided at the
     // edges; a NaN comparison is false and vetoes
     const int w = tid % WT;
@@ -627,6 +750,8 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   sz_chain_tile(c, st, pressT, sc + S_T0, SC_STRIDE, tsz, TS, sc + S_CAL,
                 SC_STRIDE, prof, R, res, sc + S_CHI2, SC_STRIDE);
 
+  // ---- X-ray (none in an SZ-only session) ---------------------------------
+  if (!FAM || c.has_xray) {
   // ---- X-ray: midpoint profiles, two-tap count-rate lookup ---------------
   float* xs = R;                                    // WT x NS x XS_N
   float* e0 = xs + WT * NS * XS_N;                  // WT x NB x NS
@@ -635,13 +760,27 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   {
     const float* midr = st + c.off[A_MIDR];
     const float* lnmid = st + c.off[A_LNMID];
+    const float* KM = st + c.off[A_KM];
     for (int idx = tid; idx < WT * NS; idx += nth) {
       const int w = idx / NS, j = idx - w * NS;
-      const Prof s = load_prof(sc + w * SC_STRIDE);
-      float x1;
-      float pm = gnfw_press(c, s, lnmid[j], &x1);
-      float n2 = ne2_of(c, s, midr[j]);
-      float Tm = pm * rsqrtf(n2) * sc[w * SC_STRIDE + S_TTX];
+      const float* scw = sc + w * SC_STRIDE;
+      const Prof s = load_prof(scw);
+      float Tm, n2;
+      if (FAM && c.t_fam == T_VIKH) {
+        n2 = ne2_of<FAM>(c, s, scw, midr[j]);
+        Tm = vikh_T(scw, midr[j]);
+      } else {
+        float pm;
+        if (FAM && c.p_fam == P_KNOTS) {
+          pm = expf(LN10F * knot_log10(KM + 3 * j,
+                                       th + w * MAX_D + c.cix[R_KC0]));
+        } else {
+          float x1;
+          pm = gnfw_press(c, s, lnmid[j], &x1);
+        }
+        n2 = ne2_of<FAM>(c, s, scw, midr[j]);
+        Tm = pm * rsqrtf(n2) * scw[S_TTX];
+      }
       float tl = logf(nanmax_f(Tm, 1e-30f));
       float pos = (tl - c.t0g) * c.inv_dtg;
       bool bad = isnan(pos);
@@ -740,6 +879,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
     }
   }
   __syncthreads();
+  }
   JT_MARK(12);
 
   // ---- combine ------------------------------------------------------------
@@ -750,7 +890,8 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
     total = total - 0.5f * s[S_CHI2];
     float di = s[S_INTEG] - st[c.off[A_MUI]];
     total = total - 0.5f * di * di;
-    total = total + (flags[2 * tid + 1] ? -INF : s[S_CASH]);
+    if (!FAM || c.has_xray)
+      total = total + (flags[2 * tid + 1] ? -INF : s[S_CASH]);
     out[tid] = isnan(total) ? -INF : total;
   }
   __syncthreads();
@@ -761,6 +902,21 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
 // The tile takes at most MAX_D parameters and any number of radii.
 static inline bool tile_fits(const LLConsts& c) {
   return c.D <= MAX_D && c.n_pix >= 1 && c.n_press >= 1;
+}
+
+// The flagship family, which the FAM = false tile computes.
+static inline bool is_flagship(const LLConsts& c) {
+  return c.p_fam == P_GNFW && c.t_fam == T_UPP && c.d_fam == D_SINGLE
+         && c.has_xray && !c.has_ls && c.D <= 16;
+}
+
+// The kernel of a launch from k[FAM][!FIT]: FAM unless is_flagship, FIT
+// when the plan stages the constants and keeps the scratch in shared
+// memory.
+template <typename Kernel>
+static inline Kernel pick_kernel(const LLConsts& c, size_t ws,
+                                 const Kernel (&k)[2][2]) {
+  return k[!is_flagship(c)][!(c.stage && !ws)];
 }
 
 // Where a launch keeps what its tiles read: own floats of shared memory

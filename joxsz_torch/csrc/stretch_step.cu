@@ -67,6 +67,8 @@
 
 // shared floats of a half-step tile besides joint_ll_tile's
 #define HALF_EXTRA (TILE_WALKERS * MAX_D + 6 * TILE_WALKERS + 4)
+// parameters a swap moves through registers at a time
+#define SWAP_CHUNK 16
 
 // One tile of a half-step: rows i0 .. i0 + TILE_WALKERS of a moving block
 // of n_move rows (xm, lpm, accm) against a fixed half of n_fixed rows (xf).
@@ -78,7 +80,7 @@
 // rows' new x and lp to fx / flp (a frame).  st: the staged constants of
 // the tile's group; smem: HALF_EXTRA floats, then tile_layout(c).total
 // floats of scratch unless the plan put that in the global workspace.
-template <bool FIT>
+template <bool FIT, bool FAM>
 __device__ __forceinline__ void stretch_half_tile(
     float* xm, float* lpm, float* accm, const float* xf, int n_move,
     int n_fixed, int i0, uint32_t ctr0, uint32_t c3, int which,
@@ -121,7 +123,7 @@ __device__ __forceinline__ void stretch_half_tile(
     y[idx] = v;
   }
   __syncthreads();
-  joint_ll_tile<FIT>(c, st, y, lpy, sm);
+  joint_ll_tile<FIT, FAM>(c, st, y, lpy, sm);
   if (tid < WT) {
     int ok = 0;
     if (i0 + tid < n_move) {
@@ -215,20 +217,23 @@ __device__ void swap_boundary(const StepArgs& a, int D, int i, int kk,
     const float u = bits_to_uniform(b[0]);
     const float lc = a.lp[cs], lh = a.lp[hs];
     if (logf(u) < __fmul_rn(db, __fsub_rn(lh, lc))) {
-      // both rows into registers first: one round trip, not D
-      float rc[MAX_D], rh[MAX_D];
+      // both rows into registers first, SWAP_CHUNK values at a time: a
+      // round trip per chunk, not per value
+      for (int d0 = 0; d0 < D; d0 += SWAP_CHUNK) {
+        float rc[SWAP_CHUNK], rh[SWAP_CHUNK];
 #pragma unroll
-      for (int d = 0; d < MAX_D; ++d)
-        if (d < D) {
-          rc[d] = a.x[cs * D + d];
-          rh[d] = a.x[hs * D + d];
-        }
+        for (int q = 0; q < SWAP_CHUNK; ++q)
+          if (d0 + q < D) {
+            rc[q] = a.x[cs * D + d0 + q];
+            rh[q] = a.x[hs * D + d0 + q];
+          }
 #pragma unroll
-      for (int d = 0; d < MAX_D; ++d)
-        if (d < D) {
-          a.x[cs * D + d] = rh[d];
-          a.x[hs * D + d] = rc[d];
-        }
+        for (int q = 0; q < SWAP_CHUNK; ++q)
+          if (d0 + q < D) {
+            a.x[cs * D + d0 + q] = rh[q];
+            a.x[hs * D + d0 + q] = rc[q];
+          }
+      }
       a.lp[cs] = lh;
       a.lp[hs] = lc;
       ++n;
@@ -239,7 +244,7 @@ __device__ void swap_boundary(const StepArgs& a, int D, int i, int kk,
   if (tid == 0 && *cnt) atomicAdd(a.sacc + kk, *cnt);
 }
 
-template <bool FIT>
+template <bool FIT, bool FAM>
 __device__ __forceinline__ void stretch_steps_body(const StepArgs& a,
                                                    const LLConsts& c,
                                                    float* smem) {
@@ -276,7 +281,7 @@ __device__ __forceinline__ void stretch_steps_body(const StepArgs& a,
           frame = a.chain + (fr * a.W + (size_t)which * H) * D;
           frame_lp = a.chain_lp + fr * a.W + (size_t)which * H;
         }
-        stretch_half_tile<FIT>(
+        stretch_half_tile<FIT, FAM>(
             a.x + mv * D, a.lp + mv, a.acc + mv, a.x + fx * D, H, H,
             tile * WT, a.per_cluster ? 0u : (uint32_t)(g * H),
             a.per_cluster ? (uint32_t)g : 0u, which, a.seed, i, a.zc1, a.zc2,
@@ -307,17 +312,18 @@ __device__ __forceinline__ void stretch_steps_body(const StepArgs& a,
   }
 }
 
-__global__ void __launch_bounds__(JT_THREADS, 1)
-stretch_steps_kernel(StepArgs a, LLConsts c) {
-  extern __shared__ __align__(16) float smem[];
-  stretch_steps_body<true>(a, c, smem);
-}
-
-__global__ void __launch_bounds__(JT_THREADS, 1)
-stretch_steps_large_kernel(StepArgs a, LLConsts c) {
-  extern __shared__ __align__(16) float smem[];
-  stretch_steps_body<false>(a, c, smem);
-}
+// the flagship (FAM = false) and every family (_fam_), each where the plan
+// fits and in its _large_ twin
+#define STRETCH_STEPS_KERNEL(name, FIT, FAM)                                \
+  __global__ void __launch_bounds__(JT_THREADS, 1)                          \
+  name(StepArgs a, LLConsts c) {                                            \
+    extern __shared__ __align__(16) float smem[];                           \
+    stretch_steps_body<FIT, FAM>(a, c, smem);                               \
+  }
+STRETCH_STEPS_KERNEL(stretch_steps_kernel, true, false)
+STRETCH_STEPS_KERNEL(stretch_steps_large_kernel, false, false)
+STRETCH_STEPS_KERNEL(stretch_steps_fam_kernel, true, true)
+STRETCH_STEPS_KERNEL(stretch_steps_fam_large_kernel, false, true)
 
 // Kernel 6: one half-step of ONE ensemble of 2 H walkers for this shard's
 // H_loc rows of the moving half (xu, lpu, accu: a buffer of its own)
@@ -325,7 +331,7 @@ stretch_steps_large_kernel(StepArgs a, LLConsts c) {
 // shard is row row_off + i of the half and draws at that counter, so the
 // shards together draw exactly the bits the step kernel draws for the
 // whole ensemble at G = 1.
-template <bool FIT>
+template <bool FIT, bool FAM>
 __device__ __forceinline__ void coupled_half_body(
     float* xu, float* lpu, float* accu, const float* xf, int H_loc, int H,
     int row_off, int which, uint32_t seed, int step, float zc1, float zc2,
@@ -335,29 +341,36 @@ __device__ __forceinline__ void coupled_half_body(
   int t0, t1;
   block_tiles((H_loc + TILE_WALKERS - 1) / TILE_WALKERS, &t0, &t1);
   for (int t = t0; t < t1; ++t)
-    stretch_half_tile<FIT>(xu, lpu, accu, xf, H_loc, H, t * TILE_WALKERS,
-                           (uint32_t)row_off, 0u, which, seed, step, zc1,
-                           zc2, 1.0f, c, st, sm, nullptr, nullptr);
+    stretch_half_tile<FIT, FAM>(xu, lpu, accu, xf, H_loc, H,
+                                t * TILE_WALKERS, (uint32_t)row_off, 0u,
+                                which, seed, step, zc1, zc2, 1.0f, c, st, sm,
+                                nullptr, nullptr);
 }
 
-__global__ void __launch_bounds__(JT_THREADS, 1)
-coupled_half_kernel(float* xu, float* lpu, float* accu, const float* xf,
-                    int H_loc, int H, int row_off, int which, uint32_t seed,
-                    int step, float zc1, float zc2, LLConsts c) {
-  extern __shared__ __align__(16) float smem[];
-  coupled_half_body<true>(xu, lpu, accu, xf, H_loc, H, row_off, which, seed,
-                          step, zc1, zc2, c, smem);
-}
+#define COUPLED_HALF_KERNEL(name, FIT, FAM)                                 \
+  __global__ void __launch_bounds__(JT_THREADS, 1)                          \
+  name(float* xu, float* lpu, float* accu, const float* xf, int H_loc,      \
+       int H, int row_off, int which, uint32_t seed, int step, float zc1,   \
+       float zc2, LLConsts c) {                                             \
+    extern __shared__ __align__(16) float smem[];                           \
+    coupled_half_body<FIT, FAM>(xu, lpu, accu, xf, H_loc, H, row_off,       \
+                                which, seed, step, zc1, zc2, c, smem);      \
+  }
+COUPLED_HALF_KERNEL(coupled_half_kernel, true, false)
+COUPLED_HALF_KERNEL(coupled_half_large_kernel, false, false)
+COUPLED_HALF_KERNEL(coupled_half_fam_kernel, true, true)
+COUPLED_HALF_KERNEL(coupled_half_fam_large_kernel, false, true)
 
-__global__ void __launch_bounds__(JT_THREADS, 1)
-coupled_half_large_kernel(float* xu, float* lpu, float* accu,
-                          const float* xf, int H_loc, int H, int row_off,
-                          int which, uint32_t seed, int step, float zc1,
-                          float zc2, LLConsts c) {
-  extern __shared__ __align__(16) float smem[];
-  coupled_half_body<false>(xu, lpu, accu, xf, H_loc, H, row_off, which,
-                           seed, step, zc1, zc2, c, smem);
-}
+typedef void (*StepKernel)(StepArgs, LLConsts);
+typedef void (*CoupledKernel)(float*, float*, float*, const float*, int, int,
+                              int, int, uint32_t, int, float, float,
+                              LLConsts);
+static const StepKernel STEP_KERNELS[2][2] = {
+    {stretch_steps_kernel, stretch_steps_large_kernel},
+    {stretch_steps_fam_kernel, stretch_steps_fam_large_kernel}};
+static const CoupledKernel COUPLED_KERNELS[2][2] = {
+    {coupled_half_kernel, coupled_half_large_kernel},
+    {coupled_half_fam_kernel, coupled_half_fam_large_kernel}};
 
 // The launch plan of both kernels: 4 + HALF_EXTRA floats of their own
 // (the swap count, the proposals), the tile's scratch.
@@ -380,9 +393,7 @@ extern "C" int stretch_steps_config(int G, int W, const int* iv,
   out[1] = (int)smem;
   out[2] = c.stage;
   out[3] = (int)ws;
-  return resident_blocks(c.stage && !ws ? stretch_steps_kernel
-                                        : stretch_steps_large_kernel,
-                         smem,
+  return resident_blocks(pick_kernel(c, ws, STEP_KERNELS), smem,
                          G * ((W / 2 + TILE_WALKERS - 1) / TILE_WALKERS),
                          &out[0]);
 }
@@ -406,8 +417,7 @@ extern "C" int launch_stretch_steps(
   if (!coop) return (int)cudaErrorNotSupported;
   size_t smem = 0, ws = 0;
   int err = plan_half(&c, &smem, &ws);
-  auto kernel = c.stage && !ws ? stretch_steps_kernel
-                               : stretch_steps_large_kernel;
+  auto kernel = pick_kernel(c, ws, STEP_KERNELS);
   int blocks = 0;
   if (!err)
     err = resident_blocks(kernel, smem,
@@ -440,8 +450,7 @@ extern "C" int launch_coupled_half(float* xu, float* lpu, float* accu,
   LLConsts c = make_consts(buf, iv, fv);
   size_t smem = 0, ws = 0;
   int err = plan_half(&c, &smem, &ws);
-  auto kernel = c.stage && !ws ? coupled_half_kernel
-                               : coupled_half_large_kernel;
+  auto kernel = pick_kernel(c, ws, COUPLED_KERNELS);
   int blocks = 0;
   if (!err)
     err = resident_blocks(kernel, smem,

@@ -1,7 +1,7 @@
 from .params import Param, ParamSet, gaussian_param
-from .pressure import GNFWPressure
+from .pressure import GNFWPressure, KnotPressure
 from .density import VikhlininDensity
-from .temperature import UPPTemperature
+from .temperature import UPPTemperature, VikhlininTemperature
 from .mass import HSEMass
 from .sz import SZData, sz_log_like, sz_brightness
 from .xray import (XrayData, CountRateTable, predicted_counts, cash_log_like,
@@ -9,9 +9,9 @@ from .xray import (XrayData, CountRateTable, predicted_counts, cash_log_like,
 from .joint import JointModel, build_reference_params
 
 __all__ = [
-    "Param", "ParamSet", "gaussian_param", "GNFWPressure",
-    "VikhlininDensity", "UPPTemperature", "HSEMass", "SZData",
-    "sz_log_like", "sz_brightness", "XrayData", "CountRateTable",
+    "Param", "ParamSet", "gaussian_param", "GNFWPressure", "KnotPressure",
+    "VikhlininDensity", "UPPTemperature", "VikhlininTemperature", "HSEMass",
+    "SZData", "sz_log_like", "sz_brightness", "XrayData", "CountRateTable",
     "predicted_counts", "cash_log_like", "xray_log_like", "JointModel",
     "build_reference_params",
 ]

@@ -20,9 +20,7 @@ import numpy as np
 import torch
 
 from .params import ParamSet, Param, gaussian_param
-from .pressure import GNFWPressure
 from .density import VikhlininDensity
-from .temperature import UPPTemperature
 from .mass import HSEMass
 from .sz import SZData, sz_brightness, sz_log_like
 from .xray import XrayData, predicted_counts, xray_log_like
@@ -30,41 +28,65 @@ from .xray import XrayData, predicted_counts, xray_log_like
 
 @dataclasses.dataclass
 class JointModel:
-    """Components + data defining the joint posterior (gNFW pressure,
-    single Vikhlinin density, UPP temperature)."""
+    """Components + data defining the joint posterior: pressure (gNFW or
+    knots), Vikhlinin density (single or double), temperature (UPP or
+    Vikhlinin).  ``xray_data`` None is an SZ-only fit (the preprofit
+    mode, BASELINE config #1)."""
 
-    pressure: GNFWPressure
+    pressure: object
     density: VikhlininDensity
-    temperature: UPPTemperature
+    temperature: object
     params: ParamSet
     sz_data: SZData
-    xray_data: XrayData
+    xray_data: XrayData | None = None
     exclude_unphysical_mass: bool = True
     Z_name: str = "Z"
 
     def __post_init__(self):
         self.mass = HSEMass(self.pressure, self.density)
 
+    def to(self, device, dtype) -> "JointModel":
+        """A copy of the model with every data tensor on ``device`` in
+        ``dtype`` (the components hold no tensors)."""
+        return dataclasses.replace(
+            self, sz_data=_moved(self.sz_data, device, dtype),
+            xray_data=(None if self.xray_data is None
+                       else _moved(self.xray_data, device, dtype)))
+
     def _mass_veto_ok(self, pars: dict, r_press_kpc) -> torch.Tensor:
         """(B,) physical-mass criterion (reference veto,
-        joxsz_funcs.py:522-525): np.gradient of M(<r) strictly positive
-        on the pressure grid — central differences inside, one-sided at
-        the two edges (the unit-spacing gradient's sign)."""
+        joxsz_funcs.py:522-525), per pressure family as
+        ``joxsz_tpu/models/joint.py::_mass_veto_ok``.
+
+        Smooth pressure: np.gradient of M(<r) strictly positive on the
+        pressure grid — central differences inside, one-sided at the two
+        edges (the unit-spacing gradient's sign).  Knot pressure: the
+        segment-averaged mass at one log-midpoint per segment strictly
+        increasing and ending positive (the dense-grid check would reject
+        the interpolant's kinks)."""
+        rv = getattr(self.pressure, "mass_veto_radii", None)
+        if rv is not None:
+            m = self.mass(pars, torch.as_tensor(
+                rv(), dtype=r_press_kpc.dtype, device=r_press_kpc.device))
+            return (m[:, 1:] > m[:, :-1]).all(dim=1) & (m[:, -1] > 0.0)
         m = self.mass(pars, r_press_kpc)                 # (B, n)
         grad = torch.cat([m[:, 1:2] - m[:, 0:1],
                           (m[:, 2:] - m[:, :-2]) / 2.0,
                           m[:, -1:] - m[:, -2:-1]], dim=1)
         return (grad > 0.0).all(dim=1)
 
-    def _rest(self, theta, pars, sz: SZData, xr: XrayData) -> torch.Tensor:
+    def _rest(self, theta, pars, sz: SZData,
+              xr: XrayData | None) -> torch.Tensor:
         """Everything but the SZ chi^2: priors, the r_c <= r_s prior, the
-        mass veto and the X-ray Cash term, (B,)."""
+        mass veto and (with X-ray data) the X-ray Cash term, (B,)."""
         total = self.params.log_prior(theta)
         total = total + self.density.log_prior(pars)
         if self.exclude_unphysical_mass:
             mono = self._mass_veto_ok(pars, sz.r_press_kpc)
             total = torch.where(mono, total,
                                 torch.full_like(total, -float("inf")))
+        if xr is None:
+            return total
         return total + xray_log_like(pars, xr, self.density,
                                      self.temperature, self.Z_name)
 
@@ -137,21 +159,36 @@ class JointModel:
                                 self.density, self.temperature, self.Z_name)
 
 
-def build_reference_params(pressure: GNFWPressure, density: VikhlininDensity,
-                           temperature: UPPTemperature, Z_solar: float = 0.3,
+def _moved(data, device, dtype):
+    """A frozen data container (``SZData``, ``XrayData``,
+    ``CountRateTable``) with its tensors, nested ones too, moved."""
+    kw = {}
+    for f in dataclasses.fields(data):
+        v = getattr(data, f.name)
+        if torch.is_tensor(v):
+            kw[f.name] = v.to(device=device, dtype=dtype)
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = _moved(v, device, dtype)
+    return dataclasses.replace(data, **kw)
+
+
+def build_reference_params(pressure, density: VikhlininDensity, temperature,
+                           Z_solar: float = 0.3,
                            edges_logkpc: np.ndarray | None = None
                            ) -> ParamSet:
-    """The reference's 13-parameter configuration (reference
+    """The reference's parameter configuration (reference
     joxsz_main.py:128-175): Vikhlinin density (alpha, gamma frozen; rc
-    reset; eps bound widened), flat metallicity, gNFW pressure (c
-    frozen), thawed T-ratio, Gaussian-prior backscale and calibration.
-    Same construction as ``joxsz_tpu/models/joint.py``."""
+    reset; eps bound widened), flat metallicity, the pressure (gNFW with
+    c frozen, or the knot values), the temperature (thawed T-ratio for
+    UPP, or the six Vikhlinin parameters), Gaussian-prior backscale and
+    calibration; 13 thawed for the flagship.  Same construction as
+    ``joxsz_tpu/models/joint.py``."""
     pars = density.default_params()
     pars.update(temperature.default_params())
     pars.update(OrderedDict([
         ("Z", Param(Z_solar, 0.0, 1.0, unit="solar")),
-        # spectral-line systematic nuisance, frozen at 1 (thawing it is a
-        # later slice of the port)
+        # spectral-line systematic nuisance: scales the metal-line part of
+        # the count-rate table; frozen at 1 unless --line-systematic
         ("line_scale", Param(1.0, 0.0, 2.5, frozen=True, prior="gauss",
                              prior_mu=1.0, prior_sigma=0.25)),
     ]))
@@ -178,6 +215,8 @@ def build_reference_params(pressure: GNFWPressure, density: VikhlininDensity,
                 rs.val = rc.val + 0.5 * (ceil - rc.val)
     pars[r"\epsilon"].maxval = 10.0
     pars.freeze(r"\alpha", 0.0)
-    pars.freeze("c")
-    pars.thaw("log(T_X/T_{SZ})")
+    if "c" in pars:                 # gNFW inner slope (no knots)
+        pars.freeze("c")
+    if "log(T_X/T_{SZ})" in pars:   # UPP temperature only
+        pars.thaw("log(T_X/T_{SZ})")
     return pars

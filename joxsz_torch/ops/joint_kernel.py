@@ -2,12 +2,25 @@
 
 Replaces ``joxsz_tpu/ops/pallas_joint.py::make_joint_core`` and the body it
 wraps, ``ll_body`` (specialised by ``_build_spec``).  Per walker: box and
-Gaussian priors, the r_c <= r_s veto, gNFW P and dP/dr and the Vikhlinin
-n_e on the pressure grid, the HSE-mass monotonicity veto, the SZ chain
-(``pp @ L^T`` -> T-dependent y->mJy lerp x calibration -> ``@ G^T`` ->
--chi^2/2, plus the integrated-Y term) and the X-ray chain (count-rate
-lookup per band and shell, ``ne^2``, shell->annulus projection through
-``vols_norm``, Cash with the positivity veto).
+Gaussian priors, the r_c <= r_s veto, P and the Vikhlinin n_e on the
+pressure grid, the HSE-mass monotonicity veto, the SZ chain (``pp @ L^T``
+-> T-dependent y->mJy lerp x calibration -> ``@ G^T`` -> -chi^2/2, plus
+the integrated-Y term) and the X-ray chain (count-rate lookup per band
+and shell, ``ne^2``, shell->annulus projection through ``vols_norm``,
+Cash with the positivity veto).
+
+Every model family of ``ll_body`` is a branch here, chosen from the
+thawed layout by ``consts_layout.detect_family`` (the port's
+``_detect_family``) and passed to the kernel as ints: pressure gNFW (with
+dP/dr and the dense-grid mass veto) or knots (log10 P a clamped lerp of
+the knot values in log10 r, from a per-radius table of (segment, two
+weights): two FP32 products a radius where the TPU kernel multiplied
+dense weight rows, and the mass veto on the segment midpoints);
+temperature UPP (T_SZ = P/ne, T_X = T_SZ 10^ratio), Vikhlinin (one
+parametric T for both) or none (SZ-only); density single or double
+(+ a beta-model term); the ``line_scale`` nuisance (Z_eff = Z x
+line_scale); and SZ-only sessions, which have no X-ray block.  A layout
+outside every family raises ``NotImplementedError``.
 
 Host-side constants follow ``_cluster_arrays``/``_build_spec`` without the
 TPU's 128-lane padding: the hat-basis MXU product the TPU uses for the
@@ -44,12 +57,14 @@ import numpy as np
 import torch
 
 from .. import constants as K
-from .consts_layout import (ROLES, LaunchParams, check_conv_table,
+from .consts_layout import (ROLES, LaunchParams, P_KNOTS, T_VIKH, D_DOUBLE,
+                            check_conv_table, detect_family, knot_table,
                             pack_arrays)
 from .sz_core import conv_slopes, sz_chain_plain, sz_padded_data
 
 # parameters a kernel row holds (MAX_D in csrc/joint_ll.cuh)
-MAX_D = 16
+MAX_D = 32
+LN10 = float(np.log(10.0))
 
 
 class StackMismatch(ValueError):
@@ -68,16 +83,22 @@ class JointConsts:
     offsets: dict         # name -> float offset into ``buf``
     ints: dict
     floats: dict
-    cix: list             # thawed column of each of ROLES
+    roles: dict           # thawed column of each role of ROLES thawed
     params: LaunchParams = None   # what the C entry points read
 
     @property
     def device(self):
         return self.buf.device
 
+    @property
+    def cix(self) -> list:
+        """The thawed columns of the roles the layout thaws, in ROLES
+        order."""
+        return [self.roles[r] for r in ROLES if r in self.roles]
+
     def __post_init__(self):
         if self.params is None:
-            self.params = LaunchParams(self.ints, self.cix, self.offsets,
+            self.params = LaunchParams(self.ints, self.roles, self.offsets,
                                        self.floats)
 
     def to(self, device) -> "JointConsts":
@@ -140,7 +161,7 @@ def _view_consts(row: torch.Tensor, like: JointConsts) -> JointConsts:
     arrays = {k: row[like.offsets[k]:like.offsets[k] + v.numel()]
               .view(v.shape) for k, v in like.arrays.items()}
     return JointConsts(arrays=arrays, buf=row, offsets=like.offsets,
-                       ints=like.ints, floats=like.floats, cix=like.cix,
+                       ints=like.ints, floats=like.floats, roles=like.roles,
                        params=like.params)
 
 
@@ -149,44 +170,60 @@ def _np(t):
 
 
 def _session_spec(sess) -> dict:
-    """What every cluster of a stack shares with the session: the thawed
-    layout, priors and frozen shape parameters, the grids and the sizes
-    (the port's ``_build_spec`` statics)."""
+    """What every cluster of a stack shares with the session: the model
+    family, the thawed layout, priors and frozen shape parameters, the
+    grids and the sizes (the port's ``_build_spec`` statics)."""
     m = sess.model
     p = m.params
-    if sorted(p.thawed) != sorted(ROLES):
+    sz, xr = m.sz_data, m.xray_data
+    has_xray = xr is not None
+    fam = detect_family(p.thawed, has_xray=has_xray)
+    if fam is None or (fam[0] == P_KNOTS
+                       and not hasattr(m.pressure, "knots_logr")):
         raise NotImplementedError(
-            f"the joint kernel covers the flagship 13-parameter layout; "
-            f"this session thaws {p.thawed}")
+            "the joint kernel covers the model families of joxsz_tpu's "
+            "_detect_family (gnfw | knots pressure, upp | vikhlinin | none "
+            "temperature, single | double density, optional line_scale, "
+            f"SZ-only); this session thaws {p.thawed}")
+    p_fam, t_fam, d_fam, n_knots, cix = fam
     if len(p.thawed) > MAX_D:
         raise ValueError(f"at most {MAX_D} thawed parameters")
-    sz, xr = m.sz_data, m.xray_data
     # Gaussian weight isg / sigma^2, formed in float32 as ll_body does
     isg32 = p.is_gauss.astype(np.float32)
     sg32 = np.where(p.is_gauss, p.sigma, 1.0).astype(np.float32)
-    Tlog = _np(xr.table.Tlog)
-    nT = Tlog.size
     n_data, n_pix = sz.G.shape
-    n_ann, n_sh = xr.vols_norm.shape
+    mass_veto = bool(m.exclude_unphysical_mass)
     ints = dict(n_press=sz.r_press_kpc.shape[0], sep=int(sz.sep),
-                n_pix=n_pix, n_data=n_data, n_sh=n_sh, n_ann=n_ann,
-                n_band=xr.counts_mask.shape[0], nT=nT,
-                n_conv=sz.conv_T.shape[0], D=len(p.thawed),
-                mass_veto=int(bool(m.exclude_unphysical_mass)))
+                n_pix=n_pix, n_data=n_data, n_conv=sz.conv_T.shape[0],
+                D=len(p.thawed), mass_veto=int(mass_veto), p_fam=p_fam,
+                t_fam=t_fam, d_fam=d_fam, n_knots=n_knots,
+                has_xray=int(has_xray), has_ls=int("line_scale" in cix),
+                n_sh=0, n_ann=0, n_band=0, nT=0)
+    floats = dict(c_gnfw=float(p["c"].val) if "c" in p else 0.0,
+                  alpha=float(p[r"\alpha"].val),
+                  gamma=float(p[r"\gamma"].val),
+                  mass_C=float(K.keV_erg * K.kpc_cm
+                               / (K.mu_gas * K.mu_g * K.G_cgs)
+                               / K.solar_mass_g),
+                  t0g=0.0, inv_dtg=0.0, pos_hi=0.0)
+    Tlog = np.zeros(0)
+    if has_xray:
+        Tlog = _np(xr.table.Tlog)
+        n_ann, n_sh = xr.vols_norm.shape
+        ints.update(n_sh=n_sh, n_ann=n_ann, n_band=xr.counts_mask.shape[0],
+                    nT=Tlog.size)
+        floats.update(t0g=float(Tlog[0]),
+                      inv_dtg=1.0 / float(Tlog[1] - Tlog[0]),
+                      pos_hi=float(Tlog.size - 1 - 1e-6))
     check_conv_table(_np(sz.conv_T))
     if ints["n_pix"] != ints["sep"] + 1:
         raise ValueError("the SZ operator must have sep + 1 pixels")
-    mass_C = float(K.keV_erg * K.kpc_cm
-                   / (K.mu_gas * K.mu_g * K.G_cgs) / K.solar_mass_g)
-    floats = dict(c_gnfw=float(p["c"].val), alpha=float(p[r"\alpha"].val),
-                  gamma=float(p[r"\gamma"].val), mass_C=mass_C,
-                  t0g=float(Tlog[0]),
-                  inv_dtg=1.0 / float(Tlog[1] - Tlog[0]),
-                  pos_hi=float(nT - 1 - 1e-6))
+    roles = {r: cix[r] for r in ROLES if r in cix}
     return dict(
         ints=ints,
         floats={k: float(np.float32(v)) for k, v in floats.items()},
-        cix=[p.thawed.index(r) for r in ROLES],
+        roles=roles, knots_logr=(np.asarray(m.pressure.knots_logr)
+                                 if p_fam == P_KNOTS else None),
         r_pp=_np(sz.r_press_kpc), conv_T=_np(sz.conv_T),
         conv_V=_np(sz.conv_val), Tlog=Tlog,
         priors={"lo": np.where(np.isfinite(p.lo), p.lo, -1e30),
@@ -211,13 +248,8 @@ def _cluster_arrays(spec: dict, sz, xr) -> dict:
             and np.allclose(conv_V, spec["conv_V"])):
         raise StackMismatch("y->mJy conversion tables differ across the "
                             "stack")
-    if xr is None:
+    if (xr is None) != (not I["has_xray"]):
         raise StackMismatch("X-ray data presence differs across the stack")
-    Tlog = _np(xr.table.Tlog)
-    if Tlog.shape != spec["Tlog"].shape or not np.allclose(Tlog,
-                                                           spec["Tlog"]):
-        raise StackMismatch("count-rate log-T grids differ across the "
-                            "stack")
     if sz.flux.shape[0] > I["n_data"]:
         raise StackMismatch("flux profile longer than the session's data "
                             "axis (heterogeneous stack)")
@@ -229,25 +261,42 @@ def _cluster_arrays(spec: dict, sz, xr) -> dict:
         mui = float(sz.integ_mu) / float(sz.integ_sig)
     else:
         wint, mui = np.zeros_like(r_pp), 0.0
-    midr = _np(xr.midpt_kpc)
-    exps = _np(xr.exposures)
     arrs = {
         "r": r_pp, "lnr": np.log(r_pp), "LT": _np(sz.L).T, "GT": _np(sz.G).T,
         "flux": flux, "wres": wres, "wT0": _np(sz.w_T0), "wint": wint,
-        "midr": midr, "lnmid": np.log(midr),
-        "LR0": _np(xr.table.lograte_Z0), "LR1": _np(xr.table.lograte_Z1),
-        "volsT": _np(xr.vols_norm).T, "sigf": exps * _np(xr.areascales),
-        "bgf": _np(xr.backrates) * exps * _np(xr.areas),
-        "cmf": _np(xr.counts_mask), "ctf": _np(xr.counts_filled),
         **spec["priors"],
         "convT": conv_T, "convV": conv_V,
         "convS": conv_slopes(conv_T, conv_V), "mui": np.array([mui]),
     }
     want = {"LT": (I["n_press"], I["n_pix"]), "GT": (I["n_pix"], I["n_data"]),
-            "flux": (I["n_data"],), "wT0": (I["sep"],),
-            "midr": (I["n_sh"],), "LR0": (I["n_band"], I["nT"]),
-            "LR1": (I["n_band"], I["nT"]), "volsT": (I["n_sh"], I["n_ann"]),
-            "cmf": (I["n_band"], I["n_ann"])}
+            "flux": (I["n_data"],), "wT0": (I["sep"],)}
+    if xr is not None:
+        Tlog = _np(xr.table.Tlog)
+        if Tlog.shape != spec["Tlog"].shape or not np.allclose(
+                Tlog, spec["Tlog"]):
+            raise StackMismatch("count-rate log-T grids differ across the "
+                                "stack")
+        midr = _np(xr.midpt_kpc)
+        exps = _np(xr.exposures)
+        arrs.update({
+            "midr": midr, "lnmid": np.log(midr),
+            "LR0": _np(xr.table.lograte_Z0), "LR1": _np(xr.table.lograte_Z1),
+            "volsT": _np(xr.vols_norm).T, "sigf": exps * _np(xr.areascales),
+            "bgf": _np(xr.backrates) * exps * _np(xr.areas),
+            "cmf": _np(xr.counts_mask), "ctf": _np(xr.counts_filled)})
+        want.update({"midr": (I["n_sh"],), "LR0": (I["n_band"], I["nT"]),
+                     "LR1": (I["n_band"], I["nT"]),
+                     "volsT": (I["n_sh"], I["n_ann"]),
+                     "cmf": (I["n_band"], I["n_ann"])})
+    if I["p_fam"] == P_KNOTS:
+        # the knot tables of this cluster's radii (pallas_joint.py builds
+        # AKM from the session's midpoints; here each cluster its own)
+        k = spec["knots_logr"]
+        arrs["KG"] = knot_table(k, np.log10(r_pp))
+        if xr is not None:
+            arrs["KM"] = knot_table(k, np.log10(arrs["midr"]))
+        if I["mass_veto"]:
+            arrs["KV"] = knot_table(k, (k[:-1] + k[1:]) / 2.0, slopes=True)
     for k, shape in want.items():
         if arrs[k].shape != shape:
             raise StackMismatch(f"{k} has shape {arrs[k].shape}, the "
@@ -257,11 +306,12 @@ def _cluster_arrays(spec: dict, sz, xr) -> dict:
 
 def _pack(spec: dict, clusters: list[dict], dev) -> JointConstsStack:
     buf, offsets, views = pack_arrays(clusters, dev)
-    params = LaunchParams(spec["ints"], spec["cix"], offsets, spec["floats"])
+    params = LaunchParams(spec["ints"], spec["roles"], offsets,
+                          spec["floats"])
     return JointConstsStack(buf=buf, clusters=[
         JointConsts(arrays=views[c], buf=buf[c], offsets=offsets,
                     ints=spec["ints"], floats=spec["floats"],
-                    cix=spec["cix"], params=params)
+                    roles=spec["roles"], params=params)
         for c in range(len(clusters))])
 
 
@@ -305,21 +355,29 @@ def _nanclip(x, lo, hi):
     return torch.where(torch.isnan(x), x, torch.clamp(x, lo, hi))
 
 
+def _knot_lerp(th: torch.Tensor, kc0: int, table: torch.Tensor,
+               cols=(1, 2)) -> torch.Tensor:
+    """(B, n) sum of the knot values at each row's segment i, i + 1 times
+    the table's weight columns ``cols`` (knot_table)."""
+    i = table[:, 0].long() + kc0
+    return th[:, i] * table[:, cols[0]] + th[:, i + 1] * table[:, cols[1]]
+
+
 def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
     """(B, D) float32 -> (B,) float32 log-posterior: the kernel's
-    arithmetic in plain torch (the mirror of ``ll_body``)."""
+    arithmetic in plain torch (the mirror of ``ll_body``), every family
+    branch included."""
     A, I, F = c.arrays, c.ints, c.floats
     th = theta.to(torch.float32)
     NEG = torch.tensor(-float("inf"), dtype=torch.float32, device=th.device)
+    knots, vikh = I["p_fam"] == P_KNOTS, I["t_fam"] == T_VIKH
 
     def col(role):
-        return th[:, c.cix[ROLES.index(role)]:c.cix[ROLES.index(role)] + 1]
+        return th[:, c.roles[role]:c.roles[role] + 1]
 
     log_n0, beta = col("log(n_0)"), col(r"\beta")
     log_rc, log_rs, eps = col("log(r_c)"), col("log(r_s)"), col(r"\epsilon")
-    tratio, Z = col("log(T_X/T_{SZ})"), col("Z")
-    P0, a_, b_, rp_ = col("P_0"), col("a"), col("b"), col("r_p")
-    bscale, cal = col("backscale"), col("calibration")
+    cal = col("calibration")
     cg, alpha, gamma = F["c_gnfw"], F["alpha"], F["gamma"]
 
     # priors
@@ -329,26 +387,41 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
     total = torch.where(inside, gauss, NEG)
     total = torch.where(log_rc > log_rs, NEG, total)
 
-    # pressure + derivative fraction on the pressure grid
+    # pressure on the grid (+ the gNFW derivative fraction)
     r = A["r"]
-    lnrp = torch.log(rp_)
-    bca = (b_ - cg) / a_
+    if knots:
+        kc0 = c.roles["logP_0"]
 
-    def press_of(lnr_row):
-        lnx = lnr_row - lnrp
-        za = a_ * lnx
-        ln1xa = torch.clamp(za, min=0.0) + torch.log1p(torch.exp(-za.abs()))
-        return P0 * torch.exp(-cg * lnx - bca * ln1xa), ln1xa
+        def press_knots(table):
+            return torch.exp(LN10 * _knot_lerp(th, kc0, table))
 
-    press, ln1xa = press_of(A["lnr"])
-    sfrac = 1.0 - torch.exp(-ln1xa)
+        press = press_knots(A["KG"])
+    else:
+        P0, a_, b_, rp_ = col("P_0"), col("a"), col("b"), col("r_p")
+        lnrp = torch.log(rp_)
+        bca = (b_ - cg) / a_
 
-    # Vikhlinin density
+        def press_of(lnr_row):
+            lnx = lnr_row - lnrp
+            za = a_ * lnx
+            ln1xa = torch.clamp(za, min=0.0) + torch.log1p(
+                torch.exp(-za.abs()))
+            return P0 * torch.exp(-cg * lnx - bca * ln1xa), ln1xa
+
+        press, ln1xa = press_of(A["lnr"])
+        sfrac = 1.0 - torch.exp(-ln1xa)
+
+    # Vikhlinin density (+ the double mode's beta-model term)
     rci = 10.0 ** (-log_rc)
     rsi = 10.0 ** (-log_rs)
     n0 = 10.0 ** log_n0
     e_c = 3.0 * beta - alpha / 2.0
     e_s = eps / gamma
+    if I["d_fam"] == D_DOUBLE:
+        n02 = 10.0 ** col("log(n_{02})")
+        n02sq = n02 * n02
+        rc2i = 10.0 ** (-col("log(r_{c2})"))
+        e2 = -3.0 * col(r"\beta_2")
 
     def ne2_of(rr):
         xc = rr * rci
@@ -358,12 +431,38 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
                                   - e_s * torch.log1p(xs_g))
         if alpha != 0.0:
             ne2 = ne2 * xc ** (-alpha)
+        if I["d_fam"] == D_DOUBLE:
+            x2 = rr * rc2i
+            ne2 = ne2 + n02sq * torch.exp(e2 * torch.log1p(x2 * x2))
         return ne2
+
+    if vikh:
+        T0v, tminr = col("T_0"), col("T_{min}/T_0")
+        rcli, acool = 1.0 / col("r_{cool}"), col("a_{cool}")
+        rti, cth = 1.0 / col("r_t"), -0.5 * col("c_t")
+
+        def vikh_T(rr):
+            xcl = torch.exp(acool * torch.log(rr * rcli))
+            xt = rr * rti
+            cool = (xcl + tminr) / (xcl + 1.0)
+            return T0v * cool * torch.exp(cth * torch.log1p(xt * xt))
 
     ne_inv = torch.rsqrt(ne2_of(r))
 
-    # HSE-mass veto: central differences inside, one-sided at the edges
-    if I["mass_veto"]:
+    # HSE-mass veto
+    if I["mass_veto"] and knots:
+        # the segment-averaged mass at one log-midpoint per segment,
+        # strictly increasing and ending positive
+        KV = A["KV"]
+        rm = KV[:, 5]
+        pm = torch.exp(LN10 * _knot_lerp(th, kc0, KV))
+        slope = _knot_lerp(th, kc0, KV, cols=(3, 4))
+        m = -pm * slope * rm * torch.rsqrt(ne2_of(rm)) * F["mass_C"]
+        mono = ((m[:, 1:] > m[:, :-1]).all(dim=1, keepdim=True)
+                & (m[:, -1:] > 0.0))
+        total = torch.where(mono, total, NEG)
+    elif I["mass_veto"]:
+        # central differences inside, one-sided at the edges
         m = press * r * (cg + (b_ - cg) * sfrac) * ne_inv * F["mass_C"]
         mono = ((m[:, 2:] > m[:, :-2]).all(dim=1, keepdim=True)
                 & (m[:, 1:2] > m[:, 0:1]) & (m[:, -1:] > m[:, -2:-1]))
@@ -371,18 +470,40 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
 
     # SZ
     sep = I["sep"]
-    t_sz = press * ne_inv
-    t0 = (t_sz[:, :sep] * A["wT0"]).sum(dim=1, keepdim=True)
-    t_all = torch.cat([t0, t_sz[:, :sep]], dim=1)           # (B, sep+1)
+    t_sz = vikh_T(r[:sep]) if vikh else press[:, :sep] * ne_inv[:, :sep]
+    t0 = (t_sz * A["wT0"]).sum(dim=1, keepdim=True)
+    t_all = torch.cat([t0, t_sz], dim=1)                    # (B, sep+1)
     total = total + sz_chain_plain(press, t_all, cal, A)[:, None]
     di = (press * A["wint"]).sum(dim=1, keepdim=True) - A["mui"]
     total = total - 0.5 * di * di
 
-    # X-ray: midpoint profiles, two-tap hat lookup, projection, Cash
+    if I["has_xray"]:
+        total = total + _xray_plain(
+            th, c, ne2_of, vikh_T if vikh else None,
+            press_knots(A["KM"]) if knots else press_of(A["lnmid"])[0])
+    total = torch.where(torch.isnan(total), NEG, total)
+    return total[:, 0]
+
+
+def _xray_plain(th, c: JointConsts, ne2_of, vikh_T, press_m):
+    """(B, 1) X-ray Cash term with its positivity veto: temperatures at
+    the shell midpoints (``vikh_T``, else ``press_m`` / ne x 10^ratio), a
+    two-tap count-rate lookup, projection, Cash."""
+    A, I, F = c.arrays, c.ints, c.floats
+    NEG = torch.tensor(-float("inf"), dtype=torch.float32, device=th.device)
+
+    def col(role):
+        return th[:, c.roles[role]:c.roles[role] + 1]
+
+    Z, bscale = col("Z"), col("backscale")
+    if I["has_ls"]:
+        Z = Z * col("line_scale")
     midr = A["midr"]
-    press_m, _ = press_of(A["lnmid"])
     ne2m = ne2_of(midr)
-    Tm = press_m * torch.rsqrt(ne2m) * 10.0 ** tratio
+    if vikh_T is not None:
+        Tm = vikh_T(midr)
+    else:
+        Tm = press_m * torch.rsqrt(ne2m) * 10.0 ** col("log(T_X/T_{SZ})")
     tl = torch.log(_nanmax(Tm, 1e-30))
     pos = _nanclip((tl - F["t0g"]) * F["inv_dtg"], 0.0, F["pos_hi"])
     bad = torch.isnan(pos)
@@ -411,9 +532,7 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
     safe = torch.where(pred > 0.0, pred, torch.ones_like(pred))
     cash = (cmf * (ctf * torch.log(safe) - safe)).flatten(1).sum(
         dim=1, keepdim=True)
-    total = total + torch.where(okmin, cash, NEG)
-    total = torch.where(torch.isnan(total), NEG, total)
-    return total[:, 0]
+    return torch.where(okmin, cash, NEG)
 
 
 def _check_theta(theta: torch.Tensor, c: JointConsts):
@@ -450,16 +569,27 @@ joint_ll.launches = 0
 
 
 def joint_ll_flops(c: JointConsts) -> int:
-    """Floating-point operations one walker's evaluation needs (FMA = 2),
-    counted from the shapes: the per-radius profile chain, the two SZ
-    products, the X-ray taps, projection and Cash."""
+    """Floating-point operations one walker's evaluation needs (FMA = 2,
+    a transcendental ~4), counted from the shapes and the family's
+    branches: the per-radius profiles, the mass veto, the two SZ
+    products, the X-ray temperatures, taps, projection and Cash."""
     I = c.ints
     n_p, n_pix, n_d = I["n_press"], I["n_pix"], I["n_data"]
     n_sh, n_ann, n_b = I["n_sh"], I["n_ann"], I["n_band"]
-    per_radius = 40                         # ~10 transcendentals + algebra
+    knots = I["p_fam"] == P_KNOTS
+    press = 6 if knots else 20             # 2 products + exp; gNFW chain
+    dens = 14 + (10 if I["d_fam"] == D_DOUBLE else 0)
+    t_vikh = 22 if I["t_fam"] == T_VIKH else 0
+    per_radius = press + dens + (0 if knots else 6)     # + the mass
+    veto = (I["n_knots"] - 1) * (12 + dens) if knots and I["mass_veto"] \
+        else 0
     sz = 2 * n_p * n_pix + 2 * n_pix * n_d + 12 * n_pix + 4 * n_d
-    xray = n_sh * (per_radius + n_b * 14) + n_b * n_ann * (4 * n_sh + 8)
-    return per_radius * n_p + sz + xray + 6 * I["D"]
+    t_sz = I["sep"] * t_vikh
+    xray = 0
+    if I["has_xray"]:
+        xray = (n_sh * (press + dens + (t_vikh or 6) + n_b * 14)
+                + n_b * n_ann * (4 * n_sh + 8))
+    return per_radius * n_p + veto + sz + t_sz + xray + 6 * I["D"]
 
 
 def joint_ll_bytes(c: JointConsts, B: int) -> int:

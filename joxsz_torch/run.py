@@ -7,7 +7,12 @@ through the CUDA step kernels; a ``--config`` file's own schedule is kept
 as written.  ``--fused`` builds the batched likelihood whose SZ core is
 the fused kernel of ``ops.sz_core``; ``--no-step-kernel`` samples through
 the plain ensemble samplers on the batched likelihood instead of the
-step kernels (with ``--fused``, on the fused one).  ``--mesh N`` shards
+step kernels (with ``--fused``, on the fused one).  The model family
+flags are the JAX CLI's: ``--pressure gnfw|knots``, ``--temperature
+upp|vikhlinin``, ``--density single|double``, ``--line-systematic``
+(thaw the line_scale nuisance; joint fits only), ``--sz-only`` and
+``--integ`` (the integrated-Y prior).  The MLE warm start runs in float64
+on the host CPU.  ``--mesh N`` shards
 the sampling phase over N devices (``parallel``): the cards ``cuda:0 ..
 cuda:N-1``, and it refuses more shards than cards; with ``--cpu``, N
 blocks on the CPU.
@@ -17,6 +22,9 @@ Usage:
     python -m joxsz_torch.run --config my.json --cpu --quick
     python -m joxsz_torch.run --config my.json --fused --no-step-kernel
     python -m joxsz_torch.run --config my.json --mesh 4 --temper 0
+    python -m joxsz_torch.run --config my.json --pressure knots \
+        --temperature vikhlinin
+    python -m joxsz_torch.run --config my.json --sz-only
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ import pathlib
 import time
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description="JoXSZ joint SZ+X-ray fit "
                                  "(PyTorch/CUDA)")
     ap.add_argument("--config", help="JSON config file")
@@ -43,6 +51,10 @@ def main(argv=None):
                     "plain ensemble)")
     ap.add_argument("--quick", action="store_true",
                     help="short chains for smoke testing")
+    ap.add_argument("--auto-extend", type=int, default=None, metavar="K",
+                    help="after the scheduled steps, keep sampling up to "
+                    "K more nsteps-chunks until the chain passes the "
+                    "convergence bar (20x worst tau + split-Rhat <= 1.01)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
                     help="shard the sampling walkers over an N-device mesh")
     ap.add_argument("--fused", action="store_true",
@@ -53,12 +65,56 @@ def main(argv=None):
                     help="keep the schedule but sample through the plain "
                     "ensemble samplers on the batched likelihood instead "
                     "of the step kernels")
-    args = ap.parse_args(argv)
+    ap.add_argument("--sz-only", action="store_true",
+                    help="SZ-only fit (the preprofit capability)")
+    ap.add_argument("--pressure", choices=["gnfw", "knots"], default=None,
+                    help="pressure parametrization (default gnfw; 'knots' "
+                    "= non-parametric log-lerp, config #4)")
+    ap.add_argument("--temperature", choices=["upp", "vikhlinin"],
+                    default=None,
+                    help="temperature model (default upp = T_X derived "
+                    "from P/n_e; 'vikhlinin' = parametric profile "
+                    "decoupled from pressure, config #4)")
+    ap.add_argument("--density", choices=["single", "double"],
+                    default=None,
+                    help="Vikhlinin density mode ('double' adds a second "
+                    "beta-model core component)")
+    ap.add_argument("--line-systematic", action="store_true",
+                    help="thaw the line_scale nuisance (Gaussian N(1, "
+                    "0.25)) scaling the metal-line component of the "
+                    "count-rate table; joint fits only")
+    ap.add_argument("--integ", action="store_true",
+                    help="enable the integrated-Y Gaussian prior")
+    return ap
+
+
+def apply_model_flags(cfg, args):
+    """The model-family flags of ``args`` into ``cfg`` (in place), as
+    ``joxsz_tpu/run.py`` applies them; ``--line-systematic`` needs the
+    X-ray likelihood."""
+    if args.integ:
+        cfg.sz.calc_integ = True
+    if args.line_systematic:
+        if args.sz_only or cfg.xray is None:
+            raise SystemExit("--line-systematic needs the X-ray "
+                             "likelihood (joint fits only)")
+        cfg.xray.line_systematic = True
+    if args.pressure is not None:
+        cfg.pressure_model = args.pressure
+    if args.temperature is not None:
+        cfg.temperature_model = args.temperature
+    if args.density is not None:
+        cfg.density_mode = args.density
+    return cfg
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     t_start = time.time()
 
     import numpy as np
     from .config import JoXSZConfig, resolve_mcmc_schedule
-    from .build import build_session
+    from .build import build_session, family_name
     from .device import resolve_device
     from .sampling.kernel import make_kernel_sampler
     from .sampling.driver import run_fit
@@ -81,6 +137,9 @@ def main(argv=None):
         cfg.mcmc.nwalkers = args.walkers
     if args.temper is not None:
         cfg.mcmc.n_temper_rungs = args.temper
+    if args.auto_extend is not None:
+        cfg.mcmc.auto_extend = args.auto_extend
+    apply_model_flags(cfg, args)
     m = cfg.mcmc
     if args.quick:
         m.nburn, m.nsteps, m.nthin = 200, 400, 5
@@ -95,11 +154,13 @@ def main(argv=None):
     print(f"schedule: {kind} — W={m.nwalkers} x {samp}, {m.nburn} burn + "
           f"{m.nsteps} steps (thin {m.nthin}){ext}")
     print(f"device: {torch_device_name(device)}; likelihood float32 "
-          "kernels, MLE float64")
+          "kernels, MLE float64 on the host CPU")
     t0 = time.time()
-    sess = build_session(cfg, device=device)
+    sess = build_session(cfg, device=device, sz_only=args.sz_only)
+    kind = "SZ-only" if sess.model.xray_data is None else "joint SZ+X"
     print(f"session built in {time.time() - t0:.1f}s (operator "
-          f"{sess.sz_operator.L.shape}, joint SZ+X)")
+          f"{sess.sz_operator.L.shape}, {kind}; {family_name(sess.model)}, "
+          f"D={sess.params.ndim})")
     ll_batch = None
     if args.fused:
         from .io.readers import read_conversion_table, read_xy
@@ -151,8 +212,8 @@ def main(argv=None):
                temper_state=x if x.ndim == 3 else None)
     t = res.timings
     sampling_s = t["prelim_s"] + t["burn_s"] + t["sample_s"]
-    print(f"wall time {time.time() - t_start:.1f} s (MLE {t['mle_s']:.1f} s, "
-          f"sampling {sampling_s:.1f} s)")
+    print(f"wall time {time.time() - t_start:.1f} s (MLE {t['mle_s']:.1f} s "
+          f"on the {t['mle_device']}, sampling {sampling_s:.1f} s)")
     return res
 
 

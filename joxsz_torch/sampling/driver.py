@@ -9,7 +9,8 @@ they run through the plain samplers ``run_ensemble`` /
 ``run_tempered_ensemble`` on ``log_like_batch`` (the model's own, or the
 fused one of ``JointModel.log_like_batch_fused``):
 
-  1. MLE warm start on the plain float64 likelihood (``sampling.mle``);
+  1. MLE warm start on the plain float64 likelihood, on the host CPU as
+     the JAX package runs it (``sampling.mle``);
   2. walker initialisation around the MLE, rejection-redrawn to finite
      log-probabilities (kernel 1);
   3. "preliminary" rounds of ``prelim_iterations`` plain steps repeated
@@ -21,7 +22,9 @@ fused one of ``JointModel.log_like_batch_fused``):
   6. auto-extend: further ``nsteps`` chunks from the final state (the
      full replica ladder) until the cold chain spans >= 20 x the worst
      integrated autocorrelation time and its tau-thinned split-R-hat is
-     <= ``target_rhat``, or ``auto_extend`` chunks are spent.
+     <= ``target_rhat``, or ``auto_extend`` chunks are spent; where the
+     length rule passes and only the trailing half certifies, the head is
+     promoted to burn-in (``timings["extra_burn_steps"]``) instead.
 
 With a ``mesh`` (``parallel.make_mesh``) only the sampling phase is
 sharded: through the step sampler's ``run_sharded`` /
@@ -37,8 +40,8 @@ rounds and burn-in stay on one device.  A result may declare its own frame spaci
 hybrid's frames lie slightly more than ``nthin`` steps apart); every
 saved-frame to raw-step conversion reads it.
 
-Resume, non-stretch moves, head promotion and HDF5 chains are not ported
-yet.  Per-phase wall times land in ``FitResult.timings``.
+Resume, non-stretch moves and HDF5 chains are not ported yet.  Per-phase
+wall times land in ``FitResult.timings``.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ import numpy as np
 import torch
 
 from .kernel import KernelSampler
-from .mle import find_mle
+from .mle import find_mle, mle_device
 from .stretch import EnsembleResult, generate_init_positions, run_ensemble
 from .tempered import default_betas, run_tempered_ensemble
 from ..postproc.summary import integrated_autocorr_time, convergence_rhat
@@ -155,26 +158,28 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             print("note: mesh run — the sampling phase uses per-device "
                   "kernel ensembles; prelim and burn-in stay on one device")
 
-    # 1. MLE on the plain float64 likelihood, on the session's device
+    # 1. MLE on the plain float64 likelihood, on the host CPU
     t0 = time.time()
     if do_mle:
         if verbose:
-            print("MLE warm start...")
-        mle_theta, mle_ll = find_mle(model.log_like, theta0, lo, hi,
-                                     device=dev, verbose=verbose)
+            print(f"MLE warm start (float64 on {mle_device(dev).type})...")
+        mle_theta, mle_ll = find_mle(model, theta0, lo, hi, device=dev,
+                                     verbose=verbose)
     else:
         mle_theta = np.asarray(theta0, dtype=np.float64)
         with torch.no_grad():
             mle_ll = float(model.log_like(torch.as_tensor(
                 mle_theta, dtype=model.sz_data.L.dtype, device=dev)))
     timings["mle_s"] = time.time() - t0
+    timings["mle_device"] = mle_device(dev).type if do_mle else "none"
 
     # 2. walker init
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(rng.integers(0, 2 ** 63 - 1)))
     p0 = generate_init_positions(log_like_batch, mle_theta, nwalkers, gen,
-                                 device=dev, dtype=dtype, spread=initspread)
+                                 device=dev, dtype=dtype, spread=initspread,
+                                 lo=lo, hi=hi)
 
     def plain_run(state, n, thin=1, store_chain=True):
         """``n`` plain (untempered) steps through the configured route."""
@@ -289,8 +294,33 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     tau, rh = convergence(res.chain, spacing(res))
     diag_s += time.time() - td
     chain_steps = res.chain.shape[0] * spacing(res)
+    extra_burn = 0
     while ext < auto_extend and not (chain_steps >= 20 * tau
                                      and rh <= target_rhat):
+        # the warmup-aware fallback of joxsz_tpu/sampling/driver.py:489-
+        # 528: an insufficient burn-in leaves a transient at the head of
+        # the accumulated chain that holds split-R-hat above the bar however
+        # long the run extends; where the length rule passes and the
+        # trailing half certifies on both rules, the head is promoted to
+        # burn-in instead
+        full = np.concatenate(chains)
+        n0 = full.shape[0] // 2
+        if n0 >= 8 and chain_steps >= 20 * tau:
+            td = time.time()
+            tau2, rh2 = convergence(full[n0:], spacing(res))
+            diag_s += time.time() - td
+            if (full.shape[0] - n0) * spacing(res) >= 20 * tau2 \
+                    and rh2 <= target_rhat:
+                extra_burn += int(round(n0 * spacing(res)))
+                chains, lps = [full[n0:]], [np.concatenate(lps)[n0:]]
+                tau, rh = tau2, rh2
+                if verbose:
+                    kept = (full.shape[0] - n0) * spacing(res)
+                    print(f"auto-extend: head transient — promoted the "
+                          f"first {extra_burn} sampled steps to burn-in; "
+                          f"the trailing {kept:.0f} certify (split-Rhat "
+                          f"{rh2:.3f} <= {target_rhat})")
+                break
         if verbose:
             need = (f"steps {chain_steps:.0f} < 20*tau {20 * tau:.0f}"
                     if chain_steps < 20 * tau else f"split-Rhat {rh:.3f} > "
@@ -313,6 +343,7 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     timings["sample_s"] = time.time() - t0
     timings["sample_diag_s"] = diag_s
     timings["auto_extend_rounds"] = ext
+    timings["extra_burn_steps"] = extra_burn
     timings["tau_steps"] = tau
     timings["split_rhat"] = rh
     timings["frame_spacing"] = spacing(res)

@@ -77,31 +77,55 @@ def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
     return x_new, lp_new, accept, margin
 
 
+# times generate_init_positions may shrink its spread by 3x
+INIT_SHRINKS = 3
+
+
 def generate_init_positions(log_prob_batch, theta0: np.ndarray,
                             n_walkers: int, gen: torch.Generator, *,
                             device, dtype=torch.float32, spread: float = 0.1,
-                            max_tries: int = 64) -> torch.Tensor:
+                            max_tries: int = 64, lo=None,
+                            hi=None) -> torch.Tensor:
     """Multiplicative-Gaussian perturbations of a centre point, redrawn
     until every walker has a finite log-probability (reference
     ``_generateInitPars``, joxsz_funcs.py:548-570), with the JAX package's
     additive floor ``spread * max(|theta_i|, 1e-2)`` so a zero coordinate
-    still spreads.  Draws come from ``gen`` (a generator on ``device``)."""
+    still spreads.  Draws come from ``gen`` (a generator on ``device``).
+
+    Where ``max_tries`` draws leave a walker without a finite point (a
+    centre on the edge of a prior box or of the mass veto, as the MLE of
+    the knot-pressure family is: most of a 10% cloud lies outside), the
+    spread shrinks by 3x, up to three times, for the walkers still
+    missing, and from the first shrink on a draw outside the prior box
+    ``[lo, hi]`` is reflected into it (with several parameters on their
+    box edges almost every draw leaves the box, whatever the spread);
+    the JAX package raises there.  Burn-in regrows the cloud."""
     th0 = torch.as_tensor(np.asarray(theta0, dtype=np.float64),
                           device=device)
     D = th0.shape[0]
-    scale = spread * torch.clamp(th0.abs(), min=1e-2)
+    box = None
+    if lo is not None:
+        box = [torch.as_tensor(np.asarray(b, np.float64), device=device)
+               for b in (lo, hi)]
     pos = torch.zeros((n_walkers, D), dtype=dtype, device=device)
     ok = torch.zeros(n_walkers, dtype=torch.bool, device=device)
-    for _ in range(max_tries):
-        noise = torch.randn((n_walkers, D), generator=gen,
-                            dtype=torch.float64, device=device)
-        cand = (th0 + scale * noise).to(dtype)
-        fine = torch.isfinite(log_prob_batch(cand))
-        take = fine & ~ok
-        pos = torch.where(take[:, None], cand, pos)
-        ok = ok | fine
-        if bool(ok.all()):
-            return pos
+    for shrink in range(INIT_SHRINKS + 1):
+        scale = spread / 3.0 ** shrink * torch.clamp(th0.abs(), min=1e-2)
+        for _ in range(max_tries):
+            noise = torch.randn((n_walkers, D), generator=gen,
+                                dtype=torch.float64, device=device)
+            cand = th0 + scale * noise
+            if shrink and box is not None:
+                cand = torch.where(cand < box[0], 2 * box[0] - cand, cand)
+                cand = torch.where(cand > box[1], 2 * box[1] - cand, cand)
+                cand = torch.minimum(torch.maximum(cand, box[0]), box[1])
+            cand = cand.to(dtype)
+            fine = torch.isfinite(log_prob_batch(cand))
+            take = fine & ~ok
+            pos = torch.where(take[:, None], cand, pos)
+            ok = ok | fine
+            if bool(ok.all()):
+                return pos
     raise RuntimeError(f"could not find {n_walkers} finite-likelihood "
                        "walkers; check the starting point / priors")
 

@@ -299,6 +299,23 @@ def _merge_survey_results(results: list[SurveyResult],
         medians=medians, sds=sds, truths=truths, timings=timings)
 
 
+def _flagship(sess):
+    """``sess`` if it is the flagship family (gNFW pressure, UPP
+    temperature, single density, joint SZ + X-ray, line_scale frozen):
+    the survey's kernels take no other yet."""
+    from .build import family, family_name
+
+    m = sess.model
+    if (family(m) != ("gnfw", "upp", "single") or m.xray_data is None
+            or "line_scale" in sess.params.thawed):
+        raise NotImplementedError(
+            f"the survey fits the flagship family only; this cluster is "
+            f"{family_name(m)}{'' if m.xray_data is not None else ', SZ-only'}"
+            ": model families on the cluster grid (kernel 4) and in survey "
+            "--spec are ROADMAP.md Queue A item 7")
+    return sess
+
+
 def _build_spec_survey(spec_path, args, device):
     """--spec: one session per per-cluster config; clusters grouped by
     (thawed vector, stack signature), data stacked per group.  Returns a
@@ -320,12 +337,12 @@ def _build_spec_survey(spec_path, args, device):
             cfgp = pathlib.Path(spec_path).parent / cfgp
         cfg = JoXSZConfig.from_json(cfgp.read_text())
         names.append(e.get("name", cfg.name))
-        sessions.append(build_session(cfg, device=device))
+        sessions.append(_flagship(build_session(cfg, device=device)))
 
     centers = [np.asarray(s.params.thawed_values()) for s in sessions]
     if getattr(args, "mle", False):
         for c, s in enumerate(sessions):
-            theta, ll = find_mle(s.model.log_like, centers[c], s.params.lo,
+            theta, ll = find_mle(s.model, centers[c], s.params.lo,
                                  s.params.hi, device=s.device)
             print(f"  {names[c]}: MLE log-like {ll:.2f}")
             centers[c] = np.asarray(theta)
@@ -360,7 +377,7 @@ def _build_mock_survey(C, args, device):
     else:
         raise SystemExit("--mock needs a base configuration: pass --config "
                          "(or --data-dir with the CL J1226 data files)")
-    sess = build_session(cfg, device=device)
+    sess = _flagship(build_session(cfg, device=device))
     theta0 = np.asarray(sess.params.thawed_values())
     names = list(sess.params.thawed)
     rng = np.random.default_rng(args.seed)

@@ -45,6 +45,52 @@ TRUTH = {
 }
 
 
+def truth_theta(sess) -> np.ndarray:
+    """``TRUTH`` on the thawed layout of ``sess``'s model family: the
+    flagship's values where a name is one of them; for knot pressure, the
+    gNFW pressure at ``TRUTH`` at the knots; for the Vikhlinin
+    temperature, the six values whose profile fits T_X at ``TRUTH`` best
+    in log over the pressure grid; a negligible second density component
+    (log(n_02) = -5); line_scale 1."""
+    from scipy.optimize import least_squares
+
+    from .models import GNFWPressure, UPPTemperature, VikhlininDensity
+
+    p, m = sess.params, sess.model
+    flag = GNFWPressure("p")
+    dens = VikhlininDensity("ne")
+    pars = {k: torch.tensor([[v]], dtype=torch.float64)
+            for k, v in TRUTH.items()}
+    pars.update(c=0.014, **{r"\alpha": 0.0, r"\gamma": 3.0})
+    out = dict(TRUTH)
+    out.update({"log(n_{02})": -5.0, r"\beta_2": 0.5, "log(r_{c2})": 1.7,
+                "line_scale": 1.0})
+    knots = getattr(m.pressure, "knots_logr", None)
+    if knots is not None:
+        pk = flag(pars, torch.tensor(10.0 ** knots))[0].numpy()
+        out.update({f"logP_{i}": float(v)
+                    for i, v in enumerate(np.log10(pk))})
+    if "T_0" in p.thawed:
+        r = m.sz_data.r_press_kpc.detach().cpu().double()
+        t_x = UPPTemperature(flag, dens).t_x(pars, r)[0].numpy()
+        names = ("T_0", "T_{min}/T_0", "r_{cool}", "a_{cool}", "r_t", "c_t")
+        lo = np.array([p[n].minval for n in names])
+        hi = np.array([p[n].maxval for n in names])
+        x0 = np.clip([float(t_x.max()), 0.5, 100.0, 2.0, 1000.0, 1.0],
+                     lo + 1e-6, hi - 1e-6)
+        rn = r.numpy()
+
+        def resid(v):
+            x = (rn / v[2]) ** v[3]
+            t = v[0] * (x + v[1]) / (x + 1.0) * (1.0 + (rn / v[4]) ** 2) \
+                ** (-v[5] / 2.0)
+            return np.log(t) - np.log(t_x)
+
+        fit = least_squares(resid, x0, bounds=(lo, hi))
+        out.update(dict(zip(names, fit.x)))
+    return np.array([out[n] for n in p.thawed], dtype=np.float64)
+
+
 def _write_files(root: pathlib.Path, n_annuli: int, n_sz: int,
                  max_radius_arcsec: float, bands, counts=None, flux=None):
     (root / "SZ").mkdir(parents=True, exist_ok=True)
