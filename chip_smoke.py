@@ -34,7 +34,21 @@ the others) — and checks their output.  Phases:
      fresh kernel-1 evaluation;
   5. the main path, with every launch counter set to 0 just before it:
      acceptance in (0.1, 0.6), finite positive swap rates, exactly one
-     step-kernel launch per chunk of steps;
+     step-kernel launch per chunk of steps; the fit's outputs written
+     (the chain — HDF5, or its .npz twin without h5py — fit.dat, the
+     summary, the state, the figures where matplotlib exists, else
+     ``--no-plots`` with a printed line) and the MLE cache entry;
+ 16. (run after phase 5, on its output directory) the same command
+     again: the MLE cache hits, theta bit for bit phase 5's, ``mle_s``
+     and the wall time cold and warm; ``--resume`` of phase 5's state
+     with ``--auto-extend 0``: the K-rung ladder restored, no burn-in in
+     the evaluations, nsteps // nthin frames, a first Philox seed none of
+     phase 5's; ``--postprocess`` of phase 5's chain with ``--ppc``: the
+     summary JSON equal to phase 5's, both p-values in [0, 1], and the
+     profile, mass and predictive bands of 4096 draws on the card equal
+     to the same draws' on the CPU (both float64) within 1e-6 relative,
+     the post-processing seconds; ``--move de`` and ``--move snooker``
+     at --quick on the plain sampler: acceptance and evals/s;
   6. the step kernel's times: per step by CUDA events and torch.profiler
      over launches of 100 steps at K=1 (W=1024 and W=32), K=4 and on the
      cluster grid of 4 copies of one cluster's constants (the K=4 step
@@ -116,7 +130,8 @@ Prints the kernel JSON line (the six kernels on the flagship's paths,
 then each kernel for each family, "name[family]"), the card line, and as
 the last line
 ``{"ok": true, "device": {...}}``; exits non-zero, with no result line,
-when a phase fails or no GPU is visible.
+when a phase fails or no GPU is visible.  The MLE cache entries the run
+writes (``data/cache/mle_torch_*.json``) are removed at its end.
 
     python3 chip_smoke.py [--seed N]
 """
@@ -126,6 +141,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -182,6 +198,11 @@ STEPS_CMP_FAM = 5               # phase 14: steps held against the plain
 TIME_STEPS_FAM = 20             # phase 14: steps per timed launch
 TIGHT_BELOW = 1e5               # phase 14: |ll| under which TIGHT_ATOL holds
 FAMILY_FIT_TIMEOUT = 600        # phase 15: seconds a family fit may take
+# phase 16: rows of the phase-5 chain whose profile bands are computed on
+# the card and on the CPU, both float64 sessions; their relative gap is
+# the two devices' last-bit rounding, far below PROFILE_RTOL
+PROFILE_ROWS, PROFILE_RTOL = 4096, 1e-6
+OUTPUTS = ("chain", "fit.dat", "summary", "state")     # phase 5's files
 
 
 def card_line() -> str:
@@ -1443,7 +1464,8 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
     # the entry points on the degenerate mesh (one real card)
     t0 = time.time()
     r1 = run.main(["--config", path, "--quick", "--walkers", str(W_MESH),
-                   "--temper", "0", "--mesh", "1", "--seed", str(seed)])
+                   "--temper", "0", "--mesh", "1", "--seed", str(seed)]
+                  + plot_flags())
     check(r1.chain.shape[1:] == (W_MESH, 13) and r1.chain.shape[0] % 80 == 0
           and np.all(np.isfinite(r1.log_prob)),
           f"run --mesh 1 chain {r1.chain.shape}")
@@ -1690,11 +1712,11 @@ def family_fit(tag: str, seed: int, base: str):
         argv += ["--mesh", "1", "--walkers", str(FAMILY_MESH_W), "--temper",
                  "0"]
     cfg.mcmc.seed = seed
-    cfg.save_dir = f"{base}.{tag}"
+    cfg.save_dir = cfg.plot_dir = f"{base}.{tag}"
     path = config_json(cfg, f"{base}.{tag}.json")
     zero_launches()
     t0 = time.time()
-    res = run.main(["--config", path] + argv)
+    res = run.main(["--config", path] + argv + plot_flags())
     wall = time.time() - t0
     launches = read_launches()
     t = res.timings
@@ -1865,7 +1887,7 @@ def phase_fused_path(cfg, tmp: str, seed: int) -> dict:
     from joxsz_torch.synth import config_json
 
     cfg.mcmc = MCMCConfig(nwalkers=W_SMOKE, seed=seed)
-    cfg.save_dir = tmp
+    cfg.save_dir = cfg.plot_dir = tmp
     path = config_json(cfg, f"{tmp}/fused.json")
     print(f"[10] fused-likelihood path, full width, depth cut (host-bound "
           f"plain sampler loop): W={W_SMOKE}, K=1, prelim 100 x <= 2, burn "
@@ -1873,7 +1895,7 @@ def phase_fused_path(cfg, tmp: str, seed: int) -> dict:
     zero_launches()
     t0 = time.time()
     res = run.main(["--config", path, "--quick", "--fused",
-                    "--no-step-kernel"])
+                    "--no-step-kernel"] + plot_flags())
     wall = time.time() - t0
     launches = read_launches()
     acc = float(np.mean(res.acceptance_fraction))
@@ -1893,6 +1915,48 @@ def phase_fused_path(cfg, tmp: str, seed: int) -> dict:
     return launches
 
 
+def plot_flags() -> list:
+    """``run`` draws its figures where matplotlib is installed; elsewhere
+    it must be told ``--no-plots`` (it refuses to sample otherwise)."""
+    import importlib.util
+
+    return ([] if importlib.util.find_spec("matplotlib") is not None
+            else ["--no-plots"])
+
+
+def output_files(save: str, name: str = "joxsz") -> dict:
+    """The files a fit writes into ``save``: the chain (HDF5 where h5py is
+    installed, else its .npz twin), fit.dat, the summary and the state."""
+    import glob
+
+    chain = glob.glob(f"{save}/{name}_chain.*")
+    return {"chain": chain[0] if len(chain) == 1 else None,
+            "fit.dat": f"{save}/fit.dat",
+            "summary": f"{save}/{name}_summary.json",
+            "state": f"{save}/{name}_state.npz"}
+
+
+class SeedLog:
+    """Every Philox chunk seed the kernel sampler draws while active."""
+
+    def __init__(self):
+        from joxsz_torch.sampling import kernel
+
+        self.kernel, self.real, self.seeds = kernel, kernel._seeds, []
+
+    def __enter__(self):
+        def spy(rng, n):
+            out = self.real(rng, n)
+            self.seeds.extend(out)
+            return out
+
+        self.kernel._seeds = spy
+        return self.seeds
+
+    def __exit__(self, *exc):
+        self.kernel._seeds = self.real
+
+
 def phase_main_path(cfg, tmp: str, seed: int) -> dict:
     import numpy as np
     from joxsz_torch import run
@@ -1905,16 +1969,21 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
     # extensions): it fits the time limit, so no count is cut
     cfg.mcmc = MCMCConfig.converged_gpu()
     cfg.mcmc.seed = seed
-    cfg.save_dir = tmp
+    cfg.save_dir = cfg.plot_dir = tmp
     m = cfg.mcmc
     print(f"[5] main path, production schedule, no count cut: W="
           f"{m.nwalkers} x K={m.n_temper_rungs}, prelim "
           f"{m.prelim_iterations}, burn {m.nburn}, steps {m.nsteps}, "
           f"auto-extend {m.auto_extend}")
+    if plot_flags():
+        print("[5] matplotlib is not installed here: the fit runs with "
+              "--no-plots (no figures)")
     path = config_json(cfg, f"{tmp}/smoke.json")
+    argv = ["--config", path] + plot_flags()
     zero_launches()
     t0 = time.time()
-    res = run.main(["--config", path])
+    with SeedLog() as seeds:
+        res = run.main(argv)
     wall = time.time() - t0
     launches = read_launches()
     acc = float(np.mean(res.acceptance_fraction))
@@ -1939,7 +2008,147 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
     check(np.all(np.isfinite(res.chain)) and res.chain.shape[1:] == (
         W_SMOKE, 13), f"chain shape {res.chain.shape} or non-finite values")
     check(np.all(np.isfinite(res.log_prob)), "non-finite chain log-probs")
-    return launches, path, res.mle_theta
+    # every output, kept aside for phase 16 (later phases reuse tmp)
+    files = output_files(tmp)
+    check(all(f and os.path.isfile(f) for f in files.values()),
+          f"phase 5 outputs missing: {files}")
+    cache = run.mle_cache_path(cfg, sess_params(path))
+    check(cache.is_file(), f"no MLE cache entry {cache}")
+    keep = f"{tmp}/phase5"
+    os.makedirs(keep)
+    kept = {k: shutil.copy(f, keep) for k, f in files.items()}
+    figures = sorted(f for f in os.listdir(tmp) if f.endswith(".pdf"))
+    names = ", ".join(os.path.basename(f) for f in files.values())
+    print(f"[5] outputs: {names}, MLE cache {cache.name}; figures "
+          f"{figures or 'none'}")
+    return launches, path, res, wall, list(seeds), kept, argv
+
+
+def sess_params(path: str):
+    """The thawed parameters of the session ``run`` builds from ``path``
+    (the MLE cache key reads their names)."""
+    from joxsz_torch.build import build_session
+    from joxsz_torch.config import JoXSZConfig
+
+    cfg = JoXSZConfig.from_json(open(path).read())
+    return build_session(cfg, device="cpu").params
+
+
+def phase_outputs(cfg, tmp: str, main_path):
+    """Phase 16, on phase 5's output directory: (1) the same command
+    again: the MLE cache hits with phase 5's theta bit for bit; (2)
+    ``--resume`` of phase 5's state with ``--auto-extend 0``: the K-rung
+    ladder restored, no burn-in counted, nsteps // nthin frames, a first
+    Philox seed that is none of phase 5's; (3) ``--postprocess`` of phase
+    5's chain with ``--ppc``: its summary JSON equal to phase 5's, both
+    p-values finite in [0, 1], and the profile, mass and predictive bands
+    of PROFILE_ROWS draws on the card equal to the same draws' on the CPU
+    (both float64) within PROFILE_RTOL; (4) ``--move de`` and ``--move
+    snooker`` at --quick on the plain sampler."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from joxsz_torch import run
+    from joxsz_torch.build import build_session
+    from joxsz_torch.postproc import profiles
+
+    _, res5, wall5, seeds5, kept, argv = main_path
+    m = cfg.mcmc
+
+    # (1) the same command: a cache hit
+    t0 = time.time()
+    res = run.main(argv)
+    wall = time.time() - t0
+    check(res.timings.get("mle_cached") is True, "the MLE cache missed")
+    check(np.array_equal(res.mle_theta, res5.mle_theta),
+          "cached theta differs from phase 5's")
+    print(f"[16] same command again: MLE cache hit, theta bit for bit "
+          f"phase 5's; mle_s {res5.timings['mle_s']:.2f} s cold -> "
+          f"{res.timings['mle_s']:.3f} s warm, wall {wall5:.1f} s -> "
+          f"{wall:.1f} s")
+
+    # (2) resume phase 5's state
+    buf = io.StringIO()
+    t0 = time.time()
+    with SeedLog() as seeds, contextlib.redirect_stdout(buf):
+        res = run.main(argv + ["--resume", kept["state"],
+                               "--auto-extend", "0"])
+    wall = time.time() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        if line.startswith(("resuming", "note:", "wall time")):
+            print(f"[16]   {line}")
+    t = res.timings
+    K, W = m.n_temper_rungs, m.nwalkers
+    check(f"resuming the full {K}-rung replica ladder" in text,
+          "the resumed run did not restore the ladder")
+    check(t["prelim_rounds"] == 0 and t["likelihood_evals"] == m.nsteps
+          * K * W, f"resumed evals {t['likelihood_evals']} != "
+          f"{m.nsteps} x {K} x {W} (burn-in counted?)")
+    check(res.chain.shape[0] == m.nsteps // m.nthin,
+          f"resumed chain {res.chain.shape}")
+    check(seeds[0] not in seeds5, "the resumed run replayed phase 5's "
+          "Philox seeds")
+    print(f"[16] --resume --auto-extend 0 in {wall:.1f} s: {K}-rung ladder "
+          f"restored, {res.chain.shape[0]} frames, evals "
+          f"{t['likelihood_evals']} (no burn-in), {t['evals_per_s']:.0f} "
+          f"evals/s, split-R-hat {t['split_rhat']:.4f}, first seed "
+          f"{seeds[0]} not among phase 5's {len(seeds5)}")
+
+    # (3) post-process phase 5's chain
+    summary5 = json.loads(open(kept["summary"]).read())
+    t0 = time.time()
+    res = run.main(argv + ["--postprocess", kept["chain"], "--ppc"])
+    wall = time.time() - t0
+    summary = json.loads(open(f"{tmp}/joxsz_summary.json").read())
+    check(summary == summary5, "--postprocess summary != phase 5's")
+    ppc = json.loads(open(f"{tmp}/joxsz_ppc.json").read())
+    pv = (ppc["p_sz"], ppc["p_xray"])
+    check(all(v is not None and 0.0 <= v <= 1.0 for v in pv),
+          f"p-values {pv}")
+    print(f"[16] --postprocess --ppc in {wall:.1f} s (summary "
+          f"{res.timings['postprocess_s']:.2f} s): summary == phase 5's, "
+          f"p_sz {pv[0]:.3f}, p_xray {pv[1]:.3f}")
+    flat = res.flat_chain
+    rows = flat[:: max(1, len(flat) // PROFILE_ROWS)][:PROFILE_ROWS]
+    bands = {}
+    for dev in ("cuda", "cpu"):
+        sess = build_session(cfg, device=dev)
+        r = sess.geometry.r_press_kpc
+        t0 = time.time()
+        ps = profiles.compute_profiles(sess.model, sess.cosmology, r, rows)
+        mass = profiles.compute_mass_profiles(sess.model, sess.cosmology, r,
+                                              rows)
+        pred = profiles.posterior_predictive(sess.model, rows)
+        secs = time.time() - t0
+        bands[dev] = ([getattr(ps, f) for f in (
+            "density", "temp_sz", "temp_x", "pressure", "entropy",
+            "cooling_time", "gas_mass", "gas_fraction")] + list(mass)
+            + list(pred), secs)
+    worst = 0.0
+    for a, b in zip(bands["cuda"][0], bands["cpu"][0]):
+        check(a.shape == b.shape and np.all(np.isfinite(a)),
+              "non-finite profile bands on the card")
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+        worst = max(worst, float(rel.max()))
+    check(worst <= PROFILE_RTOL, f"profile bands on the card vs the CPU: "
+          f"max relative difference {worst:.3g} > {PROFILE_RTOL}")
+    print(f"[16] profile, mass and predictive bands of {len(rows)} draws: "
+          f"card {bands['cuda'][1]:.2f} s, CPU {bands['cpu'][1]:.2f} s, "
+          f"max relative difference {worst:.3g} (<= {PROFILE_RTOL})")
+
+    # (4) the DE moves on the plain sampler
+    for move in ("de", "snooker"):
+        t0 = time.time()
+        res = run.main(argv + ["--quick", "--temper", "1", "--move", move])
+        wall = time.time() - t0
+        acc = float(np.mean(res.acceptance_fraction))
+        check(np.all(np.isfinite(res.log_prob)) and 0.0 < acc < 0.9,
+              f"--move {move}: acceptance {acc} or non-finite lp")
+        print(f"[16] --move {move} --quick (W={m.nwalkers}, plain sampler) "
+              f"in {wall:.1f} s: acceptance {acc:.3f}, "
+              f"{res.timings['evals_per_s']:.0f} evals/s")
 
 
 def main() -> int:
@@ -1961,7 +2170,12 @@ def main() -> int:
     if args.family_fit:
         family_fit(args.family_fit, args.seed, args.base)
         return 0
+    from joxsz_torch.run import MLE_CACHE_DIR
+
     tmp = tempfile.mkdtemp(prefix="joxsz_smoke_")
+    # the MLE cache keys hash the dataset's tmp paths: every run of this
+    # script starts cold, and it removes the entries it wrote
+    cached = set(MLE_CACHE_DIR.glob("mle_torch_*.json"))
     try:
         card = card_line()
         print(f"[1] card: {card}")
@@ -1976,13 +2190,15 @@ def main() -> int:
         del sess, c
         phase_large_shapes(args.seed)
         kf = phase_families(cfg, args.seed)
-        launches, path, mle_theta = phase_main_path(cfg, tmp, args.seed)
+        main_path = phase_main_path(cfg, tmp, args.seed)
+        launches, path, res5 = main_path[:3]
         for k in (k1, k2, k3):
             k["launches"] = launches[k["name"]]
+        phase_outputs(cfg, tmp, main_path[1:])
         k4["launches"] = phase_survey_path(tmp, path, args.seed)[k4["name"]]
         k5["launches"] = phase_fused_path(cfg, tmp, args.seed)[k5["name"]]
         k6["launches"] = phase_mesh_path(cfg, tmp, path, args.seed,
-                                         mle_theta)[k6["name"]]
+                                         res5.mle_theta)[k6["name"]]
         fits = phase_family_fits(cfg, tmp, args.seed)
         for k in kf:
             kernel, tag = k["name"][:-1].split("[")
@@ -2004,6 +2220,8 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+        for f in set(MLE_CACHE_DIR.glob("mle_torch_*.json")) - cached:
+            f.unlink()
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

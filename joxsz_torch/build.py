@@ -49,6 +49,7 @@ class FitSession:
     cosmology: Cosmology | None = None
     geometry: MapGeometry | None = None
     annuli: Annuli | None = None
+    bands: list | None = None      # the X-ray bands' BandData (figures)
 
     @property
     def params(self) -> ParamSet:
@@ -103,7 +104,7 @@ def build_session(cfg: JoXSZConfig, device=None, dtype=torch.float64,
     density = VikhlininDensity("ne", mode=cfg.density_mode)
     temperature = _temperature(cfg.temperature_model, pressure, density)
 
-    annuli = xray_data = edges_logkpc = None
+    annuli = xray_data = edges_logkpc = bands = None
     if cfg.xray is not None and not sz_only:
         bands = [load_band(cfg.xray.fg_template, cfg.xray.bg_template, b)
                  for b in cfg.xray.bands_eV]
@@ -132,7 +133,8 @@ def build_session(cfg: JoXSZConfig, device=None, dtype=torch.float64,
                        sz_data=sz_data, xray_data=xray_data,
                        exclude_unphysical_mass=cfg.exclude_unphysical_mass)
     return FitSession(model=model, sz_operator=op, device=dev, config=cfg,
-                      cosmology=cosmo, geometry=geom, annuli=annuli)
+                      cosmology=cosmo, geometry=geom, annuli=annuli,
+                      bands=bands)
 
 
 def _temperature(name: str, pressure, density):
@@ -262,6 +264,9 @@ def session_arrays(sess: FitSession) -> dict:
             "table.Tlog": n(xr.table.Tlog),
             "table.lograte_Z0": n(xr.table.lograte_Z0),
             "table.lograte_Z1": n(xr.table.lograte_Z1)})
+        if xr.table.logflux_Z0 is not None:
+            out.update({"table.logflux_Z0": n(xr.table.logflux_Z0),
+                        "table.logflux_Z1": n(xr.table.logflux_Z1)})
     return out
 
 
@@ -274,8 +279,9 @@ def session_from_arrays(arrays: dict, device=None,
     conv_T, conv_val, calc_integ, integ_mu, integ_sig}``,
     ``xray.{counts (NaN = masked), exposures, areascales, areas,
     backrates, vols_norm, midpt_kpc, norm_per_cm3}``, ``table.{Tlog,
-    lograte_Z0, lograte_Z1}`` (the ``xray`` and ``table`` keys absent or
-    None for an SZ-only session), ``params.{names, values, frozen}`` over
+    lograte_Z0, lograte_Z1}`` and optionally ``table.{logflux_Z0,
+    logflux_Z1}`` (the cooling time's; the ``xray`` and ``table`` keys
+    absent or None for an SZ-only session), ``params.{names, values, frozen}`` over
     every parameter and ``params.{lo, hi, is_gauss, mu, sigma}`` over the
     thawed ones, ``exclude_unphysical_mass``, and the model family
     ``model.{pressure ("gnfw" | "knots"), knots_logr (knots: the knots'
@@ -300,7 +306,8 @@ def session_from_arrays(arrays: dict, device=None,
     if a.get("xray.counts") is not None:
         table = CountRateTable.from_arrays(
             a["table.Tlog"], a["table.lograte_Z0"], a["table.lograte_Z1"],
-            dtype=dtype, device=dev)
+            dtype=dtype, device=dev, logflux_Z0=a.get("table.logflux_Z0"),
+            logflux_Z1=a.get("table.logflux_Z1"))
         xray_data = XrayData.from_arrays(
             counts=a["xray.counts"], exposures=a["xray.exposures"],
             areascales=a["xray.areascales"], areas=a["xray.areas"],

@@ -84,6 +84,7 @@ class MCMCConfig:
 
 
 def resolve_mcmc_schedule(mcmc: MCMCConfig, *, device: str,
+                          reference_schedule: bool = False,
                           quick: bool = False,
                           from_config: bool = False) -> tuple[MCMCConfig,
                                                               bool]:
@@ -95,13 +96,15 @@ def resolve_mcmc_schedule(mcmc: MCMCConfig, *, device: str,
 
     The production recipe is NOT applied when: the device is the CPU (a
     W=1024 x K=4 run is hours there; the CPU is the parity/test path),
-    ``quick`` smoke runs, or an explicit user JSON config
-    (``from_config``) — user schedules are never stomped.  Non-schedule
+    ``quick`` smoke runs, an explicit user JSON config (``from_config``)
+    — user schedules are never stomped — or ``reference_schedule`` (the
+    reference's 30-walker plain-GW schedule, kept for parity studies,
+    ``joxsz_tpu/config.py::resolve_mcmc_schedule``).  Non-schedule
     fields (seed, initspread, prelim_iterations) always carry over from
     the incoming config.
 
     Returns ``(schedule, production_applied)``."""
-    if device != "cuda" or quick or from_config:
+    if device != "cuda" or reference_schedule or quick or from_config:
         return mcmc, False
     out = MCMCConfig.converged_gpu()
     out.seed = mcmc.seed

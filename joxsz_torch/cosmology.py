@@ -85,3 +85,8 @@ class Cosmology:
         cf. reference joxsz_plots.py:390-392)."""
         H0_s = self.H0 / K.Mpc_km
         return H0_s * np.sqrt(self.WM * (1.0 + self.z) ** 3 + self.WV)
+
+    def critical_density_cgs(self) -> float:
+        """Critical density at z (g/cm^3)."""
+        hz = self.H_z_per_s
+        return 3.0 * hz * hz / (8.0 * np.pi * K.G_cgs)

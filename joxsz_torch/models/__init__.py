@@ -2,7 +2,7 @@ from .params import Param, ParamSet, gaussian_param
 from .pressure import GNFWPressure, KnotPressure
 from .density import VikhlininDensity
 from .temperature import UPPTemperature, VikhlininTemperature
-from .mass import HSEMass
+from .mass import HSEMass, mass_overdensity
 from .sz import SZData, sz_log_like, sz_brightness
 from .xray import (XrayData, CountRateTable, predicted_counts, cash_log_like,
                    xray_log_like)
@@ -11,6 +11,7 @@ from .joint import JointModel, build_reference_params
 __all__ = [
     "Param", "ParamSet", "gaussian_param", "GNFWPressure", "KnotPressure",
     "VikhlininDensity", "UPPTemperature", "VikhlininTemperature", "HSEMass",
+    "mass_overdensity",
     "SZData", "sz_log_like", "sz_brightness", "XrayData", "CountRateTable",
     "predicted_counts", "cash_log_like", "xray_log_like", "JointModel",
     "build_reference_params",

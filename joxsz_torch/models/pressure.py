@@ -107,11 +107,20 @@ class KnotPressure:
     def _values(self, pars: dict) -> torch.Tensor:
         return torch.cat([pars[n] for n in self.param_names()], dim=-1)
 
+    @staticmethod
+    def _at(fp: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+        """Knot values ``fp`` (B, n_knots) at segment indices ``i``: (n_r,)
+        shared by every row, or (B, n_r) per row (per-draw radii)."""
+        if i.dim() == 1:
+            return fp[:, i]
+        return torch.gather(fp, 1, i.expand(fp.shape[0], -1))
+
     def _log_press(self, pars: dict, logr: torch.Tensor) -> torch.Tensor:
-        """(B, n_r) clamped lerp of the knot values at ``logr`` (n_r,)."""
+        """(B, n_r) clamped lerp of the knot values at ``logr``: (n_r,), or
+        (B, n_r) radii of their own per row."""
         fp = self._values(pars)                          # (B, n_knots)
         xp, i, below, above = self._segments(logr)
-        f0, f1 = fp[:, i - 1], fp[:, i]
+        f0, f1 = self._at(fp, i - 1), self._at(fp, i)
         f = f0 + ((logr - xp[i - 1]) / (xp[i] - xp[i - 1])) * (f1 - f0)
         f = torch.where(below, fp[:, :1], f)
         return torch.where(above, fp[:, -1:], f)
@@ -126,7 +135,7 @@ class KnotPressure:
         logr = torch.log10(r_kpc)
         fp = self._values(pars)
         xp, i, below, above = self._segments(logr)
-        slope = (fp[:, i] - fp[:, i - 1]) / (xp[i] - xp[i - 1])
+        slope = (self._at(fp, i) - self._at(fp, i - 1)) / (xp[i] - xp[i - 1])
         slope = torch.where(below | above, torch.zeros_like(slope), slope)
         ln10 = float(np.log(10.0))
         return self(pars, r_kpc) * ln10 * slope / (r_kpc * ln10)

@@ -55,6 +55,10 @@ class CountRateTable:
     Tlog: torch.Tensor          # (nT,)
     lograte_Z0: torch.Tensor    # (n_band, nT)
     lograte_Z1: torch.Tensor    # (n_band, nT)
+    # bolometric log-flux per unit norm (nT,), which only the cooling
+    # time of ``postproc.profiles`` reads; None where a table lacks it
+    logflux_Z0: torch.Tensor | None = None
+    logflux_Z1: torch.Tensor | None = None
 
     def rates(self, T_keV, Z_solar):
         """(..., n_shell) temperatures -> (..., n_band, n_shell) rates."""
@@ -109,17 +113,23 @@ class CountRateTable:
             raise ValueError(
                 f"count-rate table {path} has a NON-UNIFORM Tlog grid; "
                 "the runtime interpolation assumes uniform log-T spacing")
+        flux = {k: d[k] for k in ("logflux_Z0", "logflux_Z1")
+                if k in d.files}
         return cls.from_arrays(d["Tlog"], d["lograte_Z0"], d["lograte_Z1"],
-                               dtype=dtype, device=device)
+                               dtype=dtype, device=device, **flux)
 
     @classmethod
-    def from_arrays(cls, Tlog, lograte_Z0, lograte_Z1, *, dtype, device):
+    def from_arrays(cls, Tlog, lograte_Z0, lograte_Z1, *, dtype, device,
+                    logflux_Z0=None, logflux_Z1=None):
         def asx(a):
+            if a is None:
+                return None
             return torch.as_tensor(np.array(a, dtype=np.float64),
                                    dtype=dtype, device=device)
 
         return cls(Tlog=asx(Tlog), lograte_Z0=asx(lograte_Z0),
-                   lograte_Z1=asx(lograte_Z1))
+                   lograte_Z1=asx(lograte_Z1), logflux_Z0=asx(logflux_Z0),
+                   logflux_Z1=asx(logflux_Z1))
 
 
 @dataclasses.dataclass(frozen=True)

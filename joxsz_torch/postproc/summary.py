@@ -1,13 +1,34 @@
-"""Convergence diagnostics: integrated autocorrelation time and split-R-hat.
+"""Posterior summaries: tables, equal-tailed intervals, autocorrelation,
+split-R-hat.
 
-Copies of ``joxsz_tpu/postproc/summary.py``'s ``integrated_autocorr_time``,
-``split_rhat`` and ``convergence_rhat`` (numpy/scipy only), which the fit
-driver's auto-extend stopping rule reads.
+Counterpart of ``joxsz_tpu/postproc/summary.py`` (numpy/scipy): the
+reference's posterior table (joxsz_main.py:217-223) as a JSON summary,
+the windowed integrated autocorrelation time (the reference's
+commented-out ``mcmc.acor``, joxsz_main.py:212) and the split-R-hat the
+fit driver's auto-extend stopping rule reads.
 """
 
 from __future__ import annotations
 
+import json
+import pathlib
+
 import numpy as np
+
+from .profiles import equal_tailed
+
+
+def autocorr_function(x: np.ndarray) -> np.ndarray:
+    """Normalised autocorrelation of a 1-D series via FFT."""
+    x = np.asarray(x, dtype=float)
+    n = x.size
+    x = x - x.mean()
+    m = 1 << (2 * n - 1).bit_length()
+    f = np.fft.rfft(x, m)
+    acf = np.fft.irfft(f * np.conjugate(f), m)[:n]
+    if acf[0] == 0:
+        return np.zeros(n)
+    return acf / acf[0]
 
 
 def integrated_autocorr_time(chain: np.ndarray, c: float = 5.0) -> np.ndarray:
@@ -67,6 +88,70 @@ def integrated_autocorr_time(chain: np.ndarray, c: float = 5.0) -> np.ndarray:
             mi = int(np.argmin(window))
         taus[d] = tau_run[max(mi, 1)]
     return taus
+
+
+def effective_samples(chain: np.ndarray) -> np.ndarray:
+    """N_eff per parameter = total samples / tau."""
+    n_steps, n_walkers, _ = chain.shape
+    tau = integrated_autocorr_time(chain)
+    return n_steps * n_walkers / np.maximum(tau, 1.0)
+
+
+def chain_tau_steps(sub: np.ndarray, thin: float) -> np.ndarray:
+    """Per-parameter integrated autocorrelation in RAW sampler steps from
+    a thinned chain slice.
+
+    ``thin`` is the frame spacing in raw steps and may be fractional: the
+    hybrid coupled sampler saves frames thin*sync_every/(sync_every-1)
+    steps apart (the chain file's ``frame_spacing`` attr /
+    ``EnsembleResult.frame_spacing``) — pass that spacing, not the
+    nominal thin.  The window must be long (chain length >> 5*tau_saved,
+    the caller's responsibility); tau_saved is clamped >= 1 (a noisy ACF
+    can return a negative tau for an uncorrelated parameter); reduce
+    with tau.max(), never (n/tau).min()."""
+    tau_saved = np.maximum(
+        np.asarray(integrated_autocorr_time(sub)), 1.0)
+    return tau_saved * thin
+
+
+def collect_kernel_subchain(run_chunk, n_chunks: int, *, n_sub: int = 64,
+                            ndim: int | None = None) -> np.ndarray:
+    """Chunked thinned-chain collection for tau measurements.
+
+    ``run_chunk(i)`` advances the caller's sampler state by one call and
+    returns that chunk's thinned chain block as a tensor ``(n_keep,
+    n_walkers, >= ndim)``; chunks must be continuous (each from the
+    previous chunk's final state).  Only a ``(:, :n_sub, :ndim)`` slice
+    is fetched to the host — tau is a property of the move, not of which
+    walkers are watched — and the fetches start after every chunk is
+    dispatched.  Returns the concatenated numpy subchain ``(n_saved,
+    n_sub, ndim)`` for ``chain_tau_steps``."""
+    subs = [run_chunk(i)[:, :n_sub, :ndim] for i in range(n_chunks)]
+    return np.concatenate([s.detach().cpu().numpy() if hasattr(s, "detach")
+                           else np.asarray(s) for s in subs])
+
+
+def chain_diagnostics_from_file(path: str) -> dict:
+    """Convergence diagnostics straight from a saved chain file (HDF5 or
+    its ``.npz`` twin, ``io.checkpoint.load_chain``), reading its
+    ``frame_spacing`` attr — the self-correcting way to get raw-step
+    tau/length numbers whichever sampler produced the chain.
+
+    Returns ``{"tau_steps": (ndim,) raw-step tau, "rhat": max split-R-hat,
+    "chain_steps": raw steps spanned, "frame_spacing": spacing,
+    "param_names": names}``."""
+    from ..io.checkpoint import load_chain
+
+    d = load_chain(path)
+    spacing = d["frame_spacing"]
+    chain = d["chain"]
+    return {
+        "tau_steps": chain_tau_steps(chain, spacing),
+        "rhat": convergence_rhat(chain),
+        "chain_steps": chain.shape[0] * spacing,
+        "frame_spacing": spacing,
+        "param_names": d["param_names"],
+    }
 
 
 def split_rhat(chain: np.ndarray, rank_normalize: bool = True) -> np.ndarray:
@@ -154,3 +239,41 @@ def convergence_rhat(chain: np.ndarray,
     if thinned.shape[0] < 8:
         thinned = chain
     return float(np.max(split_rhat(thinned)))
+
+
+def summary_dict(flat_chain: np.ndarray, param_names: list[str],
+                 units: list[str] | None = None, ci: float = 95.0,
+                 chain_3d: np.ndarray | None = None) -> dict:
+    """The posterior table as a dict: per parameter median, std and the
+    equal-tailed ``ci`` interval, and with ``chain_3d`` (n_saved, W, D)
+    the autocorrelation time, N_eff and split-R-hat."""
+    lo, med, hi = equal_tailed(flat_chain, ci)
+    std = np.std(flat_chain, axis=0)
+    out = {"ci": ci, "parameters": {}}
+    units = units or ["."] * len(param_names)
+    taus = neff = rhats = None
+    if chain_3d is not None:
+        taus = integrated_autocorr_time(chain_3d)
+        neff = effective_samples(chain_3d)
+        if chain_3d.shape[0] >= 4:
+            rhats = split_rhat(chain_3d)
+    for i, name in enumerate(param_names):
+        entry = {
+            "median": float(med[i]),
+            "std": float(std[i]),
+            "ci_low": float(lo[i]),
+            "ci_high": float(hi[i]),
+            "unit": units[i],
+        }
+        if taus is not None:
+            entry["autocorr_time"] = float(taus[i])
+            entry["n_eff"] = float(neff[i])
+        if rhats is not None:
+            entry["rhat"] = float(rhats[i])
+        out["parameters"][name] = entry
+    return out
+
+
+def save_summary(path: str, summary: dict):
+    pathlib.Path(path).parent.mkdir(parents=True, exist_ok=True)
+    pathlib.Path(path).write_text(json.dumps(summary, indent=2))

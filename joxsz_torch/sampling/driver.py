@@ -40,8 +40,18 @@ rounds and burn-in stay on one device.  A result may declare its own frame spaci
 hybrid's frames lie slightly more than ``nthin`` steps apart); every
 saved-frame to raw-step conversion reads it.
 
-Resume, non-stretch moves and HDF5 chains are not ported yet.  Per-phase
-wall times land in ``FitResult.timings``.
+Around the phases, as the JAX package's ``run_fit``: the MLE may come
+from a self-validating disk cache (``mle_cache``); a resume
+(``resume_from``, a state file of an earlier run) skips the MLE, init,
+prelim and burn-in and continues the saved walkers — the whole (K, W, D)
+replica ladder when its rung count matches — on a generator seeded from
+the state's unconsumed draw, folded once; the chain goes to
+``chain_path`` (emcee's HDF5 layout, or its ``.npz`` twin), flushed every
+``checkpoint_every`` saved frames on the plain path and after every
+auto-extend round; ``best_path`` gets ``fit.dat`` and ``state_path`` the
+resume point.  ``move`` 'de' / 'snooker' (emcee's differential-evolution
+moves) run on the plain sampler only.  Per-phase wall times land in
+``FitResult.timings``.
 """
 
 from __future__ import annotations
@@ -53,9 +63,12 @@ import numpy as np
 import torch
 
 from .kernel import KernelSampler
-from .mle import find_mle, mle_device
-from .stretch import EnsembleResult, generate_init_positions, run_ensemble
+from .mle import find_mle, find_mle_cached, mle_device
+from .stretch import (MOVES, EnsembleResult, generate_init_positions,
+                      run_ensemble)
 from .tempered import default_betas, run_tempered_ensemble
+from ..io.checkpoint import (load_state, save_best_fit, save_chain,
+                             save_state)
 from ..postproc.summary import integrated_autocorr_time, convergence_rhat
 
 _DIAG_WALKERS = 256      # walker sequences the stopping rule watches
@@ -78,6 +91,10 @@ class FitResult:
         order='F' reshape (joxsz_main.py:213-214)."""
         n_saved, n_w, ndim = self.chain.shape
         return np.transpose(self.chain, (1, 0, 2)).reshape(-1, ndim)
+
+    def cube_chain(self) -> np.ndarray:
+        """(n_walkers, n_saved, ndim) — the reference's mcmc.chain layout."""
+        return np.transpose(self.chain, (1, 0, 2))
 
     def summary_rows(self, units: list[str] | None = None):
         med = np.median(self.flat_chain, axis=0)
@@ -111,6 +128,17 @@ def convergence(chain: np.ndarray, thin: float) -> tuple[float, float]:
     return tau_saved * thin, convergence_rhat(dc, tau_saved=tau_saved)
 
 
+_SEED_MAX = 2 ** 63 - 1
+
+
+def resumed_generator(key) -> np.random.Generator:
+    """The generator of a run resumed from a state file's ``key`` (the
+    unconsumed draw its run saved), folded once — ``jax.random.fold_in(
+    key, 1)`` in the JAX package — so the resume starts a stream of its
+    own rather than replaying the saved one."""
+    return np.random.default_rng([int(k) for k in np.ravel(key)] + [1])
+
+
 def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             lo: np.ndarray, hi: np.ndarray, param_names: list[str], *,
             log_like_batch=None,
@@ -120,7 +148,10 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             max_prelim_rounds: int = 10, n_temper_rungs: int = 0,
             auto_extend: int = 0, target_rhat: float = 1.01,
             do_mle: bool = True, mesh=None,
-            verbose: bool = True) -> FitResult:
+            chain_path: str | None = None, state_path: str | None = None,
+            best_path: str | None = None, resume_from: str | None = None,
+            checkpoint_every: int = 500, mle_cache: str | None = None,
+            move: str = "stretch", verbose: bool = True) -> FitResult:
     """Full fit of ``model`` (a ``JointModel``).
 
     ``step_sampler``: the kernel sampler, or None for the plain samplers.
@@ -131,7 +162,28 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     (``joxsz_tpu/sampling/driver.py:181-183``).  ``do_mle=False`` starts
     the walkers around ``theta0`` itself.  ``mesh``: shard the sampling
     phase over its ``walker`` axis (stretch moves only; the hybrid
-    realises n_windows * sync_every ~ nsteps steps)."""
+    realises n_windows * sync_every ~ nsteps steps).
+
+    ``mle_cache``: a JSON file for ``find_mle_cached``.  ``resume_from``:
+    a state file written by ``state_path`` of an earlier run.
+    ``chain_path``: the chain file (``.hdf5``, or ``.npz`` where h5py is
+    missing), written with burn ``nburn`` plus any head promoted to
+    burn-in.  ``move``: 'stretch', 'de' or 'snooker'; the step kernels,
+    the mesh and the tempered paths take the stretch move only, and
+    refuse another rather than downgrade it."""
+    if move not in MOVES:
+        raise ValueError(f"unknown move {move!r}: expected one of {MOVES}")
+    if move != "stretch":
+        if step_sampler is not None:
+            raise ValueError(
+                f"move={move!r} is not available through the step kernels "
+                "(stretch only); sample on the plain sampler "
+                "(step_sampler=None, --no-step-kernel) or use "
+                "move='stretch'")
+        if mesh is not None or n_temper_rungs > 1:
+            raise ValueError(
+                f"move={move!r} is not available on the mesh/tempered "
+                "paths (stretch only)")
     dev = (step_sampler.device if step_sampler is not None
            else model.sz_data.L.device)
     # the kernels' state is float32; the plain samplers work in the
@@ -143,7 +195,15 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
                           if step_sampler is not None
                           else model.log_like_batch)
     timings: dict = {}
-    rng = np.random.default_rng(0 if seed is None else seed)
+    resumed = None
+    if resume_from is not None:
+        resumed = load_state(resume_from)
+        rng = resumed_generator(resumed["key"])
+        if verbose:
+            print(f"resuming from {resume_from} "
+                  f"({resumed['positions'].shape[0]} walkers)")
+    else:
+        rng = np.random.default_rng(0 if seed is None else seed)
     if nsteps % nthin:
         nsteps -= nsteps % nthin
         if verbose:
@@ -160,26 +220,40 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
 
     # 1. MLE on the plain float64 likelihood, on the host CPU
     t0 = time.time()
-    if do_mle:
+    ran_mle = do_mle and resumed is None
+    if resumed is not None:
+        mle_theta = resumed["positions"][np.argmax(resumed["log_probs"])]
+        mle_ll = float(np.max(resumed["log_probs"]))
+    elif do_mle:
         if verbose:
             print(f"MLE warm start (float64 on {mle_device(dev).type})...")
-        mle_theta, mle_ll = find_mle(model, theta0, lo, hi, device=dev,
-                                     verbose=verbose)
+        if mle_cache is not None:
+            mle_theta, mle_ll, hit = find_mle_cached(
+                model, theta0, lo, hi, mle_cache, device=dev,
+                verbose=verbose)
+            timings["mle_cached"] = hit
+        else:
+            mle_theta, mle_ll = find_mle(model, theta0, lo, hi, device=dev,
+                                         verbose=verbose)
     else:
         mle_theta = np.asarray(theta0, dtype=np.float64)
         with torch.no_grad():
             mle_ll = float(model.log_like(torch.as_tensor(
                 mle_theta, dtype=model.sz_data.L.dtype, device=dev)))
     timings["mle_s"] = time.time() - t0
-    timings["mle_device"] = mle_device(dev).type if do_mle else "none"
+    timings["mle_device"] = mle_device(dev).type if ran_mle else "none"
 
     # 2. walker init
     t0 = time.time()
     gen = torch.Generator(device=dev)
-    gen.manual_seed(int(rng.integers(0, 2 ** 63 - 1)))
-    p0 = generate_init_positions(log_like_batch, mle_theta, nwalkers, gen,
-                                 device=dev, dtype=dtype, spread=initspread,
-                                 lo=lo, hi=hi)
+    gen.manual_seed(int(rng.integers(0, _SEED_MAX)))
+    if resumed is not None:
+        p0 = torch.as_tensor(resumed["positions"], dtype=dtype, device=dev)
+        nwalkers = p0.shape[0]
+    else:
+        p0 = generate_init_positions(log_like_batch, mle_theta, nwalkers,
+                                     gen, device=dev, dtype=dtype,
+                                     spread=initspread, lo=lo, hi=hi)
 
     def plain_run(state, n, thin=1, store_chain=True):
         """``n`` plain (untempered) steps through the configured route."""
@@ -188,7 +262,7 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
                                     store_chain=store_chain)
         with torch.no_grad():
             return run_ensemble(log_like_batch, state, n, gen, thin=thin,
-                                store_chain=store_chain)
+                                store_chain=store_chain, move=move)
 
     timings["init_s"] = time.time() - t0
 
@@ -196,7 +270,7 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     t0 = time.time()
     best = mle_ll
     rounds = 0
-    while rounds < max_prelim_rounds:
+    while resumed is None and rounds < max_prelim_rounds:
         res = plain_run(p0, prelim_iterations, store_chain=False)
         p0 = res.final_state[0]
         newbest = float(res.final_state[1].max())
@@ -212,7 +286,7 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     # 4. burn-in
     t0 = time.time()
     p1 = (plain_run(p0, nburn, store_chain=False).final_state[0]
-          if nburn else p0)
+          if nburn and resumed is None else p0)
     timings["burn_s"] = time.time() - t0
 
     # 5. sampling
@@ -225,7 +299,7 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             mesh_note[0] = False
             print(f"note: sharded kernel sampler declined; running {to}")
 
-    def mesh_run(state):
+    def mesh_run(state, n):
         """One untempered sampling call over the mesh.  With a step
         sampler every route goes through the kernels: per-shard ensembles
         or the hybrid, else one ensemble coupled across the mesh (it
@@ -235,13 +309,13 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
             from ..parallel.sharded import run_sharded_ensemble
 
             with torch.no_grad():
-                return run_sharded_ensemble(log_like_batch, state, nsteps,
-                                            gen, mesh, thin=nthin)
-        r = step_sampler.run_sharded(state, nsteps, rng, mesh, thin=nthin,
+                return run_sharded_ensemble(log_like_batch, state, n, gen,
+                                            mesh, thin=nthin)
+        r = step_sampler.run_sharded(state, n, rng, mesh, thin=nthin,
                                      verbose=verbose)
         if r is None:
             declined("one ensemble coupled across the mesh")
-            r = step_sampler.run_coupled_sharded(state, nsteps, rng, mesh,
+            r = step_sampler.run_coupled_sharded(state, n, rng, mesh,
                                                  thin=nthin)
         return r
 
@@ -249,20 +323,20 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
     if tempered:
         betas = default_betas(n_temper_rungs)
 
-        def sample(state):
+        def sample(state, n):
             r = None
             if mesh is not None and step_sampler is not None:
                 r = step_sampler.run_tempered_sharded(
-                    state, betas, nsteps, rng, mesh, thin=nthin)
+                    state, betas, n, rng, mesh, thin=nthin)
                 if r is None:
                     declined("the single-device tempered kernel sampler")
             if r is None and step_sampler is not None:
-                r = step_sampler.run_tempered(state, betas, nsteps, rng,
+                r = step_sampler.run_tempered(state, betas, n, rng,
                                               thin=nthin)
             if r is None:
                 with torch.no_grad():
                     r = run_tempered_ensemble(log_like_batch, state, betas,
-                                              nsteps, gen, thin=nthin)
+                                              n, gen, thin=nthin)
             swap_rounds.append(r.swap_acceptance)
             if verbose:
                 print("swap acceptance per rung boundary: "
@@ -271,18 +345,65 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
                 chain=r.chain, log_prob=r.log_prob,
                 acceptance_fraction=r.acceptance_fraction[0],
                 final_state=r.final_state)
+
+        # a resume continues the saved equilibrated replica ladder when the
+        # state carries one with a matching rung count; otherwise the
+        # runner replicates the cold rung (and says so)
+        if resumed is not None and "temper_state" in resumed:
+            ts = np.asarray(resumed["temper_state"])
+            if ts.shape[0] == n_temper_rungs:
+                p1 = torch.as_tensor(ts, dtype=dtype, device=dev)
+                if verbose:
+                    print(f"resuming the full {ts.shape[0]}-rung replica "
+                          "ladder from the saved state")
+            elif verbose:
+                print(f"note: saved ladder has {ts.shape[0]} rungs but "
+                      f"--temper {n_temper_rungs} was requested; "
+                      "restarting the ladder from a replicated cold rung")
     elif mesh is not None:
         sample = mesh_run
     else:
-        def sample(state):
-            return plain_run(state, nsteps, thin=nthin)
+        def sample(state, n):
+            return plain_run(state, n, thin=nthin)
 
     def spacing(r) -> float:
         """Raw steps per saved frame of this result: ``nthin`` unless the
         sampler declared otherwise."""
         return float(r.frame_spacing or nthin)
 
-    res = sample(p1)
+    def save_key() -> np.ndarray:
+        """An unconsumed draw for a resume's generator."""
+        return rng.integers(0, _SEED_MAX, size=1)
+
+    meta = {"param_names": list(param_names), "nburn": nburn,
+            "nthin": nthin, "seed": seed}
+    if not tempered and chain_path and nsteps // nthin > checkpoint_every:
+        # incremental persistence (the reference's HDF backend writes the
+        # chain as it goes): sample in chunks of checkpoint_every frames,
+        # flushing the chain and the resume state after each
+        parts, part_lps, acc_total, done, x = [], [], 0.0, 0, p1
+        while done < nsteps:
+            n = min(checkpoint_every * nthin, nsteps - done)
+            r = sample(x, n)
+            parts.append(r.chain)
+            part_lps.append(r.log_prob)
+            acc_total = acc_total + r.acceptance_fraction * n
+            x = r.final_state[0]
+            done += n
+            save_chain(chain_path, np.concatenate(parts),
+                       np.concatenate(part_lps), acc_total / done,
+                       param_names, nburn, nthin,
+                       frame_spacing=spacing(r))
+            if state_path:
+                save_state(state_path, x.detach().cpu().numpy(),
+                           r.final_state[1].detach().cpu().numpy(),
+                           save_key(), {**meta, "steps_done": done})
+        res = EnsembleResult(
+            chain=np.concatenate(parts), log_prob=np.concatenate(part_lps),
+            acceptance_fraction=acc_total / done,
+            final_state=(x, r.final_state[1]), frame_spacing=r.frame_spacing)
+    else:
+        res = sample(p1, nsteps)
     chains, lps, accs = [res.chain], [res.log_prob], [res.acceptance_fraction]
     state = res.final_state[0]
 
@@ -327,7 +448,7 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
                     f"{target_rhat}")
             print(f"auto-extend round {ext + 1}/{auto_extend}: {need} — "
                   f"sampling {nsteps} more steps")
-        res = sample(state)
+        res = sample(state, nsteps)
         state = res.final_state[0]
         chains.append(res.chain)
         lps.append(res.log_prob)
@@ -340,6 +461,10 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
         tau, rh = convergence(np.concatenate(chains), spacing(res))
         diag_s += time.time() - td
         chain_steps = sum(c.shape[0] for c in chains) * spacing(res)
+        if chain_path:      # flush progress like the chunked path
+            save_chain(chain_path, np.concatenate(chains),
+                       np.concatenate(lps), np.mean(accs, axis=0),
+                       param_names, nburn, nthin, frame_spacing=spacing(res))
     timings["sample_s"] = time.time() - t0
     timings["sample_diag_s"] = diag_s
     timings["auto_extend_rounds"] = ext
@@ -351,8 +476,11 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
         timings["swap_acceptance"] = np.mean(swap_rounds, axis=0).tolist()
 
     chain = np.concatenate(chains)
+    log_prob = np.concatenate(lps)
     acc = np.mean(accs, axis=0)
-    n_evals = (rounds * prelim_iterations + nburn
+    # a resumed run skips burn-in: its throughput counts no phantom evals
+    burn_evals = 0 if resumed is not None else nburn
+    n_evals = (rounds * prelim_iterations + burn_evals
                + steps * max(n_temper_rungs, 1)) * nwalkers
     total_s = timings["prelim_s"] + timings["burn_s"] + timings["sample_s"]
     timings["likelihood_evals"] = n_evals
@@ -366,9 +494,24 @@ def run_fit(model, step_sampler: KernelSampler | None, theta0: np.ndarray,
         if rh > target_rhat:
             print(f"WARNING: split-Rhat max {rh:.3f} > {target_rhat} — "
                   "sequences disagree (more burn-in or steps needed)")
-    return FitResult(chain=chain, log_prob=np.concatenate(lps),
+
+    # 7. outputs
+    final_state = tuple(t.detach().cpu().numpy() for t in res.final_state)
+    if best_path:
+        save_best_fit(best_path, chain, log_prob, mle_theta, mle_ll,
+                      param_names)
+    if chain_path:
+        # steps the auto-extend fallback promoted from the chain head to
+        # burn-in are burn-in on disk too
+        save_chain(chain_path, chain, log_prob, acc, param_names,
+                   nburn + extra_burn, nthin, frame_spacing=spacing(res))
+    if state_path:
+        x, lp = final_state
+        cold = (x[0], lp[0]) if x.ndim == 3 else (x, lp)
+        save_state(state_path, *cold, save_key(),
+                   {**meta, "nburn": nburn + extra_burn},
+                   temper_state=x if x.ndim == 3 else None)
+    return FitResult(chain=chain, log_prob=log_prob,
                      acceptance_fraction=acc, mle_theta=mle_theta,
                      mle_loglike=mle_ll, param_names=list(param_names),
-                     timings=timings,
-                     final_state=tuple(t.detach().cpu().numpy()
-                                       for t in res.final_state))
+                     timings=timings, final_state=final_state)

@@ -12,8 +12,14 @@ flagless fit uses (reference emcee stack, joxsz_funcs.py:572-635):
 ``stretch_half_update`` is the move law the CUDA half-step kernel
 (``ops.step_kernel``) implements, in the kernel's float32 arithmetic; it
 takes its uniforms from the caller so both can be fed the same bits.
-``run_ensemble`` is the plain sampler built on it for any batched
-log-probability, drawing from an explicit ``torch.Generator``.
+``de_half_update`` and ``snooker_half_update`` are emcee's differential-
+evolution moves (``DEMove``, ``DESnookerMove``), which exist only in the
+plain sampler, as in the JAX package.  ``run_ensemble`` is the plain
+sampler for any batched log-probability and any of the three moves
+(``make_step``), drawing from an explicit ``torch.Generator``.
+
+Uniforms are laid out (..., H, k) — one row of k draws per moving walker
+— where the JAX functions take (..., k, H): the same draws transposed.
 """
 
 from __future__ import annotations
@@ -75,6 +81,113 @@ def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
     x_new = torch.where(accept[..., None], y, x_move)
     lp_new = torch.where(accept, lp_y, lp_move)
     return x_new, lp_new, accept, margin
+
+
+def _index(u: torch.Tensor, n: int) -> torch.Tensor:
+    """A uniform index in [0, n) from a uniform draw (exact up to the
+    draw's quantisation)."""
+    return torch.clamp((u * n).to(torch.long), max=n - 1)
+
+
+def _take(x_fixed: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (..., H) of ``x_fixed`` (..., Hf, D) -> (..., H, D)."""
+    D = x_fixed.shape[-1]
+    return torch.gather(x_fixed, -2, idx[..., None].expand(*idx.shape, D))
+
+
+def _propose(lp_fn, y: torch.Tensor, lp_move: torch.Tensor) -> torch.Tensor:
+    """lp_fn over a (..., H, D) block of proposals -> (..., H)."""
+    return lp_fn(y.reshape(-1, y.shape[-1])).reshape(lp_move.shape)
+
+
+def de_half_update(lp_fn, u: torch.Tensor, g1: torch.Tensor,
+                   x_move: torch.Tensor, lp_move: torch.Tensor,
+                   x_fixed: torch.Tensor, gamma0: float, sigma: float,
+                   beta=None):
+    """Differential-evolution update of one half-ensemble (DE-MC, ter
+    Braak 2006; emcee's ``DEMove`` with the Nelson et al. 2013 gamma
+    jitter), ``joxsz_tpu/sampling/stretch.py::de_half_update``:
+    ``y = x + gamma (x_a - x_b)`` with a distinct pair (a, b) from the
+    fixed half and ``gamma = gamma0 (1 + sigma N(0,1))`` per walker.  The
+    proposal is symmetric: plain Metropolis, ``log U < lp_y - lp_x``.
+
+    ``u`` (..., H, 3) uniforms: pair draw a, pair draw b, accept; ``g1``
+    (..., H) standard normals.  ``beta`` scales the log-prob difference.
+    Returns ``(x_new, lp_new, accept)``."""
+    Hf = x_fixed.shape[-2]
+    ia = _index(u[..., 0], Hf)
+    # b uniform over the Hf-1 indices != a: draw from [0, Hf-1), skip a
+    ib = _index(u[..., 1], Hf - 1)
+    ib = ib + (ib >= ia).to(ib.dtype)
+    gamma = gamma0 * (1.0 + sigma * g1)
+    y = x_move + gamma[..., None] * (_take(x_fixed, ia) - _take(x_fixed, ib))
+    lp_y = _propose(lp_fn, y, lp_move)
+    dlp = lp_y - lp_move
+    if beta is not None:
+        dlp = beta * dlp
+    accept = torch.log(u[..., 2]) < dlp
+    return (torch.where(accept[..., None], y, x_move),
+            torch.where(accept, lp_y, lp_move), accept)
+
+
+def de_gamma0(ndim: int) -> float:
+    """ter Braak's optimal-scaling default, emcee's ``gamma0=None``."""
+    return 2.38 / float(np.sqrt(2.0 * ndim))
+
+
+def _distinct3(u: torch.Tensor, Hf: int):
+    """Three distinct uniform indices in [0, Hf) from the uniforms
+    ``u[..., 0:3]``, by the skip construction (exactly uniform over
+    ordered distinct triples)."""
+    i0 = _index(u[..., 0], Hf)
+    i1 = _index(u[..., 1], Hf - 1)
+    i1 = i1 + (i1 >= i0).to(i1.dtype)
+    i2 = _index(u[..., 2], Hf - 2)
+    lo = torch.minimum(i0, i1)
+    hi = torch.maximum(i0, i1)
+    i2 = i2 + (i2 >= lo).to(i2.dtype)
+    i2 = i2 + (i2 >= hi).to(i2.dtype)
+    return i0, i1, i2
+
+
+def snooker_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
+                        lp_move: torch.Tensor, x_fixed: torch.Tensor,
+                        ndim: int, gamma_s: float = 1.7, beta=None):
+    """Snooker update of one half-ensemble (ter Braak & Vrugt 2008;
+    emcee's ``DESnookerMove``), ``joxsz_tpu/sampling/stretch.py::
+    snooker_half_update``: along the line through x and an anchor z of
+    the fixed half, step by the difference of two other walkers'
+    projections onto it,
+
+        y = x + u (gamma_s (u.z1 - u.z2)),   u = (x - z)/|x - z|,
+
+    accepted with the Jacobian factor |1 + s/|x - z||^(ndim-1).
+
+    ``u`` (..., H, 4) uniforms: three distinct anchor/projection draws
+    and the accept draw.  Returns ``(x_new, lp_new, accept)``."""
+    Hf = x_fixed.shape[-2]
+    iz, i1, i2 = _distinct3(u, Hf)
+    z = _take(x_fixed, iz)
+    delta = x_move - z
+    norm = torch.sqrt(torch.sum(delta * delta, dim=-1))          # (..., H)
+    ok = norm > 0.0        # coincident x == z: reject (measure zero)
+    safe = torch.where(ok, norm, torch.ones_like(norm))
+    u_hat = delta / safe[..., None]
+    s = gamma_s * torch.sum(u_hat * (_take(x_fixed, i1)
+                                     - _take(x_fixed, i2)), dim=-1)
+    y = x_move + u_hat * s[..., None]
+    lp_y = _propose(lp_fn, y, lp_move)
+    dlp = lp_y - lp_move
+    if beta is not None:
+        dlp = beta * dlp
+    ratio = torch.abs(1.0 + s / safe)
+    log_jac = (ndim - 1.0) * torch.log(torch.clamp(ratio, min=1e-30))
+    accept = ok & (torch.log(u[..., 3]) < log_jac + dlp)
+    return (torch.where(accept[..., None], y, x_move),
+            torch.where(accept, lp_y, lp_move), accept)
+
+
+MOVES = ("stretch", "de", "snooker")
 
 
 # times generate_init_positions may shrink its spread by 3x
@@ -163,15 +276,67 @@ def ensemble_step(lp_fn, x, lp, acc, u, beta=1.0):
             torch.cat(accs, dim=-1))
 
 
+def make_step(log_prob_batch, ndim: int, move: str = "stretch",
+              de_sigma: float = 1.0e-5, de_gamma: float | None = None):
+    """One full ensemble step, both half-updates, of a (W, D) ensemble:
+    ``step(x, lp, acc, gen) -> (x, lp, acc)``.  ``move``: 'stretch'
+    (Goodman-Weare, the reference's emcee default), 'de' (``DEMove``) or
+    'snooker' (``DESnookerMove``), as ``joxsz_tpu/sampling/stretch.py::
+    make_step``.  Per step one uniform block from ``gen``, (2, H, 3) or
+    (2, H, 4) for snooker, and for DE a (2, H) normal block after it."""
+    if move not in MOVES:
+        raise ValueError(f"unknown move {move!r}: expected 'stretch', "
+                         "'de', or 'snooker'")
+    g0 = de_gamma0(ndim) if de_gamma is None else float(de_gamma)
+    gs = 1.7 if de_gamma is None else float(de_gamma)
+
+    def step(x, lp, acc, gen):
+        W = x.shape[0]
+        H = W // 2
+        # DE needs a distinct pair, snooker a distinct triple, from the
+        # fixed half; below that the skip construction would duplicate a
+        # partner and bias the proposal
+        if move == "de" and H < 2:
+            raise ValueError(f"DE move needs >= 4 walkers (got {W}): "
+                             "each half must hold a distinct pair")
+        if move == "snooker" and H < 3:
+            raise ValueError(f"snooker move needs >= 6 walkers (got {W}): "
+                             "each half must hold a distinct triple")
+        kw = dict(generator=gen, dtype=x.dtype, device=x.device)
+        u = torch.rand((2, H, 4 if move == "snooker" else 3), **kw)
+        if move == "stretch":
+            return ensemble_step(log_prob_batch, x, lp, acc, u)
+        g = torch.randn((2, H), **kw) if move == "de" else None
+        halves = [x[:H], x[H:]]
+        lps = [lp[:H], lp[H:]]
+        accs = [acc[:H], acc[H:]]
+        for w in (0, 1):
+            if move == "de":
+                halves[w], lps[w], accept = de_half_update(
+                    log_prob_batch, u[w], g[w], halves[w], lps[w],
+                    halves[1 - w], g0, de_sigma)
+            else:
+                halves[w], lps[w], accept = snooker_half_update(
+                    log_prob_batch, u[w], halves[w], lps[w],
+                    halves[1 - w], ndim, gs)
+            accs[w] = accs[w] + accept.to(acc.dtype)
+        return torch.cat(halves), torch.cat(lps), torch.cat(accs)
+
+    return step
+
+
 def run_ensemble(log_like_batch, p0: torch.Tensor, n_steps: int,
                  gen: torch.Generator, thin: int = 1,
-                 store_chain: bool = True) -> EnsembleResult:
-    """Plain stretch-move ensemble from p0 (W, D) on any batched
-    log-probability (N, D) -> (N,), saving every ``thin``-th state
-    (``joxsz_tpu/sampling/stretch.py::run_ensemble``).  Runs on p0's
-    device and dtype; ``gen`` is a generator on that device."""
+                 store_chain: bool = True, move: str = "stretch",
+                 de_gamma: float | None = None) -> EnsembleResult:
+    """Plain ensemble from p0 (W, D) on any batched log-probability
+    (N, D) -> (N,) with the move ``move`` (``make_step``), saving every
+    ``thin``-th state (``joxsz_tpu/sampling/stretch.py::run_ensemble``).
+    Runs on p0's device and dtype; ``gen`` is a generator on that
+    device."""
     W, D = p0.shape
     validate_schedule(n_steps, thin, W)
+    step = make_step(log_like_batch, D, move=move, de_gamma=de_gamma)
     x = p0.clone()
     lp = log_like_batch(x)
     acc = torch.zeros(W, dtype=torch.float32, device=x.device)
@@ -179,9 +344,7 @@ def run_ensemble(log_like_batch, p0: torch.Tensor, n_steps: int,
     chain = torch.empty((n_saved, W, D), dtype=x.dtype, device=x.device)
     chain_lp = torch.empty((n_saved, W), dtype=lp.dtype, device=x.device)
     for i in range(n_steps):
-        u = torch.rand((2, W // 2, 3), generator=gen, dtype=x.dtype,
-                       device=x.device)
-        x, lp, acc = ensemble_step(log_like_batch, x, lp, acc, u)
+        x, lp, acc = step(x, lp, acc, gen)
         if store_chain and (i + 1) % thin == 0:
             chain[(i + 1) // thin - 1] = x
             chain_lp[(i + 1) // thin - 1] = lp

@@ -55,7 +55,8 @@ def test_run_cli_family_flag(base, monkeypatch, capsys, flags, D, family,
 
     monkeypatch.setattr(build, "build_session", spy)
     res = run.main(["--config", base, "--cpu", "--quick", "--walkers",
-                    str(W), "--seed", "3", *flags])
+                    str(W), "--seed", "3", "--no-plots", "--fresh-mle",
+                    *flags])
     out = capsys.readouterr().out
     (cfg, sz_only), = built
     if field is not None:

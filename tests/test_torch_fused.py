@@ -195,7 +195,8 @@ def test_run_fit_precedence(small, monkeypatch):
 def test_run_fused_no_step_kernel_end_to_end(small):
     _, path, out = small
     res = run.main(["--config", path, "--cpu", "--quick", "--fused",
-                    "--no-step-kernel", "--walkers", "32", "--seed", "6"])
+                    "--no-step-kernel", "--walkers", "32", "--seed", "6",
+                    "--no-plots", "--fresh-mle"])
     assert res.chain.shape == (400 // 5, 32, 13)
     assert np.all(np.isfinite(res.chain)) and np.all(np.isfinite(res.log_prob))
     assert 0.05 < float(np.mean(res.acceptance_fraction)) < 0.9

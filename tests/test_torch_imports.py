@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``joxsz_torch`` (nor the chip check
 ``chip_smoke.py``, nor the port's scripts ``scripts/torch_*.py``) imports
-``jax`` or anything of ``joxsz_tpu``.
+``jax`` or anything of ``joxsz_tpu``, and none imports h5py or matplotlib
+outside a function (the card may lack both).
 
 Checked twice: statically, on every import statement of every source
 file, and dynamically, by importing every module in a fresh interpreter
@@ -49,7 +50,15 @@ EXPECTED = ["joxsz_torch.run", "joxsz_torch.survey", "joxsz_torch.simulate",
             "joxsz_torch.sampling.driver", "joxsz_torch.ops.coupled_kernel",
             "joxsz_torch.parallel", "joxsz_torch.parallel.mesh",
             "joxsz_torch.parallel.sharded",
-            "joxsz_torch.parallel.kernel_sharded"]
+            "joxsz_torch.parallel.kernel_sharded",
+            "joxsz_torch.sampling.mle", "joxsz_torch.io.checkpoint",
+            "joxsz_torch.postproc", "joxsz_torch.postproc.summary",
+            "joxsz_torch.postproc.profiles", "joxsz_torch.postproc.ppc",
+            "joxsz_torch.postproc.pin", "joxsz_torch.plotting",
+            "joxsz_torch.plotting.figures"]
+# optional packages the port imports only inside the functions that need
+# them: the card may lack them, and importing the port must not
+LAZY = ("h5py", "matplotlib")
 
 
 @pytest.mark.parametrize("module", EXPECTED)
@@ -73,13 +82,36 @@ def test_no_forbidden_import_statement(path):
     assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
 
 
+def _module_level_roots(tree: ast.Module):
+    """Import roots of statements that run when the module is imported:
+    everything outside function bodies (classes, if/try blocks count)."""
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+        stack.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_h5py_and_matplotlib_only_inside_functions(path):
+    roots = set(_module_level_roots(ast.parse(path.read_text())))
+    assert not roots & set(LAZY), (path, roots & set(LAZY))
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, json, sys\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
-        f"{FORBIDDEN!r})\n"
+        f"{FORBIDDEN + LAZY!r})\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)

@@ -28,7 +28,8 @@ def test_run_cli_mesh_end_to_end(base, temper):
     cfg.save_dir = str(base["root"] / f"out{temper}")
     path = config_json(cfg, base["root"] / f"cfg{temper}.json")
     res = run.main(["--config", path, "--cpu", "--quick", "--walkers", "64",
-                    "--mesh", "2", "--temper", temper, "--seed", "4"])
+                    "--mesh", "2", "--temper", temper, "--seed", "4",
+                    "--no-plots", "--fresh-mle"])
     assert res.chain.shape == (400 // 5, 64, D)
     assert np.all(np.isfinite(res.chain)) and np.all(np.isfinite(res.log_prob))
     assert 0.05 < float(np.mean(res.acceptance_fraction)) < 0.9

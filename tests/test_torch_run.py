@@ -21,7 +21,8 @@ def fit(tmp_path_factory):
     cfg.save_dir = str(root / "out")
     path = config_json(cfg, root / "cfg.json")
     res = run.main(["--config", path, "--cpu", "--quick", "--walkers", "16",
-                    "--temper", "2", "--seed", "4"])
+                    "--temper", "2", "--seed", "4", "--no-plots",
+                    "--fresh-mle"])
     return cfg, res, root / "out"
 
 
