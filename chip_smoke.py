@@ -8,9 +8,11 @@ with auto-extend, the card's production schedule), the survey fit
 (``joxsz_torch.survey.main --mock 4`` at W=1024, 1000 + 1000 steps), the
 fused-likelihood fit (``run.main --fused --no-step-kernel``), the mesh
 fit (``run_fit(mesh=...)`` over four shards, ``run --mesh``, ``survey
---mesh``) and the model families' fits (``run.main --pressure knots
+--mesh``), the model families' fits (``run.main --pressure knots
 --temperature vikhlinin`` at the production schedule, ``--sz-only``, and
-the others) — and checks their output.  Phases:
+the others), the survey of a --spec mixing every family with its
+population fit, and a fit whose count-rate table is generated on the
+card — and checks their output.  Phases:
 
   1. card name / power limit, kernel build time;
   2. synthetic dataset from ``--seed``, session on ``cuda``, shapes;
@@ -124,10 +126,30 @@ the others) — and checks their output.  Phases:
      must reach split-R-hat <= 1.01), config #4 over a mesh of one card
      at 32 walkers (below 2 D + 2: the coupled sampler, kernel 6), the
      other families --quick at W=1024 x K=4; finite chains, acceptance in
-     (0.02, 0.6), exactly one step-kernel launch per chunk.
+     (0.02, 0.6), exactly one step-kernel launch per chunk;
+ 17. the families on the survey's cluster grid (its kernel checks run
+     after phase 14, the survey after phase 15): for every family of
+     phase 14 but the widest, kernel 4's family
+     instance on 4 clusters simulated from the family's model (distinct
+     data, shared grids) against its plain step for 5 steps as phase 8
+     checks the flagship's, and its time per launch of 20 steps at
+     W=1024 beside its bound; then, launch counters set to 0 just before,
+     ``survey.main`` on a --spec mixing gnfw and those six families (4
+     clusters each, each its own dataset simulated from its family's
+     model), W=1024, 1000 burn + 1000 steps, --save-chains, with the
+     survey's fallback warning raised as an error: two launches of kernel
+     4 per family, every truth within 5 sd of its median, acceptance in
+     (0.02, 0.6), a chain file per cluster; and ``--mock 8 --population
+     P_0``: the population block written, its mean among the clusters';
+ 18. the count-rate table of a synthetic 1000 x 1024 response generated
+     on the card against the CPU (rtol 1e-10), both timed; a synthetic
+     cluster at z = 0.5 with no table_path fitted through ``run.main
+     --quick``: its table generated on the card into a temporary tables
+     directory, then the fit.
 
 Prints the kernel JSON line (the six kernels on the flagship's paths,
-then each kernel for each family, "name[family]"), the card line, and as
+then each kernel for each family, "name[family]", kernel 4's family
+instance last), the card line, and as
 the last line
 ``{"ok": true, "device": {...}}``; exits non-zero, with no result line,
 when a phase fails or no GPU is visible.  The MLE cache entries the run
@@ -142,6 +164,7 @@ import argparse
 import json
 import math
 import os
+import pathlib
 import re
 import shutil
 import subprocess
@@ -198,6 +221,9 @@ STEPS_CMP_FAM = 5               # phase 14: steps held against the plain
 TIME_STEPS_FAM = 20             # phase 14: steps per timed launch
 TIGHT_BELOW = 1e5               # phase 14: |ll| under which TIGHT_ATOL holds
 FAMILY_FIT_TIMEOUT = 600        # phase 15: seconds a family fit may take
+# phase 17: the families of the mixed --spec survey (tag, run flags)
+SURVEY_MIX = (("gnfw", ()),) + tuple((t, f) for t, f, _, _ in FAMILIES
+                                      if t != "widest")
 # phase 16: rows of the phase-5 chain whose profile bands are computed on
 # the card and on the CPU, both float64 sessions; their relative gap is
 # the two devices' last-bit rounding, far below PROFILE_RTOL
@@ -1810,6 +1836,285 @@ def phase_family_fits(cfg, tmp: str, seed: int) -> dict:
     return out
 
 
+# ---- the survey made whole and tables on the card (phases 17 and 18) -------
+
+def cluster_grid_start(stack, truths, w: int, rng):
+    """A (C, w, D) state, cluster c within 1% of ``truths[c]``, rows
+    redrawn until every log-posterior (kernel 1 on cluster c's constants)
+    is finite; lp by kernel 1 and zero accept counts."""
+    import torch
+
+    xs, lps = [], []
+    for cc, center in zip(stack.clusters, truths):
+        x, lp, _ = family_start(cc, center, 1, w, rng)
+        xs.append(x[0])
+        lps.append(lp[0])
+    x = torch.stack(xs).contiguous()
+    lp = torch.stack(lps)
+    return x, lp, torch.zeros_like(lp)
+
+
+def phase_cluster_grid_families(cfg, seed: int) -> tuple[list, dict]:
+    """Phase 17a: kernel 4's family instance for each model family on a
+    stack of C_SURVEY simulated clusters (distinct data, shared grids)
+    against its plain step for STEPS_CMP_FAM steps, as phase 8 holds the
+    flagship's, and one launch of TIME_STEPS_FAM steps at W=1024 timed
+    beside its bound.  Returns the kernels-line entries (launches from
+    phase 17b) and each family's ``family_key``."""
+    import numpy as np
+    from joxsz_torch.ops.consts_layout import family_key
+    from joxsz_torch.ops.joint_kernel import joint_ll_flops, pack_consts_stack
+    from joxsz_torch.ops.multicluster_kernel import (
+        multicluster_bits, steps_multicluster_plain, stretch_steps_multicluster)
+    from joxsz_torch.simulate import simulate_survey
+    from joxsz_torch.survey import mock_truths
+
+    card = card_line()
+    C, W, n = C_SURVEY, W_SMOKE, TIME_STEPS_FAM
+    entries, keys = [], {}
+    for tag, flags, D, _ in FAMILIES:
+        if tag == "widest":
+            continue
+        sess = family_session(cfg, flags)
+        truths = mock_truths(sess.params, C)
+        survey = simulate_survey(sess.model, truths,
+                                 np.random.default_rng(seed + 30))
+        stack = pack_consts_stack(sess, survey.sz_stack, survey.xray_stack)
+        keys[tag] = family_key(stack.ints)
+        check(stack.ints["D"] == D, f"{tag}: stack D {stack.ints['D']}")
+        step_seed = int(np.random.default_rng(seed + 31).integers(
+            0, 2 ** 31 - 1))
+        rng = np.random.default_rng(seed + 32)
+        x, lp, acc = cluster_grid_start(stack, truths, W, rng)
+        _, _, _, n_dec, n_near, err = compare_cluster_grid(
+            x, lp, acc, stack, step_seed, STEPS_CMP_FAM)
+        x, lp, acc = cluster_grid_start(stack, truths, W, rng)
+        fn = lambda: stretch_steps_multicluster(            # noqa: E731
+            x, lp, acc, step_seed, n, stack)
+        ms = cuda_ms(fn, reps=3, warmup=1)
+        per = device_time_per_launch(fn, reps=3)[0]
+        us = next((v for k, v in per.items()
+                   if k.startswith("stretch_steps")), None)
+        if us is None:
+            print(f"[17] {tag}: the profiler recorded {sorted(per)}")
+        x, lp, acc = cluster_grid_start(stack, truths, W, rng)
+        plain = cuda_ms(lambda: steps_multicluster_plain(
+            x, lp, acc, n, lambda step, which: multicluster_bits(
+                step_seed, x.device, step, which, C, W // 2), stack),
+            reps=1, warmup=0)
+        flops = joint_ll_flops(stack.clusters[0]) * C * W * n
+        nbytes = 4 * (2 * C * W * (D + 2) + stack.buf.numel())
+        bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
+        print(f"[17] {tag} (D={D}): kernel 4's family instance on C={C} "
+              f"clusters, W={W}: {STEPS_CMP_FAM} steps, {n_dec} half-step "
+              f"decisions, {n_near} steps where a decision within {MARGIN} "
+              f"of its threshold went the other way, max |lp err| "
+              f"{err:.4g}; one launch of {n} steps {ms:.4f} ms = "
+              f"{1e3 * ms / n:.2f} us per step ("
+              + (f"{us / n:.2f} us of device time" if us else
+                 "device time not measured")
+              + f"; plain {plain:.1f} ms, bound {bound:.4f} ms) on {card}")
+        entries.append(dict(
+            name=f"stretch_steps_multicluster[{tag}]", route="cuda",
+            source="joxsz_torch/csrc/stretch_step.cu",
+            replaces="joxsz_tpu/ops/pallas_joint.py:1859",
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bound,
+            bound_by=("bytes" if nbytes / PEAK_BYTES_S > flops / PEAK_F32_S
+                      else "operations"), library_ms=None))
+        del sess, stack, survey
+    return entries, keys
+
+
+def write_family_spec(cfg, tmp: str, seed: int):
+    """C_SURVEY mock clusters of every family of SURVEY_MIX, each a
+    dataset of its own (``synth.write_observation``) simulated from the
+    family's model at ``survey.mock_truths`` (the truths the walkers start
+    beside, as ``survey --mock`` draws them); the spec lists them family
+    by family.  Returns (spec path, {cluster name: (tag, truth by
+    parameter)})."""
+    import copy
+    import numpy as np
+    from joxsz_torch import run
+    from joxsz_torch.simulate import simulate_survey
+    from joxsz_torch.survey import mock_truths
+    from joxsz_torch.synth import config_json, write_observation
+
+    entries, truths = [], {}
+    rng = np.random.default_rng(seed + 40)
+    for tag, flags in SURVEY_MIX:
+        args = run.build_parser().parse_args(list(flags))
+        fcfg = run.apply_model_flags(copy.deepcopy(cfg), args)
+        sess = family_session(cfg, flags)
+        th = mock_truths(sess.params, C_SURVEY)
+        survey = simulate_survey(sess.model, th, rng)
+        for k, obs in enumerate(survey.mocks):
+            name = f"{tag}{k}"
+            kcfg = write_observation(fcfg, obs, f"{tmp}/spec/{name}")
+            kcfg.name = name
+            entries.append({"name": name, "config": config_json(
+                kcfg, f"{tmp}/spec/{name}.json")})
+            truths[name] = (tag, dict(zip(sess.params.thawed, th[k])))
+        del sess, survey
+    spec = f"{tmp}/spec/survey.json"
+    with open(spec, "w") as f:
+        json.dump({"clusters": entries}, f)
+    return spec, truths
+
+
+def phase_survey_families(cfg, tmp: str, seed: int, keys: dict) -> dict:
+    """Phase 17b: ``survey.main`` on a --spec that mixes every family of
+    SURVEY_MIX (C_SURVEY clusters each, W=1024, 1000 burn + 1000 steps,
+    --save-chains) with the launch counters set to 0 just before it and
+    read just after, and the survey's fallback warning an error: every
+    group on kernel 4 (two launches each: burn, sampling), every truth
+    within 5 sd of its median, one chain file per cluster; then
+    ``--population P_0`` on a ``--mock 8`` flagship survey.  Returns the
+    launches of kernel 4 per family tag."""
+    import warnings
+    import numpy as np
+    from joxsz_torch import survey
+    from joxsz_torch.io.checkpoint import load_chain
+    from joxsz_torch.ops.multicluster_kernel import stretch_steps_multicluster
+    from joxsz_torch.synth import config_json
+
+    t0 = time.time()
+    spec, truths = write_family_spec(cfg, tmp, seed)
+    n_cl = len(truths)
+    print(f"[17] mixed-family spec of {n_cl} clusters written in "
+          f"{time.time() - t0:.1f} s: " + ", ".join(
+              f"{t} x {C_SURVEY}" for t, _ in SURVEY_MIX))
+    out = f"{tmp}/spec/summary.json"
+    zero_launches()
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*specialisation.*")
+        bundles = survey.main(["--spec", spec, "--walkers", str(W_SMOKE),
+                               "--seed", str(seed), "--save-chains",
+                               "--out", out])
+    wall = time.time() - t0
+    launches = read_launches()
+    by_family = dict(stretch_steps_multicluster.launches_by_family)
+    summary = json.loads(open(out).read())
+    check(isinstance(bundles, list) and len(bundles) == len(SURVEY_MIX),
+          f"mixed spec: {len(bundles)} family results")
+    check(summary["param_names"] is None
+          and len(summary["families"]) == len(SURVEY_MIX),
+          "mixed spec: the summary's families")
+    names = [c["name"] for c in summary["clusters"]]
+    check(names == list(truths), f"mixed spec: cluster order {names}")
+    worst = {}
+    for c in summary["clusters"]:
+        tag, truth = truths[c["name"]]
+        pulls = [abs(c["median"][k] - v) / max(c["sd"][k], 1e-12)
+                 for k, v in truth.items()]
+        worst[tag] = max(worst.get(tag, 0.0), max(pulls))
+        check(max(pulls) < 5.0, f"{c['name']}: a truth lies "
+              f"{max(pulls):.1f} sd from its median")
+        lo, hi = FAMILY_ACCEPTANCE
+        check(lo < c["acceptance"] < hi,
+              f"{c['name']}: acceptance {c['acceptance']}")
+    for fres, specs in bundles:
+        check(fres.timings is not None and np.all(np.isfinite(
+            fres.chain)), f"group {fres.param_names[:3]}: kernel route")
+    suffix = survey.chain_suffix()
+    for name in names:
+        d = load_chain(f"{tmp}/spec/{name}_chain{suffix}")
+        check(d["chain"].shape[1:] == (W_SMOKE, len(truths[name][1]))
+              and d["burn"] == 1000, f"{name}: chain file")
+    per_tag = {tag: by_family.get(keys[tag], 0) for tag in keys}
+    check(all(per_tag[t] == 2 for t, _ in SURVEY_MIX if t in per_tag)
+          and launches["stretch_steps_multicluster"] == 2 * len(SURVEY_MIX),
+          f"mixed spec launches {launches}, by family {per_tag}")
+    print(f"[17] mixed-family survey in {wall:.1f} s: {n_cl} clusters in "
+          f"{len(bundles)} families, largest pull per family "
+          + ", ".join(f"{t} {v:.2f}" for t, v in worst.items())
+          + f" sd; kernel 4 launches {launches['stretch_steps_multicluster']}"
+          f" (by family {per_tag}), kernel 1 {launches['joint_ll']}; "
+          f"{n_cl} chain files ({suffix})")
+
+    path = config_json(cfg, f"{tmp}/pop_base.json")
+    out = f"{tmp}/pop_summary.json"
+    t0 = time.time()
+    res = survey.main(["--mock", "8", "--config", path, "--walkers",
+                       str(W_SMOKE), "--seed", str(seed), "--population",
+                       "P_0", "--out", out])
+    pop = json.loads(open(out).read())["population"]
+    lm = np.log(res.medians[:, res.param_names.index("P_0")])
+    check(np.isfinite([pop["mu"], pop["sigma"]]).all()
+          and lm.min() - 0.5 < pop["mu"] < lm.max() + 0.5,
+          f"population {pop}")
+    print(f"[17] --mock 8 --population P_0 in {time.time() - t0:.1f} s: "
+          f"<ln P_0> = {pop['mu']:.4f} +- {pop['mu_sd']:.4f}, scatter "
+          f"{pop['sigma']:.4f} +- {pop['sigma_sd']:.4f}, acceptance "
+          f"{pop['acceptance']:.3f}, min weight n_eff "
+          f"{pop['weight_n_eff_min']:.0f} of {pop['n_samples']}")
+    return per_tag
+
+
+def phase_tables(tmp: str, seed: int):
+    """Phase 18: the count-rate table of a synthetic ~1000 x 1024 response
+    generated on the card against the CPU (rtol 1e-10), both timed; then a
+    synthetic cluster at z = 0.5 with no ``table_path`` fitted through
+    ``run.main --quick --no-plots`` with the tables directory in ``tmp``:
+    the table is generated there on the card, then the fit runs."""
+    import numpy as np
+    import torch
+    from joxsz_torch import build, run
+    from joxsz_torch.synth import (CL1226_BANDS_EV, config_json,
+                                   write_synthetic_dataset,
+                                   write_synthetic_response)
+    from joxsz_torch.tablegen import TableSpec, generate_table
+
+    rmf, arf = write_synthetic_response(pathlib.Path(f"{tmp}/resp"))
+    spec = TableSpec(rmf=rmf, arf=arf, bands_eV=tuple(
+        tuple(b) for b in CL1226_BANDS_EV), z=0.5, NH_1022pcm2=0.0183)
+    times = {}
+    for dev in ("cuda", "cpu"):
+        tab = None
+        for _ in range(2):              # the second call is timed
+            t0 = time.time()
+            tab = generate_table(spec, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            times[dev] = time.time() - t0
+        if dev == "cuda":
+            card_tab = tab
+    worst = 0.0
+    for k in ("lograte_Z0", "lograte_Z1", "logflux_Z0", "logflux_Z1"):
+        a, b = card_tab[k], tab[k]
+        worst = max(worst, float(np.max(np.abs(a - b) / np.abs(b))))
+        check(np.allclose(a, b, rtol=1e-10, atol=0),
+              f"table {k}: card vs CPU differ by {worst:.3g} relative")
+    print(f"[18] count-rate table (1000 energies x 1024 channels, 10 bands, "
+          f"64 T x 2 Z) on the card {times['cuda']:.3f} s, on the host CPU "
+          f"{times['cpu']:.3f} s; largest relative gap {worst:.3g}")
+
+    cfg = write_synthetic_dataset(f"{tmp}/z05", seed, redshift=0.5,
+                                  response=True)
+    check(cfg.xray.table_path is None, "z = 0.5 dataset has a table_path")
+    cfg.save_dir = f"{tmp}/z05/out"
+    path = config_json(cfg, f"{tmp}/z05/cfg.json")
+    tables = pathlib.Path(f"{tmp}/tables")
+    old = build.TABLES_DIR
+    build.TABLES_DIR = tables
+    try:
+        t0 = time.time()
+        res = run.main(["--config", path, "--quick", "--seed", str(seed)]
+                       + plot_flags())
+        wall = time.time() - t0
+    finally:
+        build.TABLES_DIR = old
+    made = sorted(tables.glob("ctrate_*.npz"))
+    acc = float(np.mean(res.acceptance_fraction))
+    check(len(made) == 1, f"generated tables {made}")
+    check(np.all(np.isfinite(res.chain)) and 0.1 < acc < 0.6,
+          f"z = 0.5 fit: acceptance {acc} or non-finite chain")
+    print(f"[18] z = 0.5 cluster without a table: {made[0].name} generated "
+          f"on the card, then fitted in {wall:.1f} s (MLE "
+          f"{res.timings['mle_s']:.1f} s), acceptance {acc:.3f}")
+    return times
+
+
 def all_launches() -> dict:
     from joxsz_torch.ops.coupled_kernel import coupled_half
     from joxsz_torch.ops.joint_kernel import joint_ll
@@ -1826,6 +2131,7 @@ def zero_launches():
     for fn in all_launches().values():
         fn.launches = 0
     all_launches()["stretch_steps"].launches_tempered = 0
+    all_launches()["stretch_steps_multicluster"].launches_by_family.clear()
 
 
 def read_launches() -> dict:
@@ -2190,6 +2496,9 @@ def main() -> int:
         del sess, c
         phase_large_shapes(args.seed)
         kf = phase_families(cfg, args.seed)
+        # kernel 4's family instance beside phase 14's kernels (the
+        # profiler's device times are read before the fits' phases)
+        k17, keys = phase_cluster_grid_families(cfg, args.seed)
         main_path = phase_main_path(cfg, tmp, args.seed)
         launches, path, res5 = main_path[:3]
         for k in (k1, k2, k3):
@@ -2204,11 +2513,15 @@ def main() -> int:
             kernel, tag = k["name"][:-1].split("[")
             fit = fits["config4_mesh" if kernel == "coupled_half" else tag]
             k["launches"] = fit["launches"][kernel]
+        per_tag = phase_survey_families(cfg, tmp, args.seed, keys)
+        for k in k17:
+            k["launches"] = per_tag[k["name"][:-1].split("[")[1]]
+        phase_tables(tmp, args.seed)
         order = ("name", "route", "source", "replaces", "launches",
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")
         kernels = [{key: k[key] for key in order}
-                   for k in (k1, k2, k3, k4, k5, k6, *kf)]
+                   for k in (k1, k2, k3, k4, k5, k6, *kf, *k17)]
         r4 = rows[f"K={K_SMOKE}, W={W_SMOKE}"]
         print(f"tempered step W={W_SMOKE} K={K_SMOKE}: "
               f"{1e3 * r4['ms'] / TIME_STEPS:.2f} us by CUDA events, "

@@ -14,8 +14,8 @@ parity tests evaluate one function in both packages.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import pathlib
+import time
 
 import numpy as np
 import torch
@@ -32,10 +32,14 @@ from .models import (GNFWPressure, KnotPressure, VikhlininDensity,
                      CountRateTable, JointModel, Param, ParamSet,
                      build_reference_params)
 from .ops.szkernel import build_sz_operator, SZOperator
+from .tablegen.generate import (SPECTRAL_MODEL_VERSION, TableSpec,
+                                generate_table, save_table)
 
-# spectral-model version the count-rate table's metadata must carry
-# (joxsz_tpu/tablegen/generate.py, checked at joxsz_tpu/build.py:191-193)
-SPECTRAL_MODEL_VERSION = 2
+REPO = pathlib.Path(__file__).resolve().parents[1]
+# the bundled table of CL J1226
+BUNDLED_TABLE = REPO / "data" / "tables" / "cl1226_ctrate.npz"
+# where find_table looks for and writes generated tables, ctrate_<key>.npz
+TABLES_DIR = REPO / "data" / "tables"
 
 
 @dataclasses.dataclass
@@ -111,7 +115,7 @@ def build_session(cfg: JoXSZConfig, device=None, dtype=torch.float64,
         annuli = Annuli(edges_arcmin=bands[0].edges_arcmin, cosmology=cosmo)
         edges_logkpc = annuli.edges_logkpc
         table = CountRateTable.from_npz(
-            find_table(cfg, dtype), dtype=dtype, device=dev,
+            find_table(cfg, dtype, device=dev), dtype=dtype, device=dev,
             expect=table_expect(cfg))
         xray_data = XrayData.build(bands, annuli, table, dtype=dtype,
                                    device=dev)
@@ -169,22 +173,22 @@ def table_expect(cfg: JoXSZConfig) -> dict:
             "model_version": SPECTRAL_MODEL_VERSION}
 
 
-def find_table(cfg: JoXSZConfig, dtype=torch.float64) -> str:
+def find_table(cfg: JoXSZConfig, dtype=torch.float64, device=None) -> str:
     """The count-rate table of ``cfg``: ``xray.table_path`` where it
-    exists, else the first of ``data/tables/ctrate_<key>.npz`` and the
-    bundled ``data/tables/cl1226_ctrate.npz`` whose metadata match the
-    config's redshift, column, bands and spectral-model version
-    (``joxsz_tpu/build.py:194-221``; <key> is ``TableSpec.key``).  Table
-    generation is not ported: where none matches, this raises."""
+    exists, else the first of ``TABLES_DIR/ctrate_<key>.npz`` and the
+    bundled ``cl1226_ctrate.npz`` whose metadata match the config's
+    redshift, column, bands and spectral-model version (<key> is
+    ``TableSpec.key``); where none matches, the table is generated from
+    the config's RMF/ARF on ``device`` (default: the card) and saved as
+    ``TABLES_DIR/ctrate_<key>.npz`` (``joxsz_tpu/build.py:194-221``)."""
     path = cfg.xray.table_path
     if path is not None and pathlib.Path(path).exists():
         return path
     spec = TableSpec(rmf=cfg.xray.rmf, arf=cfg.xray.arf,
                      bands_eV=tuple(cfg.xray.bands_eV), z=cfg.redshift,
                      NH_1022pcm2=cfg.xray.NH_1022pcm2)
-    tables = pathlib.Path(__file__).resolve().parents[1] / "data" / "tables"
-    for cand in (tables / f"ctrate_{spec.key()}.npz",
-                 tables / "cl1226_ctrate.npz"):
+    generated = pathlib.Path(TABLES_DIR) / f"ctrate_{spec.key()}.npz"
+    for cand in (generated, BUNDLED_TABLE):
         if not cand.exists():
             continue
         try:
@@ -194,31 +198,14 @@ def find_table(cfg: JoXSZConfig, dtype=torch.float64) -> str:
         except ValueError:
             continue
         return str(cand)
-    raise NotImplementedError(
-        f"no count-rate table matches z={cfg.redshift}, NH="
-        f"{cfg.xray.NH_1022pcm2}, these bands and spectral model "
-        f"v{SPECTRAL_MODEL_VERSION}, and table generation is not ported "
-        "(ROADMAP.md Queue A item 5): point xray.table_path at a table")
-
-
-@dataclasses.dataclass(frozen=True)
-class TableSpec:
-    """What a generated count-rate table depends on: the fields, defaults
-    and repr of ``joxsz_tpu/tablegen/generate.py::TableSpec``, whose
-    repr keys the generated tables' file names."""
-
-    rmf: str
-    arf: str
-    bands_eV: tuple
-    z: float
-    NH_1022pcm2: float
-    Tmin: float = 0.06
-    Tmax: float = 60.0
-    nT: int = 64
-    model_version: int = SPECTRAL_MODEL_VERSION
-
-    def key(self) -> str:
-        return hashlib.sha256(repr(self).encode()).hexdigest()[:12]
+    dev = resolve_device(device)
+    print(f"no count-rate table matches z={cfg.redshift}, NH="
+          f"{cfg.xray.NH_1022pcm2} and these bands: generating {generated} "
+          f"from {cfg.xray.rmf} and {cfg.xray.arf} on {dev}")
+    t0 = time.time()
+    save_table(str(generated), generate_table(spec, device=dev))
+    print(f"count-rate table generated in {time.time() - t0:.2f} s")
+    return str(generated)
 
 
 # -- the arrays that define a session ----------------------------------------

@@ -15,7 +15,7 @@ here there is one implementation, and both are held against it.
 
 The clusters must share array shapes (map geometry, annuli and band
 counts); group heterogeneous surveys by shape and run one stack per
-group (``joxsz_torch.survey``).
+group (``joxsz_torch.survey``).  An SZ-only model has no X-ray stack.
 """
 
 from __future__ import annotations
@@ -91,24 +91,36 @@ def n_clusters(stack) -> int:
         else stack.counts_mask.shape[0]
 
 
-def make_multicluster_log_like(model, sz_stack: SZData, xray_stack: XrayData):
+def make_multicluster_log_like(model, sz_stack: SZData | None,
+                               xray_stack: XrayData | None):
     """(C, W, D) parameter block -> (C, W) log-posteriors.
 
     ``model`` (a single-cluster ``JointModel``) provides components and
-    priors; the stacks provide each cluster's observations.  Both stacks
-    are required: a model with data bound and a missing stack would have
-    to guess between reusing its one bound dataset and dropping the
-    probe."""
-    if sz_stack is None or xray_stack is None:
+    priors; the stacks provide each cluster's observations.  A stack is
+    None exactly where the model has no data of that probe bound (an
+    SZ-only model takes ``xray_stack=None``; every model has SZ data): a
+    None stack beside bound data would have to guess between reusing the
+    one bound dataset for every cluster and dropping the probe, so it is
+    refused, as ``joxsz_tpu/models/multicluster.py`` refuses it.  Every model family
+    evaluates through ``model.log_like_batch``, one cluster at a time;
+    the JAX package's two lowerings (nested vmap, flat widened GEMM) give
+    the numbers this one function gives."""
+    if sz_stack is None:
+        raise ValueError("pass both stacked SZData (stack_sz_data) and "
+                         "stacked XrayData: every model has SZ data bound")
+    if xray_stack is None and model.xray_data is not None:
         raise ValueError(
-            "pass both stacked SZData (stack_sz_data) and stacked XrayData "
-            "(stack_xray_data): the model has both probes bound")
+            "pass both stacked SZData and stacked XrayData "
+            "(stack_xray_data) where the model has both probes bound: "
+            "xray_stack is None but the model has X-ray data bound (build "
+            "the model SZ-only to fit the SZ data alone)")
     C = n_clusters(sz_stack)
-    if n_clusters(xray_stack) != C:
+    if xray_stack is not None and n_clusters(xray_stack) != C:
         raise ValueError(f"{C} SZ clusters but {n_clusters(xray_stack)} "
                          "X-ray clusters")
     szs = [unstack(sz_stack, c) for c in range(C)]
-    xrs = [unstack(xray_stack, c) for c in range(C)]
+    xrs = ([None] * C if xray_stack is None
+           else [unstack(xray_stack, c) for c in range(C)])
 
     def batched(thetas: torch.Tensor) -> torch.Tensor:
         if thetas.dim() != 3 or thetas.shape[0] != C:

@@ -102,6 +102,14 @@ def detect_family(thawed, has_xray: bool = True):
             {n: i for i, n in enumerate(thawed)})
 
 
+def family_key(ints: dict) -> tuple:
+    """The ints that pick a layout's branches of the likelihood
+    (``detect_family``'s codes, the knot count, X-ray and line_scale
+    presence): equal for every cluster of a stack."""
+    return tuple(int(ints[k]) for k in ("p_fam", "t_fam", "d_fam",
+                                         "n_knots", "has_xray", "has_ls"))
+
+
 def knot_table(knots_logr, logq, slopes: bool = False) -> np.ndarray:
     """The clamped lerp of knot values in log10 r at the radii ``logq``
     (log10), one row per radius: (segment i, weight of knot i, weight of

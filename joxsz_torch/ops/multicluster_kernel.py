@@ -14,6 +14,14 @@ H), H - 1)`` in the *same cluster's* fixed half, ``_stretch_z``,
 ``_gw_accept``, acceptance counted in float32, no swap sweep.  The kernel
 writes every cluster's thinned frames itself.
 
+Every model family runs here: a stack of knot-pressure, Vikhlinin-T,
+double-density, line_scale or SZ-only clusters takes the kernel's family
+instance (``stretch_steps_fam_kernel`` / ``_fam_large_``, picked from the
+packed ints as for kernels 1 and 6), each cluster's constants (its knot
+tables too) at ``buf + cluster * stride`` over the family's longer
+layout; ``launches_by_family`` counts the launches per
+``consts_layout.family_key``.
+
 Like the TPU kernel it keeps the unpacked state layout and the one-hot
 partner law only, which is meant for survey-scale ensembles (W up to
 ~4096 per cluster); the hashed-roll partner law of the single-cluster
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import torch
 
+from .consts_layout import family_key
 from .joint_kernel import JointConstsStack, joint_ll, joint_ll_plain
 from .step_kernel import (check_schedule, check_state_tensors, frames_out,
                           half_step_plain, launch_steps, philox_stream)
@@ -146,7 +155,12 @@ def stretch_steps_multicluster(x, lp, acc, seed: int, n_steps: int,
                  chain, chain_lp, 1, stack.stride, stack.buf, stack.params,
                  "stretch_steps_multicluster")
     stretch_steps_multicluster.launches += 1
+    by = stretch_steps_multicluster.launches_by_family
+    key = family_key(stack.ints)
+    by[key] = by.get(key, 0) + 1
     return chain, chain_lp
 
 
+# launches, and launches per model family (consts_layout.family_key)
 stretch_steps_multicluster.launches = 0
+stretch_steps_multicluster.launches_by_family = {}

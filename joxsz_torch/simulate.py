@@ -30,8 +30,8 @@ class MockObservation:
     theta_true: np.ndarray              # generating parameter vector
     sz_flux: np.ndarray                 # noisy mock flux (data radii)
     sz_flux_true: np.ndarray            # noiseless model flux
-    xray_counts: np.ndarray             # noisy mock counts (band, annulus)
-    xray_pred_true: np.ndarray          # noiseless predicted counts
+    xray_counts: np.ndarray | None      # noisy mock counts (band, annulus)
+    xray_pred_true: np.ndarray | None   # noiseless predicted counts
 
 
 def simulate_observation(model, theta, rng: np.random.Generator, *,
@@ -39,7 +39,10 @@ def simulate_observation(model, theta, rng: np.random.Generator, *,
                          xray_noise: bool = True) -> MockObservation:
     """Draw one mock observation of ``model`` at parameter vector
     ``theta`` and return a copy of the model with the mock data bound
-    (same shapes, masks and exposures as the originals).
+    (same shapes, masks and exposures as the originals).  Any model
+    family simulates through its own forward model; an SZ-only model
+    (``xray_data`` None) draws the SZ flux alone and its X-ray fields
+    stay None (``joxsz_tpu/simulate.py:87-118``).
 
     ``sz_noise=False`` / ``xray_noise=False`` bind the noiseless model
     prediction instead.  The vector is not checked against the priors:
@@ -51,13 +54,19 @@ def simulate_observation(model, theta, rng: np.random.Generator, *,
     with torch.no_grad():
         prof = model.sz_profile(th)
         sz_true = (prof @ sz.G.T)[0].cpu().numpy()
-        xr_true = model.xray_profiles(th)[0].cpu().numpy()
+        xr_true = (None if xr is None
+                   else model.xray_profiles(th)[0].cpu().numpy())
 
     err = sz.flux_err.cpu().numpy()
     sz_flux = sz_true + (rng.normal(0.0, err) if sz_noise else 0.0)
     new_sz = dataclasses.replace(
         sz, flux=torch.as_tensor(sz_flux, dtype=sz.flux.dtype,
                                  device=sz.flux.device))
+    if xr is None:
+        return MockObservation(
+            model=dataclasses.replace(model, sz_data=new_sz),
+            theta_true=theta, sz_flux=sz_flux, sz_flux_true=sz_true,
+            xray_counts=None, xray_pred_true=None)
 
     mask = xr.counts_mask.cpu().numpy() > 0
     # support guard over the valid cells: the prediction must be strictly
@@ -87,7 +96,7 @@ class MockSurvey:
     """C independent mock clusters stacked for the multicluster paths."""
 
     sz_stack: object                    # stacked SZData (leading C axis)
-    xray_stack: object                  # stacked XrayData (leading C axis)
+    xray_stack: object | None           # stacked XrayData; None: SZ-only
     mocks: list                         # per-cluster MockObservation
     thetas_true: np.ndarray             # (C, ndim) generating vectors
 
@@ -105,5 +114,6 @@ def simulate_survey(model, thetas, rng: np.random.Generator, *,
                                   xray_noise=xray_noise) for t in thetas]
     return MockSurvey(
         sz_stack=stack_sz_data([m.model.sz_data for m in mocks]),
-        xray_stack=stack_xray_data([m.model.xray_data for m in mocks]),
+        xray_stack=(None if model.xray_data is None else stack_xray_data(
+            [m.model.xray_data for m in mocks])),
         mocks=mocks, thetas_true=thetas)

@@ -23,24 +23,41 @@ Two modes:
       {"clusters": [{"name": "cl1", "config": "cl1.json"},
                     {"name": "cl2", "config": "cl2.json"}]}
 
-  Clusters are grouped by thawed parameter vector and stack signature
-  (map geometry, every data tensor's shape, the priors), one batched fit
-  runs per group, and the groups merge back into one result in spec
-  order.
+  Clusters are grouped by model family (the thawed parameter vector) and
+  stack signature (map geometry, every data tensor's shape, the priors),
+  one batched fit runs per group — each group on the kernel instance of
+  its family (``joint_ll.cuh`` picks the flagship body or the family
+  body from the packed constants) — and the groups of one family merge
+  back into one result in spec order.  A spec that mixes families gives
+  one result per family: the summary's ``param_names`` is null, its
+  ``families`` lists each family's vector, its clusters stay in spec
+  order, and ``main`` returns the per-family bundles.  SZ-only clusters
+  (configs without an X-ray part, or all clusters with ``--sz-only``)
+  are a family of their own; unlike ``joxsz_tpu/survey.py``, which
+  refuses it, a spec may mix them with joint clusters.
 
 * ``--mock C`` — injection-recovery: C clusters simulated from the base
   configuration (``--config``) at distinct true parameters through the
   likelihood's own forward and noise models (``joxsz_torch.simulate``),
   fit jointly, recovered medians compared with the injected truths.
 
+After the fit, ``--save-chains`` writes one chain per cluster beside
+``--out`` (``<name>_chain.hdf5`` in the emcee layout, its ``.npz`` twin
+where h5py is missing), and ``--population PARAM[:FAMILY]`` runs the
+stage-2 hierarchical fit of one parameter over every cluster
+(``sampling.population``; one model family only).
+
 Usage:
     python -m joxsz_torch.survey --mock 4 --config cfg.json
     python -m joxsz_torch.survey --mock 2 --config cfg.json --cpu --quick
+    python -m joxsz_torch.survey --mock 3 --config cfg.json --sz-only
     python -m joxsz_torch.survey --spec survey.json --walkers 256
     python -m joxsz_torch.survey --mock 4 --config cfg.json --mesh 4
+    python -m joxsz_torch.survey --mock 8 --config cfg.json --population P_0
+    python -m joxsz_torch.survey --spec survey.json --save-chains
 
-Not ported yet: the ``--multihost*`` group, ``--population``,
-``--save-chains``, ``--sz-only``.
+Not ported yet: the ``--multihost*`` group (ROADMAP.md Queue A item
+8.2).
 """
 
 from __future__ import annotations
@@ -224,6 +241,8 @@ def _fit_survey_kernel(session, sz_stack, xray_stack, centers, *,
 def _tensor_shapes(data) -> tuple:
     import torch
 
+    if data is None:
+        return ("none",)
     out = []
     for f in dataclasses.fields(data):
         v = getattr(data, f.name)
@@ -250,12 +269,15 @@ def _stack_signature(sess) -> tuple:
 def _model_fingerprint(sess) -> tuple:
     """Model-level settings a batched group shares from its
     representative session: the prior boxes and Gaussians, the frozen
-    parameter values and the physicality-veto flag.  Two clusters with
-    equal shapes but other priors must not batch: the group fit would
-    apply the first cluster's model to all."""
+    parameter values, the physicality-veto flag and, for knot pressure,
+    the knots' radii.  Two clusters with equal shapes but other priors
+    must not batch: the group fit would apply the first cluster's model
+    to all."""
     p = sess.params
     frozen = tuple((n, float(p[n].val)) for n in p.names if p[n].frozen)
+    knots = getattr(sess.model.pressure, "knots_logr", None)
     return (bool(sess.model.exclude_unphysical_mass), frozen,
+            () if knots is None else tuple(np.asarray(knots, float)),
             tuple(np.asarray(p.lo, float)), tuple(np.asarray(p.hi, float)),
             tuple(bool(g) for g in np.asarray(p.is_gauss)),
             tuple(np.asarray(p.mu, float)),
@@ -289,7 +311,7 @@ def _merge_survey_results(results: list[SurveyResult],
         for i, c in enumerate(idxs):
             names[c] = res.cluster_names[i]
             if truths is not None and res.truths is not None:
-                truths[c] = res.truths[i]
+                truths[c] = res.truths[i]       # a group without: NaN rows
     timings = None
     if any(r.timings is not None for r in results):
         timings = {"groups": [r.timings for r in results]}
@@ -299,28 +321,12 @@ def _merge_survey_results(results: list[SurveyResult],
         medians=medians, sds=sds, truths=truths, timings=timings)
 
 
-def _flagship(sess):
-    """``sess`` if it is the flagship family (gNFW pressure, UPP
-    temperature, single density, joint SZ + X-ray, line_scale frozen):
-    the survey's kernels take no other yet."""
-    from .build import family, family_name
-
-    m = sess.model
-    if (family(m) != ("gnfw", "upp", "single") or m.xray_data is None
-            or "line_scale" in sess.params.thawed):
-        raise NotImplementedError(
-            f"the survey fits the flagship family only; this cluster is "
-            f"{family_name(m)}{'' if m.xray_data is not None else ', SZ-only'}"
-            ": model families on the cluster grid (kernel 4) and in survey "
-            "--spec are ROADMAP.md Queue A item 7")
-    return sess
-
-
 def _build_spec_survey(spec_path, args, device):
-    """--spec: one session per per-cluster config; clusters grouped by
-    (thawed vector, stack signature), data stacked per group.  Returns a
-    list of groups ``(session, sz_stack, xray_stack, centers, names,
-    truths, orig_indices)``."""
+    """--spec: one session per per-cluster config (SZ-only with
+    ``args.sz_only``); clusters grouped by (thawed vector, stack
+    signature), data stacked per group.  Returns a list of groups
+    ``(session, sz_stack, xray_stack, centers, names, truths,
+    orig_indices)``; ``xray_stack`` is None for an SZ-only group."""
     from .build import build_session
     from .config import JoXSZConfig
     from .models.multicluster import stack_sz_data, stack_xray_data
@@ -337,8 +343,11 @@ def _build_spec_survey(spec_path, args, device):
             cfgp = pathlib.Path(spec_path).parent / cfgp
         cfg = JoXSZConfig.from_json(cfgp.read_text())
         names.append(e.get("name", cfg.name))
-        sessions.append(_flagship(build_session(cfg, device=device)))
+        sessions.append(build_session(
+            cfg, device=device, sz_only=getattr(args, "sz_only", False)))
 
+    # per-cluster centres as a list: families thaw vectors of other
+    # lengths, so each group stacks its own below
     centers = [np.asarray(s.params.thawed_values()) for s in sessions]
     if getattr(args, "mle", False):
         for c, s in enumerate(sessions):
@@ -353,19 +362,37 @@ def _build_spec_survey(spec_path, args, device):
             (tuple(s.params.thawed), _stack_signature(s)), []).append(i)
     groups = []
     for idxs in by_sig.values():
+        sz_only = sessions[idxs[0]].model.xray_data is None
         groups.append((
             sessions[idxs[0]],
             stack_sz_data([sessions[i].model.sz_data for i in idxs]),
-            stack_xray_data([sessions[i].model.xray_data for i in idxs]),
+            None if sz_only else stack_xray_data(
+                [sessions[i].model.xray_data for i in idxs]),
             np.stack([centers[i] for i in idxs]),
             [names[i] for i in idxs], None, idxs))
     return groups
 
 
+def mock_truths(params, C: int) -> np.ndarray:
+    """(C, D) injected truths of a mock survey: the parameter set's values
+    with the pressure spread by x0.7..1.3 (``P_0``; for knot pressure every
+    knot value by log10 of the factor) and ``\\beta`` by -0.03..0.03."""
+    names = list(params.thawed)
+    truths = np.tile(np.asarray(params.thawed_values()), (C, 1))
+    scale = np.linspace(0.7, 1.3, C)
+    if "P_0" in names:
+        truths[:, names.index("P_0")] *= scale
+    else:
+        knots = [i for i, n in enumerate(names) if n.startswith("logP_")]
+        truths[:, knots] += np.log10(scale)[:, None]
+    if "\\beta" in names:
+        truths[:, names.index("\\beta")] += np.linspace(-0.03, 0.03, C)
+    return truths
+
+
 def _build_mock_survey(C, args, device):
-    """--mock C: simulate C clusters from the base configuration, at
-    truths that spread ``P_0`` by x0.7..1.3 and ``\\beta`` by -0.03..0.03
-    around the configuration's parameter values."""
+    """--mock C: simulate C clusters from the base configuration (SZ-only
+    with ``args.sz_only``) at ``mock_truths``."""
     from .build import build_session
     from .config import JoXSZConfig
     from .simulate import simulate_survey
@@ -377,17 +404,43 @@ def _build_mock_survey(C, args, device):
     else:
         raise SystemExit("--mock needs a base configuration: pass --config "
                          "(or --data-dir with the CL J1226 data files)")
-    sess = _flagship(build_session(cfg, device=device))
-    theta0 = np.asarray(sess.params.thawed_values())
-    names = list(sess.params.thawed)
-    rng = np.random.default_rng(args.seed)
-    truths = np.tile(theta0, (C, 1))
-    truths[:, names.index("P_0")] *= np.linspace(0.7, 1.3, C)
-    if "\\beta" in names:
-        truths[:, names.index("\\beta")] += np.linspace(-0.03, 0.03, C)
-    survey = simulate_survey(sess.model, truths, rng)
+    sess = build_session(cfg, device=device, sz_only=args.sz_only)
+    truths = mock_truths(sess.params, C)
+    survey = simulate_survey(sess.model, truths,
+                             np.random.default_rng(args.seed))
     return (sess, survey.sz_stack, survey.xray_stack, truths,
             [f"mock{c}" for c in range(C)], truths)
+
+
+def chain_suffix() -> str:
+    """The chains' file suffix here: ``.hdf5`` where h5py is importable,
+    else the ``.npz`` twin (``io.checkpoint.save_chain``)."""
+    from .io.checkpoint import has_h5py
+
+    return ".hdf5" if has_h5py() else ".npz"
+
+
+def _merge_by_family(results: list[SurveyResult], orders: list[list[int]]):
+    """The groups' results merged per model family (its thawed vector):
+    ``[(result, spec indices in its row order)]`` in the order families
+    first appear.  Groups of one family merge as
+    ``_merge_survey_results`` does; families' chains have other widths,
+    so they stay apart (``joxsz_tpu/survey.py:954-972``)."""
+    byfam: dict[tuple, list[int]] = {}
+    for gi, r in enumerate(results):
+        byfam.setdefault(tuple(r.param_names), []).append(gi)
+    bundles = []
+    for gis in byfam.values():
+        if len(gis) == 1:
+            bundles.append((results[gis[0]], list(orders[gis[0]])))
+            continue
+        specs = sorted(i for gi in gis for i in orders[gi])
+        pos = {sp: k for k, sp in enumerate(specs)}
+        bundles.append((_merge_survey_results(
+            [results[gi] for gi in gis],
+            [[pos[i] for i in orders[gi]] for gi in gis], len(specs)),
+            specs))
+    return bundles
 
 
 def main(argv=None):
@@ -404,6 +457,9 @@ def main(argv=None):
                     "--mock when no --config is given)")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the kernels' plain versions)")
+    ap.add_argument("--sz-only", action="store_true",
+                    help="fit the SZ data alone (the X-ray parts of the "
+                         "configurations are ignored)")
     ap.add_argument("--quick", action="store_true",
                     help="short schedule for smoke testing")
     ap.add_argument("--walkers", type=int, default=64)
@@ -417,7 +473,19 @@ def main(argv=None):
                          "clusters per device; N must divide C")
     ap.add_argument("--mle", action="store_true",
                     help="per-cluster MLE warm starts (spec mode)")
+    ap.add_argument("--population", metavar="PARAM[:FAMILY]",
+                    help="stage-2 hierarchical population inference on "
+                         "one fitted parameter (family 'lognormal' "
+                         "[default] or 'gaussian'): posterior of the "
+                         "population mean and intrinsic scatter "
+                         "(sampling/population.py); e.g. 'P_0' or "
+                         "'\\beta:gaussian'")
     ap.add_argument("--out", default="survey_summary.json")
+    ap.add_argument("--save-chains", action="store_true",
+                    help="write one chain per cluster beside --out "
+                         "(<name>_chain.hdf5 in the emcee layout, or its "
+                         ".npz twin without h5py; usable with run.py "
+                         "--postprocess)")
     args = ap.parse_args(argv)
 
     from .device import resolve_device
@@ -425,6 +493,9 @@ def main(argv=None):
     device = resolve_device("cpu" if args.cpu else None)
     if args.quick:
         args.walkers, args.burn, args.steps, args.thin = 32, 150, 150, 5
+    # the chains' format is settled before the fit, so a missing writer
+    # cannot lose a finished survey
+    suffix = chain_suffix() if args.save_chains else None
 
     t0 = time.time()
     if args.spec:
@@ -435,8 +506,15 @@ def main(argv=None):
         groups = [(sess, sz_stack, xray_stack, centers, names, truths,
                    list(range(len(names))))]
     C = sum(len(g[6]) for g in groups)
-    print(f"survey of {C} clusters built in {time.time() - t0:.1f}s (joint "
-          f"SZ+X; {len(groups)} stack group(s); device {device})")
+    names = [None] * C
+    for g in groups:
+        for i, c in enumerate(g[6]):
+            names[c] = g[4][i]
+    n_xray = sum(len(g[6]) for g in groups if g[2] is not None)
+    probes = ("joint SZ+X" if n_xray == C else "SZ-only" if n_xray == 0
+              else f"joint SZ+X ({n_xray}) and SZ-only ({C - n_xray})")
+    print(f"survey of {C} clusters built in {time.time() - t0:.1f}s "
+          f"({probes}; {len(groups)} stack group(s); device {device})")
 
     mesh = None
     if args.mesh:
@@ -470,37 +548,94 @@ def main(argv=None):
             n_walkers=args.walkers, n_burn=args.burn, n_steps=args.steps,
             thin=args.thin, seed=args.seed + gi, truths=truths, mesh=gmesh))
         orders.append(idxs)
-    res = (results[0] if len(results) == 1
-           else _merge_survey_results(results, orders, C))
+    bundles = _merge_by_family(results, orders)
+    single_family = len(bundles) == 1
+    res = bundles[0][0]
+    # cluster c of the spec -> (its family's result, its row there)
+    where = {sp: (fres, local) for fres, specs in bundles
+             for local, sp in enumerate(specs)}
 
     evals = C * args.walkers * (args.burn + args.steps)
     wall = time.time() - t0
+    acc = np.array([where[c][0].acceptance[where[c][1]].mean()
+                    for c in range(C)])
     print(f"fit {C} x {args.walkers} walkers x {args.burn}+{args.steps} "
           f"steps in {wall:.1f}s ({evals / wall:.0f} evals/s); acceptance "
-          f"{np.round(res.acceptance.mean(axis=1), 3)}")
+          f"{np.round(acc, 3)}")
     for r, idxs in zip(results, orders):
         if r.timings is not None:
+            # this group's evals over its own wall time
             ts, tk = r.timings["setup_s"], r.timings["sampling_s"]
             evals_g = len(idxs) * args.walkers * (args.burn + args.steps)
-            print(f"  kernel route: {ts:.1f}s setup (constants, init) + "
-                  f"{tk:.1f}s burn+sampling ({evals_g / tk:.0f} evals/s)")
+            print(f"  kernel route ({len(r.param_names)} parameters): "
+                  f"{ts:.1f}s setup (constants, init) + {tk:.1f}s "
+                  f"burn+sampling ({evals_g / tk:.0f} evals/s)")
 
     for c in range(C):
-        print(f"--- {res.cluster_names[c]} ---")
-        for i, n in enumerate(res.param_names):
-            line = (f"  {n:>18} | {res.medians[c, i]:9.3f} "
-                    f"+- {res.sds[c, i]:7.3f}")
-            if res.truths is not None:
-                pull = ((res.medians[c, i] - res.truths[c, i])
-                        / max(res.sds[c, i], 1e-12))
-                line += (f"   truth {res.truths[c, i]:9.3f} "
+        fres, local = where[c]
+        print(f"--- {names[c]} ---")
+        for i, n in enumerate(fres.param_names):
+            line = (f"  {n:>18} | {fres.medians[local, i]:9.3f} "
+                    f"+- {fres.sds[local, i]:7.3f}")
+            if fres.truths is not None:
+                pull = ((fres.medians[local, i] - fres.truths[local, i])
+                        / max(fres.sds[local, i], 1e-12))
+                line += (f"   truth {fres.truths[local, i]:9.3f} "
                          f"(pull {pull:+.1f} sd)")
             print(line)
 
+    if single_family:
+        summary = res.to_dict()
+    else:
+        # rows in spec order, each with its own family's names; the flat
+        # 'param_names' means nothing across families
+        clusters = [None] * C
+        fam_names = []
+        for fres, specs in bundles:
+            d = fres.to_dict()
+            fam_names.append(d["param_names"])
+            for local, sp in enumerate(specs):
+                clusters[sp] = d["clusters"][local]
+        summary = {"param_names": None, "families": fam_names,
+                   "clusters": clusters}
+    if args.population:
+        if not single_family:
+            raise SystemExit(
+                "--population needs one shared model family (the "
+                "hierarchy pools ONE parameter across clusters); this "
+                f"spec mixes {len(bundles)} families — split the spec by "
+                "family")
+        from .sampling.population import population_from_survey
+
+        pspec = args.population.split(":")
+        family = pspec[1] if len(pspec) > 1 else "lognormal"
+        pres = population_from_survey(res, groups[0][0].params, pspec[0],
+                                      family=family, seed=args.seed,
+                                      device=device)
+        mu_label = ("ln " if family == "lognormal" else "") + pspec[0]
+        print(f"population ({family}): <{mu_label}> = {pres.mu:.4f} +- "
+              f"{pres.mu_sd:.4f}, intrinsic scatter sigma = "
+              f"{pres.sigma:.4f} +- {pres.sigma_sd:.4f} (min weight n_eff "
+              f"{pres.n_eff_weights.min():.0f} of {pres.n_samples} stage-1 "
+              "draws/cluster)")
+        summary["population"] = pres.to_dict()
+
     out = pathlib.Path(args.out)
-    out.write_text(json.dumps(res.to_dict(), indent=2))
+    out.write_text(json.dumps(summary, indent=2))
     print(f"written {out}")
-    return res
+
+    if suffix is not None:
+        from .io.checkpoint import save_chain
+
+        for c in range(C):
+            fres, local = where[c]
+            p = out.parent / f"{names[c]}_chain{suffix}"
+            save_chain(str(p), fres.chain[:, local], fres.log_prob[:, local],
+                       fres.acceptance[local], fres.param_names,
+                       nburn=args.burn, nthin=args.thin)
+            print(f"written {p}")
+    # a mixed-family survey has no single rectangular result
+    return res if single_family else bundles
 
 
 if __name__ == "__main__":

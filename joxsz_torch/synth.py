@@ -14,7 +14,12 @@ At another ``redshift`` the same recipe gives more pressure radii (542
 for a cluster at z = 0.3); the dataset then carries a copy of the
 count-rate table relabelled at that redshift, so its X-ray rates are CL
 J1226's, and the data are drawn from the same model, so a fit still
-recovers ``TRUTH``.
+recovers ``TRUTH``.  With ``response=True`` the dataset carries a
+synthetic Chandra-like response instead (an RMF of Gaussian
+redistribution, 1000 energies x 1024 channels, and an ARF) and no
+``table_path``: ``build_session`` generates the count-rate table at the
+dataset's own redshift (``build.find_table``), and the data are drawn
+through that table.
 
 The counts and fluxes are the port's own float64 model at ``TRUTH`` plus
 Poisson / Gaussian noise, so a fit should recover ``TRUTH``.  Smaller
@@ -141,19 +146,111 @@ def _table_at(root: pathlib.Path, redshift: float) -> str:
     return str(out)
 
 
+# the synthetic response: energy bins (keV), channels of 14.6 eV (the ACIS
+# channel width), Gaussian redistribution of sigma RMF_SIGMA(E) over a
+# window of RMF_WINDOW channels, and an effective area peaking near 1.5 keV
+RMF_ENERGIES = np.linspace(0.3, 10.3, 1001)
+RMF_CHANNELS, RMF_CHANNEL_KEV, RMF_WINDOW = 1024, 0.0146, 64
+
+
+def _fits_card(key: str, value) -> str:
+    v = (f"'{value}'" if isinstance(value, str) else
+         "T" if value is True else "F" if value is False else str(value))
+    return f"{key.ljust(8)}= {v}".ljust(80)
+
+
+def _fits_block(text_or_bytes) -> bytes:
+    b = (text_or_bytes.encode("ascii") if isinstance(text_or_bytes, str)
+         else text_or_bytes)
+    pad = b" " if isinstance(text_or_bytes, str) else b"\0"
+    return b + pad * ((-len(b)) % 2880)
+
+
+def _write_bintables(path: pathlib.Path, tables: list):
+    """A FITS file of an empty primary HDU and one BINTABLE per entry of
+    ``tables``: ``(extname, [(name, tform, (nrows, repeat) big-endian
+    array)], extra header cards)``."""
+    out = _fits_block("".join(_fits_card(k, v) for k, v in (
+        ("SIMPLE", True), ("BITPIX", 8), ("NAXIS", 0))) + "END".ljust(80))
+    for extname, cols, extra in tables:
+        nrows = cols[0][2].shape[0]
+        rows = np.concatenate([a.reshape(nrows, -1).view(np.uint8)
+                               for _, _, a in cols], axis=1)
+        cards = [("XTENSION", "BINTABLE"), ("BITPIX", 8), ("NAXIS", 2),
+                 ("NAXIS1", rows.shape[1]), ("NAXIS2", nrows),
+                 ("PCOUNT", 0), ("GCOUNT", 1), ("TFIELDS", len(cols))]
+        for i, (name, tform, _) in enumerate(cols, 1):
+            cards += [(f"TTYPE{i}", name), (f"TFORM{i}", tform)]
+        cards += list(extra) + [("EXTNAME", extname)]
+        out += _fits_block("".join(_fits_card(k, v) for k, v in cards)
+                           + "END".ljust(80))
+        out += _fits_block(rows.tobytes())
+    path.write_bytes(out)
+
+
+def write_synthetic_response(root: pathlib.Path) -> tuple[str, str]:
+    """Write ``root/X/synthetic.rmf`` and ``synthetic.arf`` (see the
+    constants above; F_CHAN 1-based with TLMIN4 = 1) and return their
+    paths."""
+    lo, hi = RMF_ENERGIES[:-1], RMF_ENERGIES[1:]
+    mid = 0.5 * (lo + hi)
+    nE, nC, win = mid.size, RMF_CHANNELS, RMF_WINDOW
+    ch_lo = RMF_CHANNEL_KEV * np.arange(nC)
+    centre = np.floor(mid / RMF_CHANNEL_KEV).astype(int)
+    first = np.clip(centre - win // 2, 0, nC - win)
+    cols = first[:, None] + np.arange(win)
+    sigma = 0.02 + 0.01 * np.sqrt(mid)[:, None]
+    w = np.exp(-0.5 * ((ch_lo[cols] + 0.5 * RMF_CHANNEL_KEV - mid[:, None])
+                       / sigma) ** 2)
+    w = 0.98 * w / w.sum(axis=1, keepdims=True)
+    f4, i4 = ">f4", ">i4"
+    (root / "X").mkdir(parents=True, exist_ok=True)
+    rmf, arf = root / "X" / "synthetic.rmf", root / "X" / "synthetic.arf"
+    _write_bintables(rmf, [
+        ("MATRIX", [("ENERG_LO", "1E", lo.astype(f4)),
+                    ("ENERG_HI", "1E", hi.astype(f4)),
+                    ("N_GRP", "1J", np.ones(nE, i4)),
+                    ("F_CHAN", "1J", (first + 1).astype(i4)),
+                    ("N_CHAN", "1J", np.full(nE, win, i4)),
+                    ("MATRIX", f"{win}E", w.astype(f4))], [("TLMIN4", 1)]),
+        ("EBOUNDS", [("CHANNEL", "1J", np.arange(1, nC + 1).astype(i4)),
+                     ("E_MIN", "1E", ch_lo.astype(f4)),
+                     ("E_MAX", "1E", (ch_lo + RMF_CHANNEL_KEV).astype(f4))],
+         [])])
+    area = 20.0 + 600.0 * np.exp(-0.5 * (np.log(mid / 1.5) / 0.6) ** 2)
+    _write_bintables(arf, [
+        ("SPECRESP", [("ENERG_LO", "1E", lo.astype(f4)),
+                      ("ENERG_HI", "1E", hi.astype(f4)),
+                      ("SPECRESP", "1E", area.astype(f4))], [])])
+    return str(rmf), str(arf)
+
+
 def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
                             n_sz: int = 19, max_radius_arcsec: float = 118.0,
                             extent_kpc: float = 5000.0,
                             redshift: float = 0.888,
-                            bands=CL1226_BANDS_EV) -> JoXSZConfig:
+                            bands=CL1226_BANDS_EV,
+                            response: bool = False) -> JoXSZConfig:
     """Write the dataset under ``out_dir`` and return its config (the
-    default sizes are the CL J1226 shapes).  Deterministic in ``seed``."""
+    default sizes are the CL J1226 shapes).  Deterministic in ``seed``.
+    ``response``: write the synthetic RMF/ARF and leave ``table_path``
+    unset (see the module's docstring); the table the data are drawn
+    through is generated on the CPU here and not kept."""
     from .build import build_session
     from .models.xray import predicted_counts
     from .models.sz import sz_brightness
 
     root = pathlib.Path(out_dir).resolve()
     rng = np.random.default_rng(seed)
+    table = rmf = arf = None
+    if response:
+        from .tablegen import TableSpec, generate_table, save_table
+
+        rmf, arf = write_synthetic_response(root)
+        table = root / "X" / "synthetic_ctrate.npz"
+        save_table(str(table), generate_table(TableSpec(
+            rmf=rmf, arf=arf, bands_eV=tuple(tuple(b) for b in bands),
+            z=redshift, NH_1022pcm2=XrayConfig.NH_1022pcm2), device="cpu"))
     cfg = JoXSZConfig(
         cluster_extent_kpc=extent_kpc,
         redshift=redshift,
@@ -164,7 +261,9 @@ def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
         xray=XrayConfig(fg_template=str(root / "X" / "fg_%04i_%04i.dat"),
                         bg_template=str(root / "X" / "bg_%04i_%04i.dat"),
                         bands_eV=tuple(tuple(b) for b in bands),
-                        table_path=_table_at(root, redshift)),
+                        table_path=(str(table) if response
+                                    else _table_at(root, redshift)),
+                        **({"rmf": rmf, "arf": arf} if response else {})),
         mcmc=MCMCConfig(seed=seed),
     )
     # pass 1: placeholder data, to evaluate the model at TRUTH
@@ -184,7 +283,49 @@ def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
     flux = model_flux + err * rng.standard_normal(n_sz)
     _write_files(root, n_annuli, n_sz, max_radius_arcsec, bands,
                  counts=counts, flux=flux)
+    if response:
+        table.unlink()
+        cfg.xray.table_path = None
     return cfg
+
+
+def write_observation(cfg: JoXSZConfig, obs, out_dir) -> JoXSZConfig:
+    """A copy of ``cfg``'s dataset under ``out_dir`` whose data are the
+    mock observation ``obs`` (``simulate.MockObservation``): its SZ flux
+    and, where it has them, its X-ray counts; beam, transfer function,
+    conversion table, backgrounds, exposures and the count-rate table stay
+    ``cfg``'s.  Returns the copy's config, with ``cfg``'s model settings;
+    a mock without X-ray counts gives an SZ-only config (no X-ray part),
+    so a ``survey --spec`` can list it beside joint clusters."""
+    import copy
+    import shutil
+
+    root = pathlib.Path(out_dir).resolve()
+    (root / "SZ").mkdir(parents=True, exist_ok=True)
+    new = copy.deepcopy(cfg)
+    flux = np.loadtxt(cfg.sz.flux_file)
+    flux[:, 1] = obs.sz_flux
+    new.sz.flux_file = str(root / "SZ" / "flux.dat")
+    np.savetxt(new.sz.flux_file, flux)
+    for field in ("tf_file", "conversion_file", "beam_file"):
+        src = getattr(cfg.sz, field, None)
+        if src:
+            dst = root / "SZ" / pathlib.Path(src).name
+            shutil.copyfile(src, dst)
+            setattr(new.sz, field, str(dst))
+    if obs.xray_counts is None or cfg.xray is None:
+        new.xray = None
+        return new
+    (root / "X").mkdir(parents=True, exist_ok=True)
+    new.xray.fg_template = str(root / "X" / "fg_%04i_%04i.dat")
+    new.xray.bg_template = str(root / "X" / "bg_%04i_%04i.dat")
+    for bi, (lo, hi) in enumerate(cfg.xray.bands_eV):
+        fg = np.loadtxt(cfg.xray.fg_template % (lo, hi))
+        fg[:, 2] = obs.xray_counts[bi]
+        np.savetxt(new.xray.fg_template % (lo, hi), fg)
+        shutil.copyfile(cfg.xray.bg_template % (lo, hi),
+                        new.xray.bg_template % (lo, hi))
+    return new
 
 
 def config_json(cfg: JoXSZConfig, path) -> str:

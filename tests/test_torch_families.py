@@ -23,9 +23,9 @@ through both packages' ``build_session`` from the same config:
 The rows are drawn around ``synth.truth_theta`` with one row each vetoed
 by the box, by r_c > r_s and by the HSE mass, and rows colder and hotter
 than the count-rate table's grid.  Beside them: a thawed layout outside
-every family raises in ``pack_consts``, the survey refuses a family, and
-the count-rate table is found without ``table_path`` as ``joxsz_tpu``
-finds it.
+every family raises in ``pack_consts``, the survey fits a family on the
+cluster grid, and the count-rate table is found without ``table_path``
+as ``joxsz_tpu`` finds it.
 """
 
 import copy
@@ -287,15 +287,27 @@ def test_layout_outside_every_family_raises(families):
 
 
 def test_survey_refuses_a_family(base_config, tmp_path):
-    """The survey's kernels take the flagship family only, and say where
-    the families on the cluster grid are queued."""
+    """The survey no longer refuses a family: a knot-pressure ``--mock 2``
+    runs on the cluster-grid route (the plain version of kernel 4's family
+    instance here), with no fallback warning, the truths spread in the
+    knot values."""
+    import warnings
+
     from joxsz_torch import survey
     from joxsz_torch.synth import config_json
 
     cfg, _, _ = family_configs(base_config, ("--pressure", "knots"))
     path = config_json(cfg, tmp_path / "knots.json")
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        survey.main(["--mock", "2", "--config", path, "--cpu", "--quick"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        res = survey.main(["--mock", "2", "--config", path, "--cpu",
+                           "--quick", "--out", str(tmp_path / "s.json")])
+    assert set(res.timings) == {"setup_s", "sampling_s"}
+    assert res.chain.shape == (30, 2, 32, FAMILIES["knots"][1])
+    k = [i for i, n in enumerate(res.param_names) if n.startswith("logP_")]
+    np.testing.assert_allclose(res.truths[1, k] - res.truths[0, k],
+                               np.log10(1.3 / 0.7))
+    assert np.all(np.isfinite(res.chain))
 
 
 def test_table_found_without_table_path(base_config):
@@ -325,14 +337,20 @@ def test_table_found_without_table_path(base_config):
     np.testing.assert_allclose(a[fin], b[fin], rtol=1e-9, atol=0)
 
 
-def test_no_matching_table_raises(base_config):
-    """Where no table matches the config, the port raises and names the
-    queued table generation instead of generating."""
+def test_no_matching_table_raises(base_config, tmp_path, monkeypatch):
+    """Where no table matches the config, the port generates one from the
+    config's RMF/ARF; without those files it raises before writing
+    anything into the tables directory."""
+    from joxsz_torch import build
+
+    monkeypatch.setattr(build, "TABLES_DIR", tmp_path / "tables")
     cfg = copy.deepcopy(base_config)
     cfg.xray.table_path = None
     cfg.redshift = 0.5
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        find_table(cfg)
+    cfg.xray.rmf = str(tmp_path / "missing.rmf")
+    with pytest.raises(FileNotFoundError, match="missing.rmf"):
+        find_table(cfg, device="cpu")
+    assert not (tmp_path / "tables").exists()
 
 
 def test_mle_runs_on_the_cpu_in_float64(families, monkeypatch):

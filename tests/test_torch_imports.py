@@ -55,7 +55,10 @@ EXPECTED = ["joxsz_torch.run", "joxsz_torch.survey", "joxsz_torch.simulate",
             "joxsz_torch.postproc", "joxsz_torch.postproc.summary",
             "joxsz_torch.postproc.profiles", "joxsz_torch.postproc.ppc",
             "joxsz_torch.postproc.pin", "joxsz_torch.plotting",
-            "joxsz_torch.plotting.figures"]
+            "joxsz_torch.plotting.figures", "joxsz_torch.sampling.population",
+            "joxsz_torch.io.ogip", "joxsz_torch.tablegen",
+            "joxsz_torch.tablegen.spectrum", "joxsz_torch.tablegen.generate",
+            "joxsz_torch.tablegen.import_xspec_cache"]
 # optional packages the port imports only inside the functions that need
 # them: the card may lack them, and importing the port must not
 LAZY = ("h5py", "matplotlib")
@@ -147,10 +150,12 @@ def test_chip_smoke_alone_fails(tmp_path):
 
 
 @pytest.mark.parametrize("cpu", [False, True], ids=["card", "cpu"])
-@pytest.mark.parametrize("entry", ["run", "survey"])
+@pytest.mark.parametrize("entry", ["run", "survey", "tablegen.generate",
+                                   "tablegen.import_xspec_cache"])
 def test_entry_points_ask_for_the_card_unless_cpu(entry, cpu, monkeypatch):
-    """``run.main`` and ``survey.main`` resolve their device first:
-    ``None`` (the card, or an error without one) unless ``--cpu``."""
+    """``run.main``, ``survey.main`` and the table CLIs resolve their
+    device first: ``None`` (the card, or an error without one) unless
+    ``--cpu``."""
     import importlib
 
     import joxsz_torch.device
@@ -162,8 +167,13 @@ def test_entry_points_ask_for_the_card_unless_cpu(entry, cpu, monkeypatch):
         raise Asked(device)
 
     monkeypatch.setattr(joxsz_torch.device, "resolve_device", spy)
+    table = ["--rmf", "none.rmf", "--arf", "none.arf", "--z", "0.5",
+             "--nh", "0.01", "--out", "none.npz"]
     argv = {"run": ["--config", "none.json"],
-            "survey": ["--mock", "2", "--config", "none.json"]}[entry]
+            "survey": ["--mock", "2", "--config", "none.json"],
+            "tablegen.generate": table,
+            "tablegen.import_xspec_cache": table + ["--cache", "none.h5"],
+            }[entry]
     main = importlib.import_module(f"joxsz_torch.{entry}").main
     with pytest.raises(Asked) as asked:
         main(argv + (["--cpu"] if cpu else []))

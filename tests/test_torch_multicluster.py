@@ -71,7 +71,7 @@ def jax_stacks(js, n: int):
 
 def port_stacks_from_jax(jsz, jxr, dtype=torch.float64):
     """The port's stacked containers holding the numbers of the JAX
-    package's stacked ones."""
+    package's stacked ones (``jxr`` None: an SZ-only stack, X-ray None)."""
     def t(a):
         return torch.tensor(np.asarray(a, dtype=np.float64), dtype=dtype)
 
@@ -84,6 +84,8 @@ def port_stacks_from_jax(jsz, jxr, dtype=torch.float64):
         calc_integ=bool(jsz.calc_integ),
         integ_mu=t(np.broadcast_to(np.asarray(jsz.integ_mu), (n,))),
         integ_sig=t(np.broadcast_to(np.asarray(jsz.integ_sig), (n,))))
+    if jxr is None:
+        return sz, None
     tab = jxr.table
     xr = XrayData(
         counts_mask=t(jxr.counts_mask), counts_filled=t(jxr.counts_filled),
