@@ -11,8 +11,10 @@ fit (``run_fit(mesh=...)`` over four shards, ``run --mesh``, ``survey
 --mesh``), the model families' fits (``run.main --pressure knots
 --temperature vikhlinin`` at the production schedule, ``--sz-only``, and
 the others), the survey of a --spec mixing every family with its
-population fit, and a fit whose count-rate table is generated on the
-card — and checks their output.  Phases:
+population fit, a fit whose count-rate table is generated on the
+card, the Laplace quick-look (``run --laplace``), the evidence ladder, HMC
+and NUTS, simulation-based calibration on the cluster-grid kernel and
+the emcee shim — and checks their output.  Phases:
 
   1. card name / power limit, kernel build time;
   2. synthetic dataset from ``--seed``, session on ``cuda``, shapes;
@@ -146,6 +148,22 @@ card — and checks their output.  Phases:
      cluster at z = 0.5 with no table_path fitted through ``run.main
      --quick``: its table generated on the card into a temporary tables
      directory, then the fit.
+ 19. ``run --laplace`` through ``run.main`` on phase 5's config: the JSON
+     keys of the JAX package's quick-look, the card's float64 Hessian at
+     the MAP against the host CPU's (each element within rtol 1e-8), ok,
+     the pinned parameters, the Laplace sd beside phase 5's posterior sd;
+ 20. ``model_evidence`` on the card for gNFW and knots on the same data
+     (K=8 x W=128, 200 + 200 steps, thin 5): log Z and its error finite,
+     every bridge's swap acceptance > 0, the time per ladder step;
+ 21. ``run_hmc`` and ``run_nuts`` on the flagship's float64 posterior from
+     a 1% cloud around phase 5's MLE (32 chains, short warmups): the
+     acceptance statistic in [0.5, 0.98], a finite step size, gradients
+     per second;
+ 22. ``run_sbc`` on the card through kernel 4 (16 replications x W=256,
+     500 + 500 steps, thin 50; its launches join kernel 4's entry): no
+     StackMismatch and no warning, ranks in [0, L], thetas_true bit for
+     bit the host CPU's, the p-values; then ``EnsembleSampler(vectorize=
+     True)`` on the model's ``log_like_batch`` for 200 steps on the card.
 
 Prints the kernel JSON line (the six kernels on the flagship's paths,
 then each kernel for each family, "name[family]", kernel 4's family
@@ -220,6 +238,9 @@ FAMILY_ACCEPTANCE = (0.02, 0.6)
 STEPS_CMP_FAM = 5               # phase 14: steps held against the plain
 TIME_STEPS_FAM = 20             # phase 14: steps per timed launch
 TIGHT_BELOW = 1e5               # phase 14: |ll| under which TIGHT_ATOL holds
+# above TIGHT_BELOW, the same number of float32 ulps as TIGHT_ATOL there,
+# relative (phase 22: mocks with bright X-ray data put lp near 5e5)
+TIGHT_RTOL = TIGHT_ATOL / TIGHT_BELOW
 FAMILY_FIT_TIMEOUT = 600        # phase 15: seconds a family fit may take
 # phase 17: the families of the mixed --spec survey (tag, run flags)
 SURVEY_MIX = (("gnfw", ()),) + tuple((t, f) for t, f, _, _ in FAMILIES
@@ -229,6 +250,34 @@ SURVEY_MIX = (("gnfw", ()),) + tuple((t, f) for t, f, _, _ in FAMILIES
 # the two devices' last-bit rounding, far below PROFILE_RTOL
 PROFILE_ROWS, PROFILE_RTOL = 4096, 1e-6
 OUTPUTS = ("chain", "fit.dat", "summary", "state")     # phase 5's files
+# phase 19: the keys of the JAX package's <name>_laplace.json
+# (joxsz_tpu/run.py:_laplace_quicklook), and the card's float64 Hessian
+# against the host CPU's
+LAPLACE_KEYS = ("ok", "theta_map", "sd", "sd_conditional", "at_boundary",
+                "eigenvalues_negH", "log_post_map", "log_z",
+                "log_z_normalized", "prior_log_norm", "prior_log_norm_err")
+LAPLACE_RTOL = 1e-8
+# phase 20: the ladder's rungs, walkers, burn, steps, thin (cut from the
+# JAX defaults 16 x 128, 2000 + 2000, thin 10)
+EVIDENCE = (8, 128, 200, 200, 5)
+# phase 21: chains; HMC warmup, steps, leapfrogs; NUTS warmup, steps,
+# max depth (the JAX defaults: 500 warmup, 16 leapfrogs, depth 8)
+HMC_CUT = (32, 100, 100, 10, 50, 40, 5)
+ACCEPT_BAND = (0.5, 0.98)
+# phase 22: SBC replications, walkers, burn, steps, thin (the JAX
+# defaults: 64 walkers, 2000 + 500, thin 50); the emcee shim's run
+SBC_CUT = (16, 256, 500, 500, 50)
+# phase 22: the box of the JAX package's SBC smoke test on the joint model
+# (tests/test_sbc.py), around the CL J1226 posterior: at the corners of
+# the production box the float32 likelihood of kernels 1 and 4 (and of
+# the JAX package's interpret-mode kernel) overflows where float64 stays
+# finite, so their walkers cannot start there
+SBC_BOX = {"log(n_0)": (-1.55, -1.25), r"\beta": (0.58, 0.72),
+           "log(r_c)": (1.85, 2.2), "log(r_s)": (2.2, 3.4),
+           r"\epsilon": (0.0, 2.0), "log(T_X/T_{SZ})": (-0.2, 0.3),
+           "Z": (0.0, 0.6), "P_0": (0.1, 0.4), "a": (0.8, 5.0),
+           "b": (2.0, 4.0), "r_p": (110.0, 350.0)}
+EMCEE_W, EMCEE_STEPS = 64, 200
 
 
 def card_line() -> str:
@@ -847,11 +896,13 @@ def phase_sz_core(cfg, sess, seed: int) -> dict:
                 library_ms=None)
 
 
-def compare_cluster_grid(x, lp, acc, stk, step_seed: int, n_steps: int):
+def compare_cluster_grid(x, lp, acc, stk, step_seed: int, n_steps: int,
+                         tol=TIGHT_ATOL):
     """n_steps steps of the cluster-grid step kernel on the stacked
     constants ``stk`` from (x, lp, acc) against the plain step
-    (``compare_fused``).  Returns (x, lp, acc, decisions, near-threshold
-    steps, largest lp error)."""
+    (``compare_fused``; ``tol``: how far the plain float32 likelihood may
+    move a threshold, a float or (C, 1)).  Returns (x, lp, acc,
+    decisions, near-threshold steps, largest lp error)."""
     import torch
     from joxsz_torch.ops.multicluster_kernel import (
         half_step_multicluster_plain, multicluster_bits, multicluster_ll,
@@ -872,7 +923,7 @@ def compare_cluster_grid(x, lp, acc, stk, step_seed: int, n_steps: int):
 
     x, lp, acc, n_dec, n_near, _, err, _ = compare_fused(
         f"cluster grid C={n_c}", x, lp, acc, n_steps, plain_half, kernel,
-        torch.tensor(TIGHT_ATOL, device=dev))
+        torch.as_tensor(tol, dtype=torch.float32, device=dev))
     return x, lp, acc, n_dec, n_near, err
 
 
@@ -2115,6 +2166,323 @@ def phase_tables(tmp: str, seed: int):
     return times
 
 
+# ---- Laplace, evidence, HMC/NUTS and SBC on the card (phases 19-22) -------
+
+def on_card(t, what: str):
+    check(t.is_cuda, f"{what} lies on {t.device}, not on the card")
+
+
+def phase_laplace(cfg, path: str, res5):
+    """Phase 19: ``run --laplace`` through ``run.main`` on phase 5's
+    config: the JSON keys of the JAX package's quick-look, the card's
+    float64 Hessian at the MAP against the host CPU's (rtol
+    LAPLACE_RTOL), ok, the pinned parameters, and the Laplace sd beside
+    phase 5's posterior sd."""
+    import numpy as np
+    import torch
+    from joxsz_torch import run
+    from joxsz_torch.build import build_session
+    from joxsz_torch.sampling.laplace import laplace_approximation
+
+    t0 = time.time()
+    res = run.main(["--config", path, "--laplace"])
+    wall = time.time() - t0
+    out = json.loads(open(f"{cfg.save_dir}/{cfg.name}_laplace.json").read())
+    check(set(out) == set(LAPLACE_KEYS), f"laplace JSON keys {sorted(out)}")
+    check(np.isfinite(res.log_post_map), "non-finite log-posterior at MAP")
+    # the Hessian at the MAP on the card and on the host CPU, float64
+    hs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        m64 = build_session(cfg, device=dev).model
+        th = torch.as_tensor(res.theta_map, dtype=torch.float64, device=dev)
+        if dev == "cuda":
+            on_card(m64.sz_data.L, "the Laplace model")
+        t1 = time.time()
+        r = laplace_approximation(m64.log_like, th, m64.params.lo,
+                                  m64.params.hi)
+        secs[dev] = time.time() - t1
+        hs[dev] = r.hessian
+    scale = np.abs(hs["cpu"]).max()
+    rel = float(np.max(np.abs(hs["cuda"] - hs["cpu"])) / scale)
+    elem = np.abs(hs["cuda"] - hs["cpu"]) <= LAPLACE_RTOL * np.maximum(
+        np.abs(hs["cpu"]), 1e-8 * scale)
+    check(bool(elem.all()), f"Hessian card vs CPU: max gap {rel:.3g} "
+          f"of its scale, {int((~elem).sum())} elements past rtol "
+          f"{LAPLACE_RTOL}")
+    names = res5.param_names
+    sd5 = res5.flat_chain.std(axis=0)
+    sd = res.sd if res.ok else res.sd_conditional
+    pinned = [n for n, b in zip(names, res.at_boundary) if b]
+    cols = ", ".join(f"{n} {a:.3g}/{b:.3g}" for n, a, b in zip(names, sd, sd5))
+    print(f"[19] run --laplace in {wall:.1f} s: ok {res.ok}, pinned "
+          f"{pinned or 'none'}, log_z_normalized {res.log_z_normalized}; "
+          f"Hessian on the card {secs['cuda']:.2f} s, host CPU "
+          f"{secs['cpu']:.2f} s, max gap {rel:.3g} of its scale (each "
+          f"element within rtol {LAPLACE_RTOL}); Laplace sd / phase 5's "
+          f"posterior sd: {cols}")
+    return res
+
+
+def phase_evidence(cfg, seed: int):
+    """Phase 20: ``model_evidence`` on the card for gNFW and knots on the
+    same data (EVIDENCE rungs x walkers, burn + steps, thin; the JAX
+    defaults are 16 x 128, 2000 + 2000, thin 10): both log Z and errors
+    finite, every bridge's swap acceptance > 0, seconds per ladder step."""
+    import copy
+    import numpy as np
+    from joxsz_torch import run
+    from joxsz_torch.build import build_session
+    from joxsz_torch.sampling.evidence import model_evidence
+
+    K, W, n_burn, n_steps, thin = EVIDENCE
+    out = {}
+    for tag, flags in (("gnfw", ()), ("knots", ("--pressure", "knots"))):
+        args = run.build_parser().parse_args(list(flags))
+        sess = build_session(run.apply_model_flags(copy.deepcopy(cfg), args),
+                             device="cuda")
+        t0 = time.time()
+        res = model_evidence(sess.model, n_rungs=K, n_walkers=W,
+                             n_steps=n_steps, n_burn=n_burn, thin=thin,
+                             seed=seed)
+        secs = time.time() - t0
+        on_card(res.final_state[0], "the ladder's walkers")
+        check(np.isfinite(res.log_z) and np.isfinite(res.log_z_err),
+              f"{tag}: log Z {res.log_z} +- {res.log_z_err}")
+        check(bool((res.swap_acceptance > 0).all()),
+              f"{tag}: a bridge swapped nothing {res.swap_acceptance}")
+        out[tag] = res
+        print(f"[20] model_evidence {tag} (D={sess.params.ndim}; cut: "
+              f"K={K} x W={W}, {n_burn} burn + {n_steps} steps, thin "
+              f"{thin}): log Z {res.log_z:.3f} +- {res.log_z_err:.3f} (TI "
+              f"{res.log_z_ti:.4g}), swap rates "
+              f"{np.round(res.swap_acceptance, 3).tolist()}, acceptance "
+              f"{res.acceptance_fraction.mean():.3f}; {secs:.1f} s, "
+              f"{1e3 * secs / (n_burn + n_steps):.2f} ms per ladder step")
+    print(f"[20] log Bayes factor gnfw - knots: "
+          f"{out['gnfw'].log_z - out['knots'].log_z:.3f} +- "
+          f"{np.hypot(out['gnfw'].log_z_err, out['knots'].log_z_err):.3f}")
+    return out
+
+
+def phase_gradient_samplers(cfg, res5, seed: int):
+    """Phase 21: ``run_hmc`` and ``run_nuts`` on the flagship posterior
+    (the float64 model on the card), from a 1% cloud around phase 5's
+    MLE with the mass from phase 5's posterior variance (HMC_CUT): the
+    acceptance statistic in ACCEPT_BAND, a finite step size, and
+    gradients (one forward and backward pass of a row) per second."""
+    import numpy as np
+    import torch
+    from joxsz_torch.build import build_session
+    from joxsz_torch.sampling.hmc import run_hmc
+    from joxsz_torch.sampling.nuts import run_nuts
+    from joxsz_torch.sampling.stretch import generate_init_positions
+
+    sess = build_session(cfg, device="cuda")
+    model, p = sess.model, sess.params
+    C, hmc_warm, hmc_steps, n_leap, nuts_warm, nuts_steps, depth = HMC_CUT
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        p0 = generate_init_positions(model.log_like_batch, res5.mle_theta, C,
+                                     gen, device="cuda",
+                                     dtype=torch.float64, spread=0.01,
+                                     lo=p.lo, hi=p.hi)
+    on_card(p0, "the chains")
+    mass = 1.0 / np.var(res5.flat_chain, axis=0)
+    rows = [0]
+
+    def log_prob(x):
+        rows[0] += x.shape[0]
+        return model.log_like_batch(x)
+
+    for name, fn, kw in (
+            ("HMC", run_hmc, dict(n_steps=hmc_steps, n_warmup=hmc_warm,
+                                  n_leapfrog=n_leap)),
+            ("NUTS", run_nuts, dict(n_steps=nuts_steps, n_warmup=nuts_warm,
+                                    max_depth=depth, adapt_mass=False))):
+        rows[0] = 0
+        t0 = time.time()
+        res = fn(log_prob, p0, gen=gen, mass_diag=mass, **kw)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        on_card(res.final_state[0], f"{name}'s chains")
+        acc = (float(res.acceptance_fraction.mean()) if name == "HMC"
+               else res.mean_accept_prob)
+        check(ACCEPT_BAND[0] <= acc <= ACCEPT_BAND[1],
+              f"{name} acceptance {acc} outside {ACCEPT_BAND}")
+        check(np.isfinite(res.step_size) and res.step_size > 0,
+              f"{name} step size {res.step_size}")
+        check(np.all(np.isfinite(res.log_prob)), f"{name}: non-finite lp")
+        extra = (f", mean tree depth {res.mean_tree_depth:.2f}"
+                 if name == "NUTS" else "")
+        med = np.median(res.chain.reshape(-1, p.ndim), axis=0)
+        pull = np.abs(med - np.median(res5.flat_chain, axis=0)) \
+            / res5.flat_chain.std(axis=0)
+        print(f"[21] {name} (C={C}, {kw}): acceptance {acc:.3f}, step "
+              f"size {res.step_size:.4g}{extra}; {rows[0]} gradients in "
+              f"{secs:.1f} s = {rows[0] / secs:.0f} gradients/s; largest "
+              f"|median - phase 5's| {pull.max():.2f} sd")
+
+
+def phase_sbc(cfg, seed: int, err8: float) -> tuple[int, float, float]:
+    """Phase 22: ``run_sbc`` on the card (SBC_CUT replications, walkers,
+    burn + steps, thin; the prior box SBC_BOX) through kernel 4, its
+    launch counter set to 0 just before: launches > 0, no StackMismatch
+    and no warning, ranks in [0, L], thetas_true bit for bit the host
+    CPU's for the same seed;
+    then kernel 4 against its plain step for STEPS_CMP_MC steps on the
+    constants stack ``run_sbc`` packs (C=16, W=256) from its init state,
+    the stored lp against a fresh kernel-1 evaluation, and kernel 1
+    against its plain version at that init state; the float32 check
+    of ``run_sbc`` on kernel 1: SBC_BOX passes, the production box is
+    refused;
+    then ``EnsembleSampler(vectorize=True)`` on the card on the model's
+    ``log_like_batch``, 200 steps.  Returns kernel 4's launches, its
+    largest lp error against the plain step here and kernel 1's against
+    its plain version."""
+    import warnings
+    import numpy as np
+    import torch
+    from joxsz_torch.build import build_session
+    from joxsz_torch.emcee_compat import EnsembleSampler
+    from joxsz_torch.ops.joint_kernel import pack_consts_stack
+    from joxsz_torch.ops.multicluster_kernel import (multicluster_ll,
+                                                     multicluster_ll_plain)
+    from joxsz_torch.sampling.batched import batched_init
+    from joxsz_torch.sampling.priors import model_log_prior, sample_prior
+    from joxsz_torch.sampling.sbc import (F32_CHECK_DRAWS, float32_vetoed,
+                                          prior_truths, run_sbc, sbc_mocks)
+    from joxsz_torch.synth import truth_theta
+
+    def boxed(dev):
+        sess = build_session(cfg, device=dev)
+        p = sess.params
+        for name, (lo, hi) in SBC_BOX.items():
+            p[name].minval, p[name].maxval = lo, hi
+        p._refresh()
+        return sess
+
+    C, W, n_burn, n_steps, thin = SBC_CUT
+    sess = boxed("cuda")
+    on_card(sess.model.sz_data.L, "the SBC session")
+    zero_launches()
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        res = run_sbc(sess, C, n_walkers=W, n_burn=n_burn, n_steps=n_steps,
+                      thin=thin, seed=seed)
+    secs = time.time() - t0
+    launches = read_launches()
+    k4 = launches["stretch_steps_multicluster"]
+    check(k4 > 0 and launches["joint_ll"] > 0,
+          f"run_sbc did not run on kernel 4: {launches}")
+    L = (n_steps // thin) * W
+    check(res.n_draws == L and res.ranks.min() >= 0
+          and res.ranks.max() <= L, f"ranks outside [0, {L}]")
+    truths = prior_truths(boxed("cpu").model, C, np.random.default_rng(seed))
+    check(np.array_equal(truths, res.thetas_true),
+          "thetas_true on the card differ from the host CPU's")
+    print(f"[22] run_sbc (cut: C={C} replications x W={W}, {n_burn} burn + "
+          f"{n_steps} steps, thin {thin}, the prior box of SBC_BOX; L={L}) "
+          f"in {secs:.1f} s: launches "
+          f"{launches}, acceptance {res.acceptance.mean():.3f}, "
+          f"thetas_true == the CPU's; p-values "
+          f"{dict(zip(res.names, np.round(res.p_values, 3).tolist()))}")
+
+    # kernel 4 against its plain step on run_sbc's own stack and init
+    thetas, survey = sbc_mocks(sess.model, C, seed)
+    check(np.array_equal(thetas, res.thetas_true),
+          "sbc_mocks draws other truths than run_sbc")
+    stack = pack_consts_stack(sess, survey.sz_stack, survey.xray_stack)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = batched_init(lambda th: multicluster_ll(th, stack), thetas, W, gen,
+                     device=sess.device, dtype=torch.float32,
+                     spread=0.05).contiguous()
+    on_card(x, "the SBC init state")
+    lp = multicluster_ll(x, stack)
+    # kernel 1 on each cluster's constants against its plain version:
+    # within TIGHT_ATOL below TIGHT_BELOW, within TIGHT_RTOL above
+    plain = multicluster_ll_plain(x, stack)
+    check(torch.equal(torch.isfinite(lp), torch.isfinite(plain))
+          and bool(torch.isfinite(lp).all()), "SBC init: kernel 1's -inf "
+          "mask differs from the plain version's, or a walker is vetoed")
+    gap = (lp - plain).abs()
+    err1 = float(gap.max())
+    lim = torch.clamp(TIGHT_RTOL * plain.abs(), min=TIGHT_ATOL)
+    worst = int(torch.argmax(gap / lim))
+    check(bool((gap <= lim).all()), f"SBC init: kernel 1 vs plain f32: "
+          f"|err| {float(gap.flatten()[worst])} at lp "
+          f"{float(plain.flatten()[worst])} over max({TIGHT_ATOL}, "
+          f"{TIGHT_RTOL:.1e} |lp|)")
+    # a threshold holds two log-posteriors, each up to the cluster's peak
+    # (about its truth's)
+    peak = torch.maximum(plain.abs().amax(dim=1), multicluster_ll(
+        torch.as_tensor(thetas, dtype=torch.float32, device=x.device)[:, None]
+        .contiguous(), stack)[:, 0].abs())
+    tol = 2 * torch.clamp(TIGHT_RTOL * peak, min=TIGHT_ATOL)[:, None]
+    acc = torch.zeros((C, W), dtype=torch.float32, device=x.device)
+    x, lp, acc, n_dec, n_near, err = compare_cluster_grid(
+        x, lp, acc, stack, 2 * seed + 1, STEPS_CMP_MC, tol)
+    check(torch.equal(multicluster_ll(x, stack), lp), "SBC stack: stored lp "
+          "differs from a fresh kernel-1 evaluation on each cluster's "
+          "constants")
+    print(f"[22] kernel 4 on run_sbc's stack (C={C}, W={W}, its init "
+          f"state, the burn's seed): {STEPS_CMP_MC} steps, {n_dec} "
+          f"half-step decisions, {n_near} steps where a decision within "
+          f"{MARGIN} of its threshold went the other way; max |lp err| "
+          f"{err:.4g} (phase 8, C={C_SURVEY}, W={W_SMOKE}: {err8:.4g}); "
+          "stored lp == fresh kernel 1 per cluster; threshold tolerance "
+          f"{float(tol.min()):.3g}-{float(tol.max()):.3g}; kernel 1 at the "
+          f"init state ({C} x {W} rows, lp {float(plain.min()):.6g} to "
+          f"{float(plain.max()):.6g}) vs plain f32: max |err| {err1:.4g}")
+
+    # run_sbc's float32 check on kernel 1
+    check_draws = sample_prior(model_log_prior(sess.model), sess.params,
+                               F32_CHECK_DRAWS,
+                               np.random.default_rng(seed + 2))
+    lost, live = float32_vetoed(sess, check_draws)
+    prod = build_session(cfg, device="cuda")
+    try:
+        run_sbc(prod, 2, n_walkers=W, n_burn=0, n_steps=thin, thin=thin,
+                seed=seed)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        refused = None
+    check(refused is not None and "float32" in refused,
+          "run_sbc on the card took the production prior box")
+    print(f"[22] float32 check on kernel 1: SBC_BOX {lost} of {live} draws "
+          f"lost; the production box refused: {refused}")
+
+    W_e = EMCEE_W
+    seen = set()
+    sess = prod                                      # the production box
+
+    def log_like_batch(x):
+        seen.add(x.device.type)
+        return sess.model.log_like_batch(x)
+
+    s = EnsembleSampler(W_e, sess.params.ndim, log_like_batch,
+                        vectorize=True, seed=seed, device="cuda",
+                        dtype=torch.float64)
+    center = truth_theta(sess)
+    p0 = center * (1 + 0.01 * np.random.default_rng(seed + 5)
+                   .standard_normal((W_e, center.size)))
+    t0 = time.time()
+    s.run_mcmc(p0, EMCEE_STEPS)
+    secs = time.time() - t0
+    check(seen == {"cuda"}, f"EnsembleSampler evaluated on {seen}")
+    acc = float(s.acceptance_fraction.mean())
+    check(s.get_chain().shape == (EMCEE_STEPS, W_e, sess.params.ndim)
+          and np.all(np.isfinite(s.get_log_prob())) and 0 < acc < 1,
+          f"EnsembleSampler: acceptance {acc} or non-finite lp")
+    print(f"[22] EnsembleSampler(vectorize=True) W={W_e}, {EMCEE_STEPS} "
+          f"steps on the card: acceptance {acc:.3f}, "
+          f"{W_e * EMCEE_STEPS / secs:.0f} evals/s ({secs:.1f} s)")
+    return k4, err, err1
+
+
 def all_launches() -> dict:
     from joxsz_torch.ops.coupled_kernel import coupled_half
     from joxsz_torch.ops.joint_kernel import joint_ll
@@ -2517,6 +2885,18 @@ def main() -> int:
         for k in k17:
             k["launches"] = per_tag[k["name"][:-1].split("[")[1]]
         phase_tables(tmp, args.seed)
+        # the gradient and evidence samplers on phase 5's dataset
+        from joxsz_torch.config import JoXSZConfig
+
+        cfg5 = JoXSZConfig.from_json(open(path).read())
+        phase_laplace(cfg5, path, res5)
+        phase_evidence(cfg5, args.seed)
+        phase_gradient_samplers(cfg5, res5, args.seed)
+        n_sbc, err_sbc, err_k1 = phase_sbc(cfg5, args.seed,
+                                           k4["max_abs_err"])
+        k4["launches"] += n_sbc
+        k4["max_abs_err"] = max(k4["max_abs_err"], err_sbc)
+        k1["max_abs_err"] = max(k1["max_abs_err"], err_k1)
         order = ("name", "route", "source", "replaces", "launches",
                  "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms")

@@ -75,16 +75,22 @@ class JointModel:
                           m[:, -1:] - m[:, -2:-1]], dim=1)
         return (grad > 0.0).all(dim=1)
 
-    def _rest(self, theta, pars, sz: SZData,
-              xr: XrayData | None) -> torch.Tensor:
-        """Everything but the SZ chi^2: priors, the r_c <= r_s prior, the
-        mass veto and (with X-ray data) the X-ray Cash term, (B,)."""
+    def _prior(self, theta, pars, sz: SZData) -> torch.Tensor:
+        """(B,) prior factor: the box and Gaussian priors, the density's
+        r_c <= r_s prior and the physical-mass veto."""
         total = self.params.log_prior(theta)
         total = total + self.density.log_prior(pars)
         if self.exclude_unphysical_mass:
             mono = self._mass_veto_ok(pars, sz.r_press_kpc)
             total = torch.where(mono, total,
                                 torch.full_like(total, -float("inf")))
+        return total
+
+    def _rest(self, theta, pars, sz: SZData,
+              xr: XrayData | None) -> torch.Tensor:
+        """Everything but the SZ chi^2: the prior factor and (with X-ray
+        data) the X-ray Cash term, (B,)."""
+        total = self._prior(theta, pars, sz)
         if xr is None:
             return total
         return total + xray_log_like(pars, xr, self.density,
@@ -109,6 +115,39 @@ class JointModel:
     def log_like(self, theta: torch.Tensor) -> torch.Tensor:
         """Scalar log-posterior of one (D,) thawed vector."""
         return self.log_like_batch(theta[None])[0]
+
+    # -- prior/likelihood decomposition (the evidence ladder) ---------------
+    # ``log_like_batch`` is the full posterior density; the evidence
+    # ladder (sampling/evidence.py) samples prior * L^beta and needs the
+    # two factors apart.  The split is exact: log_like_batch ==
+    # log_prior_only + log_data_like wherever the prior is finite.
+
+    def log_prior_only(self, theta: torch.Tensor,
+                       sz_data: SZData | None = None) -> torch.Tensor:
+        """(B,) prior factor of a (B, D) batch: box and Gaussian priors,
+        the density's r_c <= r_s prior and the physical-mass veto (support
+        restrictions are prior semantics: the evidence is defined against
+        this veto-restricted prior); NaN -> -inf."""
+        sz = sz_data if sz_data is not None else self.sz_data
+        total = self._prior(theta, self.params.unpack(theta), sz)
+        return torch.where(torch.isnan(total),
+                           torch.full_like(total, -float("inf")), total)
+
+    def log_data_like(self, theta: torch.Tensor,
+                      sz_data: SZData | None = None,
+                      xray_data: XrayData | None = None) -> torch.Tensor:
+        """(B,) data factor of a (B, D) batch: the X-ray Cash term (with
+        its predicted-counts positivity veto) and the SZ chi^2; NaN ->
+        -inf."""
+        sz = sz_data if sz_data is not None else self.sz_data
+        xr = xray_data if xray_data is not None else self.xray_data
+        pars = self.params.unpack(theta)
+        total = sz_log_like(pars, sz, self.pressure, self.temperature)
+        if xr is not None:
+            total = xray_log_like(pars, xr, self.density, self.temperature,
+                                  self.Z_name) + total
+        return torch.where(torch.isnan(total),
+                           torch.full_like(total, -float("inf")), total)
 
     def log_like_batch_fused(self, conv_table, flux_data, op):
         """Batched joint log-posterior with the SZ core (two products,

@@ -29,6 +29,9 @@ where h5py is not installed), ``fit.dat``, ``<name>_summary.json``,
 figures into ``plot_dir`` unless ``--no-plots`` (without matplotlib a
 run asks for ``--no-plots`` before it samples).  ``--postprocess CHAIN``
 rebuilds the table, summary and figures from a saved chain.
+``--laplace`` replaces the sampling with the Laplace quick-look (the
+MAP, error bars from the float64 Hessian on the session's device, the
+Laplace evidence) and writes ``<name>_laplace.json``.
 
 Usage:
     python -m joxsz_torch.run --config my.json      # on the card
@@ -41,6 +44,7 @@ Usage:
     python -m joxsz_torch.run --config my.json --pressure knots \
         --temperature vikhlinin
     python -m joxsz_torch.run --config my.json --sz-only
+    python -m joxsz_torch.run --config my.json --laplace
 """
 
 from __future__ import annotations
@@ -134,8 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "of the SZ chi^2 and the X-ray deviance (after the "
                     "fit, or with --postprocess)")
     ap.add_argument("--laplace", action="store_true",
-                    help="MAP + Hessian quick-look: not ported yet "
-                    "(ROADMAP.md Queue A item 8.3)")
+                    help="quick-look mode: MAP + autodiff-Hessian error "
+                    "bars and Laplace evidence instead of MCMC "
+                    "(seconds; the Hessian is float64)")
     return ap
 
 
@@ -162,10 +167,6 @@ def apply_model_flags(cfg, args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     t_start = time.time()
-    if args.laplace:
-        raise SystemExit("--laplace is not ported yet: the Laplace "
-                         "quick-look waits for the gradient samplers "
-                         "(ROADMAP.md Queue A item 8.3)")
 
     from .config import JoXSZConfig, resolve_mcmc_schedule
     from .build import build_session, family_name
@@ -175,7 +176,8 @@ def main(argv=None):
     from .sampling.driver import run_fit
 
     device = resolve_device("cpu" if args.cpu else None)
-    if not args.no_plots and importlib.util.find_spec("matplotlib") is None:
+    if (not (args.no_plots or args.laplace)
+            and importlib.util.find_spec("matplotlib") is None):
         raise SystemExit("matplotlib is not installed here, and the "
                          "figures need it: pass --no-plots")
     if args.config:
@@ -210,7 +212,7 @@ def main(argv=None):
         prelim, rounds = 100, 2
     else:
         prelim, rounds = m.prelim_iterations, 10
-    if not args.postprocess:
+    if not (args.postprocess or args.laplace):
         k = m.n_temper_rungs
         samp = f"K={k} tempered" if k > 1 else "plain GW"
         ext = (f", auto-extend up to {m.auto_extend}x to split-Rhat <= "
@@ -231,6 +233,8 @@ def main(argv=None):
     print(f"session built in {time.time() - t0:.1f}s (operator "
           f"{sess.sz_operator.L.shape}, {kind}; {family_name(sess.model)}, "
           f"D={sess.params.ndim})")
+    if args.laplace:
+        return _laplace_quicklook(sess, cfg)
     if args.postprocess:
         return _postprocess_saved_chain(sess, cfg, args.postprocess,
                                         no_plots=args.no_plots, ppc=args.ppc)
@@ -447,6 +451,66 @@ def _postprocess_saved_chain(sess, cfg, chain_path, no_plots=False,
     _summary_and_figures(sess, cfg, res, no_plots=no_plots)
     if ppc:
         _ppc_report(sess, cfg, res)
+    return res
+
+
+def _laplace_quicklook(sess, cfg):
+    """--laplace: MAP + Hessian error bars and the Laplace evidence
+    without MCMC (the Hessian float64 on the session's device), written
+    to ``<name>_laplace.json`` with the JAX package's keys."""
+    import numpy as np
+    from .sampling.laplace import model_laplace
+
+    t0 = time.time()
+    res = model_laplace(sess.model, verbose=True)
+    p = sess.params
+    kind = ("interior mode" if res.ok and not res.at_boundary.any()
+            else "boundary-pinned mode" if res.ok
+            else "non-positive-definite curvature (mode on a veto/bound)")
+    print(f"Laplace quick-look in {time.time() - t0:.1f}s — {kind}")
+    sd_col = res.sd if res.ok else res.sd_conditional
+    print(f"{'':>18} | {'MAP':>9} | {'Sd':>8} | {'Unit':>12}")
+    print("-" * 57)
+    for i, n in enumerate(p.thawed):
+        sd = (f"{sd_col[i]:8.3f}" if np.isfinite(sd_col[i]) else "     n/a")
+        flag = " *" if res.at_boundary[i] else ""
+        print(f"{n:>18} | {res.theta_map[i]:9.3f} | {sd} | "
+              f"{p[n].unit:>12}{flag}")
+    if res.at_boundary.any():
+        print("  (* = MAP pinned at a prior bound; the remaining error "
+              "bars are conditional on the pinned values)")
+    if np.isfinite(res.log_z_normalized):
+        print(f"Laplace log-evidence (normalized prior): "
+              f"{res.log_z_normalized:.2f} "
+              f"(prior log-norm {res.prior_log_norm:.2f} "
+              f"+- {res.prior_log_norm_err:.3f})")
+    else:
+        print("Laplace evidence undefined at a boundary-pinned mode; "
+              "use sampling.model_evidence (stepping-stone ladder)")
+
+    def _j(v):          # strict JSON: non-finite -> null
+        v = float(v)
+        return v if np.isfinite(v) else None
+
+    out = {
+        "ok": res.ok,
+        "theta_map": dict(zip(p.thawed, map(_j, res.theta_map))),
+        "sd": dict(zip(p.thawed, map(_j, res.sd))),
+        "sd_conditional": dict(zip(p.thawed, map(_j, res.sd_conditional))),
+        "at_boundary": dict(zip(p.thawed,
+                                res.at_boundary.astype(bool).tolist())),
+        "eigenvalues_negH": [_j(v) for v in res.eigenvalues],
+        "log_post_map": _j(res.log_post_map),
+        "log_z": _j(res.log_z),
+        "log_z_normalized": _j(res.log_z_normalized),
+        "prior_log_norm": _j(res.prior_log_norm),
+        "prior_log_norm_err": _j(res.prior_log_norm_err),
+    }
+    save = pathlib.Path(cfg.save_dir)
+    save.mkdir(parents=True, exist_ok=True)
+    path = save / f"{cfg.name}_laplace.json"
+    path.write_text(json.dumps(out, indent=2, default=float))
+    print(f"written {path}")
     return res
 
 

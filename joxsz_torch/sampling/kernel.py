@@ -12,7 +12,9 @@ once.
 
 ``run_multicluster_steps`` runs the survey fit's C ensembles against C
 sets of constants: one launch of the cluster-grid step kernel (kernel 4)
-per call, one Philox seed per call.
+per call, one Philox seed per call; ``fit_multicluster_kernel`` is the
+whole kernel route of a stacked fit (init, burn, sampling), which the
+survey and SBC share.
 
 ``KernelSampler.run_sharded`` / ``run_tempered_sharded`` send a sampling
 call over a device mesh (``parallel.kernel_sharded``): independent
@@ -29,6 +31,7 @@ the TPU kernel's loop index did per call.
 
 from __future__ import annotations
 
+import time
 import warnings
 
 import numpy as np
@@ -37,8 +40,9 @@ import torch
 from .stretch import EnsembleResult
 from .tempered import TemperedResult
 from ..ops.joint_kernel import (JointConsts, JointConstsStack, joint_ll,
-                                pack_consts)
-from ..ops.multicluster_kernel import stretch_steps_multicluster
+                                pack_consts, pack_consts_stack)
+from ..ops.multicluster_kernel import (multicluster_ll,
+                                       stretch_steps_multicluster)
 from ..ops.step_kernel import stretch_steps
 
 _CHUNK_STEPS = 100      # steps per Philox seed
@@ -291,3 +295,62 @@ def run_multicluster_steps(stack: JointConstsStack, x: torch.Tensor,
     frames = stretch_steps_multicluster(x, lp, acc, seed, n_steps, stack,
                                         thin=thin or 0)
     return frames if thin is not None else None
+
+
+def fit_multicluster_kernel(session, sz_stack, xray_stack, centers, *,
+                            n_walkers, n_burn, n_steps, thin, seed,
+                            init_spread, mesh=None):
+    """C stacked ensembles fit on kernel 4 (the survey's and SBC's kernel
+    route): one constants build shared by burn and sampling, init and
+    lp0 through the joint-likelihood kernel per cluster, burn on Philox
+    seed ``2 seed + 1`` and sampling on ``2 seed + 2``, acceptance reset
+    after the burn.  Over a mesh with more than one ``cluster`` shard,
+    shard s of n runs its cluster block on the call's seed ``* n + s``.
+    Returns ``(chain (n_saved, C, W, D), lp_chain, acceptance,
+    timings)``; raises ``StackMismatch`` for a stack outside the
+    specialisation."""
+    from .batched import batched_init
+    from .stretch import validate_schedule
+
+    validate_schedule(n_steps, thin, n_walkers)
+    dev = session.device
+    t0 = time.time()
+    stack = pack_consts_stack(session, sz_stack, xray_stack, device=dev)
+    C = centers.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    x = batched_init(lambda th: multicluster_ll(th, stack), centers,
+                     n_walkers, gen, device=dev, dtype=torch.float32,
+                     spread=init_spread).contiguous()
+    lp = multicluster_ll(x, stack)
+    acc = torch.zeros((C, n_walkers), dtype=torch.float32, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_setup = time.time() - t0
+
+    t0 = time.time()
+    n_dev = mesh.shape.get("cluster", 1) if mesh is not None else 1
+    if n_dev > 1:
+        from ..parallel.kernel_sharded import make_sharded_multicluster_step
+
+        def seeds(s):
+            return [s * n_dev + d for d in range(n_dev)]
+
+        if n_burn:
+            x, lp, _ = make_sharded_multicluster_step(
+                stack, mesh, n_burn)(x, lp, acc, seeds(2 * seed + 1))
+        x, lp, acc, chain, chain_lp = make_sharded_multicluster_step(
+            stack, mesh, n_steps, thin=thin)(x, lp, torch.zeros_like(acc),
+                                             seeds(2 * seed + 2))
+    else:
+        if n_burn:
+            run_multicluster_steps(stack, x, lp, acc, n_burn, 2 * seed + 1)
+            acc.zero_()
+        chain, chain_lp = run_multicluster_steps(stack, x, lp, acc, n_steps,
+                                                 2 * seed + 2, thin=thin)
+    chain = chain.permute(1, 0, 2, 3).cpu().numpy()
+    chain_lp = chain_lp.permute(1, 0, 2).cpu().numpy()
+    acc = (acc / float(n_steps)).cpu().numpy()
+    t_sampling = time.time() - t0
+    return chain, chain_lp, acc, {"setup_s": t_setup,
+                                  "sampling_s": t_sampling}

@@ -57,30 +57,53 @@ STRETCH_ZC = (float(np.float32(1.0 / np.sqrt(STRETCH_A))),
               float(np.float32(np.sqrt(STRETCH_A) - 1.0 / np.sqrt(STRETCH_A))))
 
 
+def stretch_zc(a: float) -> tuple[float, float]:
+    """(1/sqrt(a), sqrt(a) - 1/sqrt(a)) of the scale ``a``; the kernels'
+    float32-rounded ``STRETCH_ZC`` at the default a = 2."""
+    if a == STRETCH_A:
+        return STRETCH_ZC
+    return 1.0 / np.sqrt(a), np.sqrt(a) - 1.0 / np.sqrt(a)
+
+
 def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
                         lp_move: torch.Tensor, x_fixed: torch.Tensor,
-                        ndim: int, beta: torch.Tensor):
+                        ndim: int, beta: torch.Tensor, aux_move=None,
+                        a: float = STRETCH_A):
     """Stretch-move update of one half of every rung.
 
     ``u`` (..., H, >=3) float32 uniforms (z, partner, accept); ``x_move``
     and ``x_fixed`` (..., H, D); ``lp_move`` (..., H) untempered; ``beta``
     broadcastable to (..., H).  ``lp_fn`` maps (N, D) -> (N,).  Returns
     ``(x_new, lp_new, accept, margin)`` with ``margin = log u - threshold``
-    (the decision's distance from its threshold)."""
+    (the decision's distance from its threshold).
+
+    With ``aux_move``, a tuple of (..., H) values carried beside the state
+    (the evidence ladder's prior and likelihood), ``lp_fn`` returns
+    ``(lp, aux)`` with aux a tuple of (N,) values; the accepted
+    proposals' aux is merged in, and ``aux_new`` is returned fifth.
+    ``a``: the stretch scale (z on [1/a, a])."""
     H = x_fixed.shape[-2]
     D = x_move.shape[-1]
-    t = STRETCH_ZC[0] + u[..., 0] * STRETCH_ZC[1]
+    zc = stretch_zc(a)
+    t = zc[0] + u[..., 0] * zc[1]
     z = t * t
     pidx = torch.clamp((u[..., 1] * H).to(torch.long), max=H - 1)
     xp = torch.gather(x_fixed, -2, pidx[..., None].expand(*pidx.shape, D))
     y = xp + z[..., None] * (x_move - xp)
-    lp_y = lp_fn(y.reshape(-1, D)).reshape(lp_move.shape)
+    lp_y = lp_fn(y.reshape(-1, D))
+    if aux_move is not None:
+        lp_y, aux_y = lp_y
+    lp_y = lp_y.reshape(lp_move.shape)
     thr = (ndim - 1.0) * torch.log(z) + beta * (lp_y - lp_move)
     margin = torch.log(u[..., 2]) - thr
     accept = margin < 0
     x_new = torch.where(accept[..., None], y, x_move)
     lp_new = torch.where(accept, lp_y, lp_move)
-    return x_new, lp_new, accept, margin
+    if aux_move is None:
+        return x_new, lp_new, accept, margin
+    aux_new = tuple(torch.where(accept, n.reshape(o.shape), o)
+                    for n, o in zip(aux_y, aux_move))
+    return x_new, lp_new, accept, margin, aux_new
 
 
 def _index(u: torch.Tensor, n: int) -> torch.Tensor:
@@ -258,10 +281,11 @@ def validate_schedule(n_steps: int, thin: int, n_walkers: int | None = None):
                          f"thin ({thin})")
 
 
-def ensemble_step(lp_fn, x, lp, acc, u, beta=1.0):
+def ensemble_step(lp_fn, x, lp, acc, u, beta=1.0, a: float = STRETCH_A):
     """One full stretch step — both half-updates — of ensembles with any
     leading batch axes: x (..., W, D), lp/acc (..., W), ``u`` (2, ..., H,
-    3) uniforms, ``lp_fn`` (N, D) -> (N,).  Returns new (x, lp, acc)."""
+    3) uniforms, ``lp_fn`` (N, D) -> (N,), stretch scale ``a``.  Returns
+    new (x, lp, acc)."""
     H = x.shape[-2] // 2
     D = x.shape[-1]
     halves = [x[..., :H, :], x[..., H:, :]]
@@ -270,19 +294,20 @@ def ensemble_step(lp_fn, x, lp, acc, u, beta=1.0):
     for which in (0, 1):
         halves[which], lps[which], accept, _ = stretch_half_update(
             lp_fn, u[which], halves[which], lps[which], halves[1 - which],
-            D, beta)
+            D, beta, a=a)
         accs[which] = accs[which] + accept.to(acc.dtype)
     return (torch.cat(halves, dim=-2), torch.cat(lps, dim=-1),
             torch.cat(accs, dim=-1))
 
 
 def make_step(log_prob_batch, ndim: int, move: str = "stretch",
-              de_sigma: float = 1.0e-5, de_gamma: float | None = None):
+              de_sigma: float = 1.0e-5, de_gamma: float | None = None,
+              a: float = STRETCH_A):
     """One full ensemble step, both half-updates, of a (W, D) ensemble:
     ``step(x, lp, acc, gen) -> (x, lp, acc)``.  ``move``: 'stretch'
     (Goodman-Weare, the reference's emcee default), 'de' (``DEMove``) or
     'snooker' (``DESnookerMove``), as ``joxsz_tpu/sampling/stretch.py::
-    make_step``.  Per step one uniform block from ``gen``, (2, H, 3) or
+    make_step``; ``a`` is the stretch scale.  Per step one uniform block from ``gen``, (2, H, 3) or
     (2, H, 4) for snooker, and for DE a (2, H) normal block after it."""
     if move not in MOVES:
         raise ValueError(f"unknown move {move!r}: expected 'stretch', "
@@ -305,7 +330,7 @@ def make_step(log_prob_batch, ndim: int, move: str = "stretch",
         kw = dict(generator=gen, dtype=x.dtype, device=x.device)
         u = torch.rand((2, H, 4 if move == "snooker" else 3), **kw)
         if move == "stretch":
-            return ensemble_step(log_prob_batch, x, lp, acc, u)
+            return ensemble_step(log_prob_batch, x, lp, acc, u, a=a)
         g = torch.randn((2, H), **kw) if move == "de" else None
         halves = [x[:H], x[H:]]
         lps = [lp[:H], lp[H:]]
@@ -328,7 +353,8 @@ def make_step(log_prob_batch, ndim: int, move: str = "stretch",
 def run_ensemble(log_like_batch, p0: torch.Tensor, n_steps: int,
                  gen: torch.Generator, thin: int = 1,
                  store_chain: bool = True, move: str = "stretch",
-                 de_gamma: float | None = None) -> EnsembleResult:
+                 de_gamma: float | None = None,
+                 a: float = STRETCH_A) -> EnsembleResult:
     """Plain ensemble from p0 (W, D) on any batched log-probability
     (N, D) -> (N,) with the move ``move`` (``make_step``), saving every
     ``thin``-th state (``joxsz_tpu/sampling/stretch.py::run_ensemble``).
@@ -336,7 +362,7 @@ def run_ensemble(log_like_batch, p0: torch.Tensor, n_steps: int,
     device."""
     W, D = p0.shape
     validate_schedule(n_steps, thin, W)
-    step = make_step(log_like_batch, D, move=move, de_gamma=de_gamma)
+    step = make_step(log_like_batch, D, move=move, de_gamma=de_gamma, a=a)
     x = p0.clone()
     lp = log_like_batch(x)
     acc = torch.zeros(W, dtype=torch.float32, device=x.device)

@@ -128,6 +128,7 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
     from .models.multicluster import make_multicluster_log_like
     from .ops.joint_kernel import StackMismatch
     from .sampling.batched import batched_init, run_batched_ensembles
+    from .sampling.kernel import fit_multicluster_kernel
 
     model = session.model
     centers = np.atleast_2d(np.asarray(centers, dtype=np.float64))
@@ -140,7 +141,7 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
     out = None
     if step_kernel:
         try:
-            out = _fit_survey_kernel(
+            out = fit_multicluster_kernel(
                 session, sz_stack, xray_stack, centers, n_walkers=n_walkers,
                 n_burn=n_burn, n_steps=n_steps, thin=thin, seed=seed,
                 init_spread=init_spread, mesh=mesh)
@@ -173,69 +174,6 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
         medians=np.median(flat, axis=1), sds=np.std(flat, axis=1),
         truths=None if truths is None else np.asarray(truths),
         timings=timings)
-
-
-def _fit_survey_kernel(session, sz_stack, xray_stack, centers, *,
-                       n_walkers, n_burn, n_steps, thin, seed, init_spread,
-                       mesh=None):
-    """Kernel route: one constants build shared by burn and sampling,
-    init and lp0 through the joint-likelihood kernel per cluster, burn on
-    Philox seed ``2 seed + 1`` and sampling on ``2 seed + 2``, acceptance
-    reset after the burn.  Over a mesh with more than one ``cluster``
-    shard, shard s of n runs its cluster block on the call's seed ``* n +
-    s``.  Returns ``(chain (n_saved, C, W, D), lp_chain,
-    acceptance, timings)``; raises ``StackMismatch`` for a stack outside
-    the specialisation."""
-    import torch
-
-    from .ops.joint_kernel import pack_consts_stack
-    from .ops.multicluster_kernel import multicluster_ll
-    from .sampling.batched import batched_init
-    from .sampling.kernel import run_multicluster_steps
-    from .sampling.stretch import validate_schedule
-
-    validate_schedule(n_steps, thin, n_walkers)
-    dev = session.device
-    t0 = time.time()
-    stack = pack_consts_stack(session, sz_stack, xray_stack, device=dev)
-    C = centers.shape[0]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    x = batched_init(lambda th: multicluster_ll(th, stack), centers,
-                     n_walkers, gen, device=dev, dtype=torch.float32,
-                     spread=init_spread).contiguous()
-    lp = multicluster_ll(x, stack)
-    acc = torch.zeros((C, n_walkers), dtype=torch.float32, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t_setup = time.time() - t0
-
-    t0 = time.time()
-    n_dev = mesh.shape.get("cluster", 1) if mesh is not None else 1
-    if n_dev > 1:
-        from .parallel.kernel_sharded import make_sharded_multicluster_step
-
-        def seeds(s):
-            return [s * n_dev + d for d in range(n_dev)]
-
-        if n_burn:
-            x, lp, _ = make_sharded_multicluster_step(
-                stack, mesh, n_burn)(x, lp, acc, seeds(2 * seed + 1))
-        x, lp, acc, chain, chain_lp = make_sharded_multicluster_step(
-            stack, mesh, n_steps, thin=thin)(x, lp, torch.zeros_like(acc),
-                                             seeds(2 * seed + 2))
-    else:
-        if n_burn:
-            run_multicluster_steps(stack, x, lp, acc, n_burn, 2 * seed + 1)
-            acc.zero_()
-        chain, chain_lp = run_multicluster_steps(stack, x, lp, acc, n_steps,
-                                                 2 * seed + 2, thin=thin)
-    chain = chain.permute(1, 0, 2, 3).cpu().numpy()
-    chain_lp = chain_lp.permute(1, 0, 2).cpu().numpy()
-    acc = (acc / float(n_steps)).cpu().numpy()
-    t_sampling = time.time() - t0
-    return chain, chain_lp, acc, {"setup_s": t_setup,
-                                  "sampling_s": t_sampling}
 
 
 def _tensor_shapes(data) -> tuple:

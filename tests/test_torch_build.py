@@ -6,8 +6,9 @@ points, the ten CL J1226 bands and the bundled count-rate table).  The
 operator, data and prior arrays must agree to 1e-12; the arrays a JAX
 ``FitSession`` holds must carry across through ``session_from_arrays``.
 
-The helpers here (``small_config``, ``jax_session``, ``jax_arrays``) are
-shared by the other ``test_torch_*`` files.
+The helpers here (``small_config``, ``jax_session``, ``jax_arrays``, the
+``single_thread`` fixture) are shared by the other ``test_torch_*``
+files.
 """
 
 import numpy as np
@@ -29,6 +30,18 @@ def small_config(root, seed: int = 3):
     points out to 30", a 50-point pressure grid."""
     return write_synthetic_dataset(str(root), seed, n_annuli=6, n_sz=6,
                                    max_radius_arcsec=30.0, extent_kpc=800.0)
+
+
+@pytest.fixture(scope="module")
+def single_thread():
+    """One torch thread for a module of small-tensor host loops (the
+    samplers' tests): with several test workers on the host, idle
+    intra-op threads of each worker spin against the others' and slow
+    such loops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jax_session(cfg, dtype: str = "float64"):

@@ -58,7 +58,13 @@ EXPECTED = ["joxsz_torch.run", "joxsz_torch.survey", "joxsz_torch.simulate",
             "joxsz_torch.plotting.figures", "joxsz_torch.sampling.population",
             "joxsz_torch.io.ogip", "joxsz_torch.tablegen",
             "joxsz_torch.tablegen.spectrum", "joxsz_torch.tablegen.generate",
-            "joxsz_torch.tablegen.import_xspec_cache"]
+            "joxsz_torch.tablegen.import_xspec_cache",
+            "joxsz_torch.sampling.priors", "joxsz_torch.sampling.laplace",
+            "joxsz_torch.sampling.evidence", "joxsz_torch.sampling.adapt",
+            "joxsz_torch.sampling.hmc", "joxsz_torch.sampling.nuts",
+            "joxsz_torch.sampling.reparam", "joxsz_torch.sampling.sbc",
+            "joxsz_torch.emcee_compat", "joxsz_torch.utils",
+            "joxsz_torch.utils.timing"]
 # optional packages the port imports only inside the functions that need
 # them: the card may lack them, and importing the port must not
 LAZY = ("h5py", "matplotlib")

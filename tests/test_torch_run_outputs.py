@@ -10,8 +10,8 @@ synthetic dataset (two tempering rungs, the kernels' plain versions).
     writes an entry;
   * ``--resume`` continues the saved two-rung ladder with no burn-in;
   * ``--postprocess CHAIN --ppc`` reproduces the summary and writes
-    p-values in [0, 1]; a chain of other parameters is refused, and so
-    is ``--laplace``;
+    p-values in [0, 1]; a chain of other parameters is refused;
+    ``--laplace`` runs the Laplace quick-look instead of sampling;
   * ``--move de`` / ``snooker`` sample on the plain sampler; without h5py
     the chain goes to ``<name>_chain.npz`` and ``--postprocess`` reads
     it; without matplotlib a run stops before sampling and asks for
@@ -29,7 +29,7 @@ import pytest
 from joxsz_torch import run
 from joxsz_torch.io import checkpoint
 from joxsz_torch.io.checkpoint import load_chain, load_state
-from joxsz_torch.sampling import driver
+from joxsz_torch.sampling import driver, laplace
 from joxsz_torch.synth import config_json
 
 from test_torch_build import small_config
@@ -135,10 +135,20 @@ def test_postprocess_refuses_another_family(cli):
                       "knots"))
 
 
-def test_laplace_is_refused(cli):
-    argv, _, _ = cli
-    with pytest.raises(SystemExit, match="Queue A item 8.3"):
-        run.main(argv("laplace", "--laplace"))
+def test_laplace_is_refused(cli, monkeypatch):
+    """``--laplace`` was refused until the Laplace quick-look was ported;
+    now it runs the quick-look and writes ``<name>_laplace.json`` instead
+    of a chain.  The MAP search is stubbed to return its start (the
+    config's values): the CLI's path is what is checked here, the search
+    in ``tests/test_torch_laplace.py``."""
+    argv, _, root = cli
+    monkeypatch.setattr(laplace, "find_mle", lambda model, theta0, lo, hi,
+                        **kw: (np.asarray(theta0), float("nan")))
+    res = run.main(argv("laplace", "--laplace"))
+    out = root / "out" / "laplace"
+    assert (out / "joxsz_laplace.json").is_file()
+    assert not list(out.glob("joxsz_chain.*"))
+    assert np.isfinite(res.log_post_map) and len(res.theta_map) == 13
 
 
 @pytest.mark.parametrize("move", ["de", "snooker"])
