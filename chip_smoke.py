@@ -164,16 +164,34 @@ the emcee shim — and checks their output.  Phases:
      StackMismatch and no warning, ranks in [0, L], thetas_true bit for
      bit the host CPU's, the p-values; then ``EnsembleSampler(vectorize=
      True)`` on the model's ``log_like_batch`` for 200 steps on the card.
+ 23. (its kernels right after phase 17's kernels, its CLI run after
+     phase 22) the hashed-roll partner law
+     ('auto' above 4096 walkers per rung): the step kernel at K=1, W=8192 and K=4 x W=8192 against its plain
+     step for 5 steps as phase 4 holds it, kernel 6 under roll over 2
+     shards as phase 11 holds it (bit for bit the K=1 roll step); one
+     launch of 100 steps at K=1, W=65536 (the JAX package's headline
+     shape) and at K=4, W=8192 under each law, beside the bound and the
+     plain version; ``run --walkers 8192 --quick`` through ``run.main``
+     with the launch counters set to 0 just before: the route printed as
+     roll, every step-kernel launch a roll one;
+ 24. two processes on this card (``parallel.multihost``, gloo):
+     ``survey --mock 4 --walkers 1024 --burn 1000 --steps 1000
+     --multihost-launch 2``, kernel 4 twice per worker, the assembled
+     medians, sds and acceptances bit for bit ``fit_survey`` over a
+     2-shard cluster mesh on [cuda:0, cuda:0], every truth within 5 sd;
+     the coupled sampler at W=128 across the two processes bit for bit
+     one process with 2 shards (with four cards, the survey at 2 workers
+     x 2 cards, --mock 8, against a 4-card mesh).
 
 Prints the kernel JSON line (the six kernels on the flagship's paths,
 then each kernel for each family, "name[family]", kernel 4's family
-instance last), the card line, and as
-the last line
+instance, then the step kernel's roll-law rows "name[roll]"), the card
+line, and as the last line
 ``{"ok": true, "device": {...}}``; exits non-zero, with no result line,
 when a phase fails or no GPU is visible.  The MLE cache entries the run
 writes (``data/cache/mle_torch_*.json``) are removed at its end.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--only 23,24]
 """
 
 from __future__ import annotations
@@ -278,6 +296,11 @@ SBC_BOX = {"log(n_0)": (-1.55, -1.25), r"\beta": (0.58, 0.72),
            "Z": (0.0, 0.6), "P_0": (0.1, 0.4), "a": (0.8, 5.0),
            "b": (2.0, 4.0), "r_p": (110.0, 350.0)}
 EMCEE_W, EMCEE_STEPS = 64, 200
+# phase 23: walkers per rung where 'auto' takes the roll law, the JAX
+# package's headline width (bench.py), and the steps held against plain
+W_ROLL, W_ROLL_TIME, STEPS_CMP_ROLL = 8192, 65536, 5
+# phase 24: coupled steps across processes; seconds the children may take
+MH_COUPLED_STEPS, MULTIHOST_TIMEOUT = 50, 600
 
 
 def card_line() -> str:
@@ -611,16 +634,20 @@ def compare_fused(what: str, x, lp, acc, n_steps: int, plain_half,
 def compare_steps(x, lp, acc, betas, c, step_seed: int, n_steps: int,
                   tag: str = "[4]"):
     """Phase 4: the step kernel on rung state x (K, W, D) at inverse
-    temperatures ``betas`` against the plain step (``compare_fused``).
-    Returns the final state and the largest lp error."""
+    temperatures ``betas`` against the plain step (``compare_fused``),
+    both under the partner law 'auto' takes at W (one-hot up to 4096
+    walkers per rung, the hashed roll above: phase 23).  Returns the
+    final state and the largest lp error."""
     import torch
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
     from joxsz_torch.ops.step_kernel import (half_step_plain, philox_stream,
+                                             resolve_partner, roll_shifts,
                                              stretch_steps, swap_plain)
     from joxsz_torch.sampling.kernel import rung_tensors
 
     K, W, D = x.shape
     H = W // 2
+    law = resolve_partner("auto", W)
     beta, db = rung_tensors(betas, c.device)
     dbs = db.tolist()
     bits = philox_stream(step_seed, c.device)
@@ -630,7 +657,8 @@ def compare_steps(x, lp, acc, betas, c, step_seed: int, n_steps: int,
     def plain_half(x, lp, acc, which, step, k1):
         return half_step_plain(x, lp, acc, beta, which,
                                bits(step, which, K * H, 4),
-                               lp_k1 if k1 else lp_fn)
+                               lp_k1 if k1 else lp_fn,
+                               roll_shifts(law, step_seed, step, which, K, H))
 
     def swaps_ref(x, lp, step):
         accs, margins = [], []
@@ -655,8 +683,9 @@ def compare_steps(x, lp, acc, betas, c, step_seed: int, n_steps: int,
     fresh = joint_ll(x.reshape(K * W, D), c).reshape(K, W)
     check(torch.equal(fresh, lp), f"K={K}: stored lp differs from a fresh "
           "kernel-1 evaluation")
-    print(f"{tag} {n_steps} steps at W={W}, K={K}: {n_dec} half-step "
-          f"decisions, {n_diff} differ from the fully plain step, {n_near} "
+    print(f"{tag} {n_steps} steps at W={W}, K={K} ({law} law): {n_dec} "
+          f"half-step decisions, {n_diff} differ from the fully plain step, "
+          f"{n_near} "
           f"steps where a decision within {MARGIN} of its threshold went "
           "the other way, "
           f"{n_swaps} swaps; state == the plain step on kernel 1's "
@@ -1043,12 +1072,14 @@ def coupled_bound(c, H_loc: int, H: int) -> tuple[float, str]:
     return 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S), by
 
 
-def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
+def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None,
+                    partner: str = "onehot"):
     """Kernel 6 over ``n_shards`` shards from the ensemble x0 (W, D), lp0
-    (W,) for STEPS_CMP_COUPLED steps: every launch against its plain
-    version on the same Philox bits, and after every full step the joined
-    blocks against the step kernel at K = 1 on the whole ensemble (a
-    launch of that one step), bit for bit.
+    (W,) for STEPS_CMP_COUPLED steps under the partner law ``partner``:
+    every launch against its plain version on the same Philox bits, and
+    after every full step the joined blocks against the step kernel at
+    K = 1 on the whole ensemble (a launch of that one step, same law),
+    bit for bit.
     ``devices``: one card per shard (default: all on the constants'
     card; the plain comparison runs only there).  Returns (decisions,
     near-threshold differences, largest lp error, final x, lp, acc)."""
@@ -1058,6 +1089,7 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
     from joxsz_torch.ops.step_kernel import philox_stream, stretch_steps
     from joxsz_torch.sampling.kernel import rung_tensors
+    from joxsz_torch.sampling.tempered import hash_shift
 
     W, D = x0.shape
     H = W // 2
@@ -1082,18 +1114,22 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
     for step in range(STEPS_CMP_COUPLED):
         for which in (0, 1):
             b = bits(step, which, H, 4)
+            shift = (hash_shift(step_seed, step, which, H)
+                     if partner == "roll" else None)
             xm, lm, am = halves[which]
             fixed_home = torch.cat([t.to(home) for t in halves[1 - which][0]])
             for s in range(n_shards):
                 fixed = fixed_home.to(devices[s])
                 if compare_plain:
                     xp, lpp, _, accp, margin = coupled_half_plain(
-                        xm[s], lm[s], am[s], fixed, s * H_loc, b, lp_fn)
+                        xm[s], lm[s], am[s], fixed, s * H_loc, b, lp_fn,
+                        shift)
                     _, _, _, acc1, margin1 = coupled_half_plain(
-                        xm[s], lm[s], am[s], fixed, s * H_loc, b, lp_k1)
+                        xm[s], lm[s], am[s], fixed, s * H_loc, b, lp_k1,
+                        shift)
                     a_before = am[s].clone()
                 coupled_half(xm[s], lm[s], am[s], fixed, which, step_seed,
-                             step, s * H_loc, consts[s])
+                             step, s * H_loc, consts[s], partner=partner)
                 if not compare_plain:
                     continue
                 nd, nn, e = check_half_against_plain(
@@ -1104,7 +1140,7 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None):
                 n_dec, n_near, err = n_dec + nd, n_near + nn, max(err, e)
         # the step kernel at K = 1 on the whole ensemble, same seed and step
         stretch_steps(xr, lr, ar, sacc, beta1, db1, step_seed, 1, c,
-                      step0=step)
+                      step0=step, partner=partner)
         for k, ref in enumerate((xr, lr, ar)):
             got = torch.cat([t.to(home) for h in (0, 1)
                              for t in halves[h][k]])
@@ -2483,6 +2519,391 @@ def phase_sbc(cfg, seed: int, err8: float) -> tuple[int, float, float]:
     return k4, err, err1
 
 
+# ---- the roll law and the multi-process survey (phases 23 and 24) ---------
+
+def flagship_start(sess, c, rng, k: int, w: int):
+    """Rung state (k, w, D) 1% around TRUTH with its kernel-1 lp."""
+    import numpy as np
+    import torch
+    from joxsz_torch.ops.joint_kernel import joint_ll
+    from joxsz_torch.synth import TRUTH
+
+    D, dev = c.ints["D"], c.device
+    th0 = np.array([TRUTH[n] for n in sess.params.thawed])
+    x = torch.tensor(th0[None, None] * (1 + 0.01 * rng.standard_normal(
+        (k, w, D))), dtype=torch.float32, device=dev).contiguous()
+    lp = joint_ll(x.reshape(k * w, D), c).reshape(k, w)
+    check(bool(torch.isfinite(lp).all()), "non-finite start state")
+    return x, lp, torch.zeros((k, w), dtype=torch.float32, device=dev)
+
+
+def phase_roll_kernels(cfg, seed: int) -> dict:
+    """Phase 23's kernels (run right after phase 17's, before the fits):
+    the step kernel at K=1, W=W_ROLL and at K=4 x W=W_ROLL
+    per rung ('auto' takes roll there) against its plain step for
+    STEPS_CMP_ROLL steps as phase 4 holds it; kernel 6 under roll over 2
+    shards against its plain version and bit for bit the K=1 roll step;
+    one launch of TIME_STEPS steps at K=1, W=W_ROLL_TIME (the JAX
+    package's headline shape) and at K=4, W=W_ROLL under each law, with
+    the plain versions and the bounds.  Returns the times and errors."""
+    import numpy as np
+    import torch
+    from joxsz_torch.build import build_session
+    from joxsz_torch.ops.joint_kernel import joint_ll_plain, pack_consts
+    from joxsz_torch.ops.step_kernel import (philox_stream, steps_plain,
+                                             step_kernel_config,
+                                             stretch_steps)
+    from joxsz_torch.sampling.kernel import rung_tensors
+    from joxsz_torch.sampling.tempered import default_betas
+
+    card = card_line()
+    sess = build_session(cfg, device="cuda")
+    c = pack_consts(sess)
+    dev = c.device
+    step_seed = int(np.random.default_rng(seed + 23).integers(0, 2 ** 31 - 1))
+    rng = np.random.default_rng(seed + 24)
+    betas = default_betas(K_SMOKE)
+    print(f"[23] the hashed-roll partner law: K=1 and K={K_SMOKE} at "
+          f"W={W_ROLL} per rung ('auto' takes roll above 4096), "
+          f"{STEPS_CMP_ROLL} steps against the plain step")
+    err1 = compare_steps(*flagship_start(sess, c, rng, 1, W_ROLL),
+                         np.ones(1), c, step_seed, STEPS_CMP_ROLL, "[23]")[3]
+    err4 = compare_steps(*flagship_start(sess, c, rng, K_SMOKE, W_ROLL),
+                         betas, c, step_seed, STEPS_CMP_ROLL, "[23]")[3]
+    x0, lp0, _ = flagship_start(sess, c, rng, 1, W_ROLL)
+    n_dec, n_near, err6, *_ = compare_coupled(x0[0], lp0[0], c, step_seed,
+                                              2, partner="roll")
+    print(f"[23] kernel 6 under roll, W={W_ROLL} over 2 shards, "
+          f"{STEPS_CMP_COUPLED} steps: {n_dec} decisions, {n_near} near-"
+          f"threshold differences vs plain; max |lp err| {err6:.4g}; x, lp, "
+          "acc == the step kernel at K=1 under roll after every step")
+
+    # one launch of TIME_STEPS steps under each law, alternating
+    lp_fn = lambda th: joint_ll_plain(th, c)              # noqa: E731
+    rows = {}
+    for k, w in ((1, W_ROLL_TIME), (K_SMOKE, W_ROLL)):
+        bk = np.ones(1) if k == 1 else betas
+        beta, db = rung_tensors(bk, dev)
+        for law in ("roll", "onehot"):
+            x, lp, acc = flagship_start(sess, c, rng, k, w)
+            sacc = torch.zeros(max(k - 1, 1), dtype=torch.int32, device=dev)
+            fn = lambda: stretch_steps(x, lp, acc, sacc, beta, db,  # noqa
+                                       step_seed, TIME_STEPS, c,
+                                       partner=law)
+            ms = cuda_ms(fn, reps=1, warmup=1)
+            dev_us, busy = device_time_per_launch(fn, reps=1)
+            us = dev_us.get("stretch_steps_kernel")
+            step_us = us / TIME_STEPS if us else float("nan")
+            bound = steps_bound(c, k, w, TIME_STEPS)
+            evals = k * w * TIME_STEPS / (ms * 1e-3)
+            blocks, smem, _, _ = step_kernel_config(c, k, w)
+            rows[(k, law)] = dict(ms=ms, step_us=step_us, bound=bound)
+            print(f"[23] K={k}, W={w}, {law}: {ms:.3f} ms per launch of "
+                  f"{TIME_STEPS} steps by CUDA events, "
+                  + (f"{step_us:.2f} us of device time a step"
+                     if us else "device time not measured")
+                  + f", device busy {100 * busy:.1f}%, {evals / 1e6:.1f} M "
+                  f"evals/s; bound {bound:.3f} ms (operations, "
+                  f"{100 * bound / ms:.1f}% of the time); grid {blocks} x "
+                  f"512, {smem} B shared; {card}")
+        # the plain version of the same launch under roll
+        x, lp, acc = flagship_start(sess, c, rng, k, w)
+        beta, db = rung_tensors(bk, dev)
+        rows[(k, "plain")] = cuda_ms(lambda: steps_plain(
+            x, lp, acc, beta, db.tolist(), step_seed, TIME_STEPS,
+            philox_stream(step_seed, dev), lp_fn, partner="roll"),
+            reps=1, warmup=0)
+        r, o = rows[(k, "roll")], rows[(k, "onehot")]
+        print(f"[23] K={k}, W={w}: roll / one-hot {r['ms'] / o['ms']:.3f} "
+              f"by CUDA events; plain (roll) {rows[(k, 'plain')]:.1f} ms "
+              f"per {TIME_STEPS} steps")
+    return dict(rows=rows, err1=err1, err4=err4, err6=err6)
+
+
+def phase_roll_cli(path: str, roll: dict) -> tuple[dict, dict, float]:
+    """Phase 23's CLI run: ``run --walkers W_ROLL --quick`` through
+    ``run.main`` on phase 5's config (its MLE cached), launch counters set
+    to 0 just before: the route printed as roll, every step-kernel launch
+    a roll one.  Returns the kernels line's two roll rows (the times of
+    ``phase_roll_kernels``) and kernel 6's largest lp error under roll."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from joxsz_torch import run
+    from joxsz_torch.sampling.kernel import chain_chunk_schedule
+
+    rows = roll["rows"]
+    # the CLI at W_ROLL walkers: the route the JAX run --step-kernel takes
+    m_argv = ["--config", path, "--walkers", str(W_ROLL), "--quick"]
+    buf = io.StringIO()
+    zero_launches()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        res = run.main(m_argv + plot_flags())
+    wall = time.time() - t0
+    launches = read_launches()
+    text = buf.getvalue()
+    route = [ln for ln in text.splitlines() if "partner law" in ln]
+    for line in route + [ln for ln in text.splitlines()
+                         if ln.startswith(("wall time", "throughput"))]:
+        print(f"[23]   {line}")
+    t = res.timings
+    acc = float(np.mean(res.acceptance_fraction))
+    n1 = t["prelim_rounds"] * len(chain_chunk_schedule(100, 1)) + len(
+        chain_chunk_schedule(200, 1))
+    n4 = (1 + t["auto_extend_rounds"]) * len(chain_chunk_schedule(400, 5))
+    print(f"[23] run --walkers {W_ROLL} --quick in {wall:.1f} s: acceptance "
+          f"{acc:.3f}, launches {launches}")
+    check(len(route) == 1 and f"partner law roll at {W_ROLL}" in route[0],
+          f"run --walkers {W_ROLL}: route {route}")
+    check(launches["stretch_steps_roll"] == n1
+          and launches["stretch_steps_tempered_roll"] == n4
+          and launches["stretch_steps"] + launches["stretch_steps_tempered"]
+          == 0, f"run --walkers {W_ROLL}: launches {launches}, want {n1} + "
+          f"{n4} roll launches and no one-hot one")
+    check(0.1 < acc < 0.6, f"run --walkers {W_ROLL}: acceptance {acc}")
+    check(res.chain.shape[1:] == (W_ROLL, 13) and np.all(np.isfinite(
+        res.chain)) and np.all(np.isfinite(res.log_prob)),
+        f"run --walkers {W_ROLL}: chain {res.chain.shape} or non-finite")
+
+    def row(name, k, w, replaces, err, n):
+        r = rows[(k, "roll")]
+        return dict(name=name, route="cuda",
+                    source="joxsz_torch/csrc/stretch_step.cu",
+                    replaces=replaces, launches=n, max_abs_err=err,
+                    ms=r["ms"], plain_ms=rows[(k, "plain")],
+                    bound_ms=r["bound"], bound_by="operations",
+                    library_ms=None)
+
+    return (row("stretch_steps[roll]", 1, W_ROLL_TIME,
+                "joxsz_tpu/ops/pallas_joint.py:1242", roll["err1"],
+                launches["stretch_steps_roll"]),
+            row("stretch_steps_tempered[roll]", K_SMOKE, W_ROLL,
+                "joxsz_tpu/ops/pallas_joint.py:2105", roll["err4"],
+                launches["stretch_steps_tempered_roll"]), roll["err6"])
+
+
+def coupled_spec(base: str):
+    """Phase 24's coupled run: its spec and its start walkers."""
+    import numpy as np
+    from joxsz_torch.synth import TRUTH
+
+    spec = json.loads(open(f"{base}/spec.json").read())
+    th0 = np.array([TRUTH[n] for n in spec["thawed"]])
+    rng = np.random.default_rng(spec["seed"])
+    p0 = th0[None] * (1 + 0.01 * rng.standard_normal((W_MESH, th0.size)))
+    return spec, p0
+
+
+def coupled_worker(rank: int, base: str):
+    """Process ``rank`` of phase 24's two-process coupled run: the coupled
+    sampler over a walker mesh of one card shard per process; writes its
+    walkers' chain, its launches of kernel 6 and its wall."""
+    import numpy as np
+    import torch
+    from joxsz_torch.build import build_session
+    from joxsz_torch.config import JoXSZConfig
+    from joxsz_torch.ops.joint_kernel import pack_consts
+    from joxsz_torch.parallel import multihost
+    from joxsz_torch.parallel.kernel_sharded import (
+        run_coupled_sharded_ensemble)
+
+    spec, p0 = coupled_spec(base)
+    info = multihost.initialize(f"file://{base}/rdv", 2, rank)
+    print(f"process {rank}/2: {info.local_devices} card(s), "
+          f"CUDA_VISIBLE_DEVICES={os.environ.get('CUDA_VISIBLE_DEVICES')}, "
+          f"{torch.cuda.get_device_name(0)}")
+    sess = build_session(JoXSZConfig.from_json(open(spec["config"]).read()),
+                         device="cuda")
+    c = pack_consts(sess)
+    mesh = multihost.global_mesh(("walker",))
+    zero_launches()
+    t0 = time.time()
+    res = run_coupled_sharded_ensemble(
+        c, torch.tensor(p0, dtype=torch.float32), spec["steps"],
+        spec["seed"], mesh, thin=THIN_MESH)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = read_launches()["coupled_half"]
+    multihost.finalize()
+    np.savez(f"{base}/rank{rank}.npz", chain=res.chain, lp=res.log_prob,
+             acc=res.acceptance_fraction, idx=res.walker_indices,
+             x=res.final_state[0].cpu().numpy(), wall=wall,
+             launches=launches)
+    print(f"process {rank}: {spec['steps']} coupled steps in {wall:.2f} s, "
+          f"{launches} launches of kernel 6")
+
+
+def run_children(argvs: list, tmp: str, tag: str, env=None):
+    """Run child processes together, each its own log, under one deadline
+    (MULTIHOST_TIMEOUT); kills them all when one fails or time runs out.
+    Returns their logs."""
+    procs = []
+    try:
+        for i, argv in enumerate(argvs):
+            log = open(f"{tmp}/{tag}{i}.log", "w")
+            procs.append((log, subprocess.Popen(
+                argv, stdout=log, stderr=subprocess.STDOUT, env=env)))
+        t_end = time.time() + MULTIHOST_TIMEOUT
+        while any(p.poll() is None for _, p in procs):
+            bad = [p.returncode for _, p in procs
+                   if p.poll() is not None and p.returncode]
+            if bad or time.time() > t_end:
+                break
+            time.sleep(0.2)
+    finally:
+        for log, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    logs = [open(f"{tmp}/{tag}{i}.log").read() for i in range(len(argvs))]
+    for (_, p), text in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: a child failed (rc "
+                                 f"{p.returncode}):\n" + text[-3000:])
+    return logs
+
+
+def phase_multihost(cfg5, path: str, tmp: str, seed: int) -> tuple[int, int]:
+    """Phase 24: the multi-process survey and the coupled sampler across
+    processes, two processes on this card.  (1) ``survey.main --mock 4
+    --walkers 1024 --burn 1000 --steps 1000 --multihost-launch 2``: both
+    workers on cuda:0, kernel 4 twice each; the assembled medians, sds and
+    acceptances bit for bit ``fit_survey`` over a 2-shard cluster mesh on
+    [cuda:0, cuda:0] in this process at the same seed; every truth within
+    5 sd.  (2) the coupled sampler at phase 12's W over a walker mesh of
+    one shard per process against one process with 2 shards, bit for
+    bit, ``walker_indices`` covering every walker once.  With four cards
+    the survey runs 2 workers x 2 cards (--mock 8) against a mesh of the
+    four cards.  Returns the launches of kernels 4 and 6 in the workers."""
+    import argparse
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from joxsz_torch import survey
+    from joxsz_torch.build import build_session
+    from joxsz_torch.ops.joint_kernel import pack_consts
+    from joxsz_torch.parallel import make_mesh
+    from joxsz_torch.parallel.kernel_sharded import (
+        run_coupled_sharded_ensemble)
+
+    def multihost_survey(C, n_cards):
+        """--mock C over 2 workers of n_cards cards each (1: both on
+        cuda:0) against a mesh of as many shards in this process."""
+        out = f"{tmp}/multihost_{C}.json"
+        argv = ["--mock", str(C), "--config", path, "--walkers",
+                str(W_SMOKE), "--burn", "1000", "--steps", "1000", "--seed",
+                str(seed), "--out", out, "--multihost-launch", "2"]
+        buf = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            survey.main(argv)
+        wall = time.time() - t0
+        text = buf.getvalue()
+        for line in text.splitlines():
+            if line.startswith(("worker ", "process ", "survey of")):
+                print(f"[24]   {line}")
+        got = re.findall(r"process (\d+): clusters \[(\d+), (\d+)\) sampled "
+                         r"in [\d.]+s .* (\d+) launches of the cluster-grid",
+                         text)
+        check(sorted(int(g[0]) for g in got) == [0, 1]
+              and all(int(g[3]) == 2 * n_cards for g in got),
+              f"multihost survey: worker lines {got}, want kernel 4 "
+              f"launched twice per shard ({n_cards} per worker)")
+        mh = json.loads(open(out).read())
+        t0 = time.time()
+        ns = argparse.Namespace(config=path, data_dir=None, sz_only=False,
+                                seed=seed)
+        sess, sz, xr, centers, names, truths = survey._build_mock_survey(
+            C, ns, torch.device("cuda"))
+        shards = 2 * n_cards
+        devs = ([f"cuda:{i}" for i in range(shards)] if n_cards > 1
+                else ["cuda:0"] * 2)
+        res = survey.fit_survey(
+            sess, sz, xr, centers, cluster_names=names, n_walkers=W_SMOKE,
+            n_burn=1000, n_steps=1000, thin=5, seed=seed, truths=truths,
+            mesh=make_mesh(len(devs), ("cluster",), devices=devs))
+        wall1 = time.time() - t0
+        one = res.to_dict()["clusters"]
+        for key in ("name", "median", "sd", "acceptance", "truth"):
+            check([r[key] for r in mh["clusters"]] == [r[key] for r in one],
+                  f"multihost survey (C={C}): '{key}' differs from the "
+                  f"{len(devs)}-shard mesh run in one process: "
+                  f"{[r[key] for r in mh['clusters']]} vs "
+                  f"{[r[key] for r in one]}")
+        check(mh["clusters"] == one, f"multihost survey (C={C}) differs")
+        pulls = max(abs(row["median"][n] - row["truth"][n])
+                    / max(row["sd"][n], 1e-12)
+                    for row in mh["clusters"] for n in mh["param_names"])
+        check(pulls < 5.0, f"multihost survey: a truth {pulls:.1f} sd off")
+        print(f"[24] survey --mock {C} --multihost-launch 2 ({n_cards} "
+              f"card(s) per worker): {wall:.1f} s wall (launcher), the "
+              f"{len(devs)}-shard mesh in one process {wall1:.1f} s; "
+              f"medians, sds, acceptances bit for bit; ranges "
+              f"{mh['multihost']['ranges']}; largest pull {pulls:.2f} sd")
+        return sum(int(g[3]) for g in got)
+
+    # one card: both workers on cuda:0; four: two cards each, --mock 8
+    per = max(1, torch.cuda.device_count() // 2)
+    C = C_SURVEY if per == 1 else 2 * C_SURVEY
+    print(f"[24] multi-process survey: 2 workers, {per} card(s) each"
+          + (" (both on cuda:0)" if per == 1 else "") + f", W={W_SMOKE}, "
+          f"--mock {C}, 1000 + 1000 steps")
+    n4 = multihost_survey(C, per)
+
+    # the coupled sampler across processes
+    base = f"{tmp}/coupled_mh"
+    os.makedirs(base)
+    sess = build_session(cfg5, device="cuda")
+    c = pack_consts(sess)
+    spec = dict(config=path, seed=seed + 24, steps=MH_COUPLED_STEPS,
+                thawed=list(sess.params.thawed))
+    open(f"{base}/spec.json", "w").write(json.dumps(spec))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0", OMP_NUM_THREADS="1")
+    logs = run_children(
+        [[sys.executable, os.path.abspath(__file__), "--coupled-worker",
+          str(r), "--base", base] for r in (0, 1)], tmp, "coupled_mh", env)
+    for text in logs:
+        for line in text.splitlines():
+            if line.startswith("process "):
+                print(f"[24]   {line}")
+    _, p0 = coupled_spec(base)
+    t0 = time.time()
+    one = run_coupled_sharded_ensemble(
+        c, torch.tensor(p0, dtype=torch.float32), MH_COUPLED_STEPS,
+        spec["seed"], make_mesh(2, ("walker",), devices=["cuda:0"] * 2),
+        thin=THIN_MESH)
+    torch.cuda.synchronize()
+    wall1 = time.time() - t0
+    seen, n6, walls = [], 0, []
+    for r in (0, 1):
+        got = np.load(f"{base}/rank{r}.npz")
+        idx = got["idx"]
+        seen += idx.tolist()
+        n6 += int(got["launches"])
+        walls.append(float(got["wall"]))
+        check(np.array_equal(got["chain"], one.chain[:, idx])
+              and np.array_equal(got["lp"], one.log_prob[:, idx])
+              and np.array_equal(got["acc"], one.acceptance_fraction[idx])
+              and np.array_equal(got["x"], one.final_state[0].cpu().numpy()
+                                 [idx]),
+              f"coupled sampler, process {r}: differs from one process")
+    check(sorted(seen) == list(range(W_MESH)),
+          "coupled sampler: walker_indices do not cover every walker once")
+    check(n6 == 4 * MH_COUPLED_STEPS, f"coupled sampler: {n6} launches of "
+          f"kernel 6 in the workers, want {4 * MH_COUPLED_STEPS}")
+    print(f"[24] coupled sampler W={W_MESH}, {MH_COUPLED_STEPS} steps across "
+          f"2 processes (1 shard each on cuda:0): {walls[0]:.2f} / "
+          f"{walls[1]:.2f} s ({1e3 * max(walls) / MH_COUPLED_STEPS:.2f} ms "
+          f"a step) vs {wall1:.2f} s in one process with 2 shards; chains, "
+          "acceptance and final walkers bit for bit, every walker once")
+    return n4, n6
+
+
 def all_launches() -> dict:
     from joxsz_torch.ops.coupled_kernel import coupled_half
     from joxsz_torch.ops.joint_kernel import joint_ll
@@ -2499,17 +2920,24 @@ def zero_launches():
     for fn in all_launches().values():
         fn.launches = 0
     all_launches()["stretch_steps"].launches_tempered = 0
+    all_launches()["stretch_steps"].launches_roll = [0, 0]
     all_launches()["stretch_steps_multicluster"].launches_by_family.clear()
 
 
 def read_launches() -> dict:
     """Launches per kernel entry of the kernels line: the rung step
     kernel's split into K = 1 (``stretch_steps``) and K > 1
-    (``stretch_steps_tempered``)."""
+    (``stretch_steps_tempered``) under the one-hot law, and the same two
+    under the roll law (``..._roll``, phase 23)."""
     fns = all_launches()
     out = {k: fn.launches for k, fn in fns.items()}
-    out["stretch_steps_tempered"] = fns["stretch_steps"].launches_tempered
-    out["stretch_steps"] -= out["stretch_steps_tempered"]
+    st = fns["stretch_steps"]
+    out["stretch_steps_roll"], out["stretch_steps_tempered_roll"] = \
+        st.launches_roll
+    out["stretch_steps_tempered"] = (st.launches_tempered
+                                     - out["stretch_steps_tempered_roll"])
+    out["stretch_steps"] -= (st.launches_tempered
+                             + out["stretch_steps_roll"])
     return out
 
 
@@ -2825,10 +3253,48 @@ def phase_outputs(cfg, tmp: str, main_path):
               f"{res.timings['evals_per_s']:.0f} evals/s")
 
 
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
+    """``--only``: phases 23 and / or 24 on phase 2's dataset, written as
+    phase 5 writes its config; the kernels line holds their rows only."""
+    import torch
+    from joxsz_torch.config import JoXSZConfig, MCMCConfig
+    from joxsz_torch.synth import config_json
+
+    cfg.mcmc = MCMCConfig.converged_gpu()
+    cfg.mcmc.seed = seed
+    cfg.save_dir = cfg.plot_dir = tmp
+    path = config_json(cfg, f"{tmp}/smoke.json")
+    cfg5 = JoXSZConfig.from_json(open(path).read())
+    rows = []
+    phases = {int(p) for p in which.split(",")}
+    if 23 in phases:
+        rows += list(phase_roll_cli(path, phase_roll_kernels(cfg5, seed))
+                     [:2])
+    if 24 in phases:
+        phase_multihost(cfg5, path, tmp, seed)
+    print(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS}
+                                  for r in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--only", metavar="23,24",
+                    help="run phases 1-2, then only these of phases 23 "
+                         "and 24 (a quick check of a change; the full run "
+                         "is the check)")
     ap.add_argument("--family-fit", help=argparse.SUPPRESS)
+    ap.add_argument("--coupled-worker", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--base", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
@@ -2844,6 +3310,9 @@ def main() -> int:
     if args.family_fit:
         family_fit(args.family_fit, args.seed, args.base)
         return 0
+    if args.coupled_worker is not None:
+        coupled_worker(args.coupled_worker, args.base)
+        return 0
     from joxsz_torch.run import MLE_CACHE_DIR
 
     tmp = tempfile.mkdtemp(prefix="joxsz_smoke_")
@@ -2855,6 +3324,8 @@ def main() -> int:
         print(f"[1] card: {card}")
         phase_build()
         cfg, sess, c = phase_session(tmp, args.seed)
+        if args.only:
+            return only_phases(args.only, cfg, tmp, args.seed, card)
         k1 = phase_joint(sess, c, args.seed)
         k2, k3, rows = phase_step_times(sess, c, phase_steps(sess, c,
                                                               args.seed))
@@ -2867,6 +3338,7 @@ def main() -> int:
         # kernel 4's family instance beside phase 14's kernels (the
         # profiler's device times are read before the fits' phases)
         k17, keys = phase_cluster_grid_families(cfg, args.seed)
+        roll = phase_roll_kernels(cfg, args.seed)
         main_path = phase_main_path(cfg, tmp, args.seed)
         launches, path, res5 = main_path[:3]
         for k in (k1, k2, k3):
@@ -2897,11 +3369,14 @@ def main() -> int:
         k4["launches"] += n_sbc
         k4["max_abs_err"] = max(k4["max_abs_err"], err_sbc)
         k1["max_abs_err"] = max(k1["max_abs_err"], err_k1)
-        order = ("name", "route", "source", "replaces", "launches",
-                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                 "library_ms")
-        kernels = [{key: k[key] for key in order}
-                   for k in (k1, k2, k3, k4, k5, k6, *kf, *k17)]
+        # the roll law, then the multi-process survey and coupled sampler
+        k2r, k3r, err6 = phase_roll_cli(path, roll)
+        k6["max_abs_err"] = max(k6["max_abs_err"], err6)
+        n4, n6 = phase_multihost(cfg5, path, tmp, args.seed)
+        k4["launches"] += n4
+        k6["launches"] += n6
+        kernels = [{key: k[key] for key in KERNEL_KEYS}
+                   for k in (k1, k2, k3, k4, k5, k6, *kf, *k17, k2r, k3r)]
         r4 = rows[f"K={K_SMOKE}, W={W_SMOKE}"]
         print(f"tempered step W={W_SMOKE} K={K_SMOKE}: "
               f"{1e3 * r4['ms'] / TIME_STEPS:.2f} us by CUDA events, "

@@ -19,13 +19,19 @@
 // wrapper raises) when they cannot be.
 //
 // A half-step tile: every walker of the moving half draws Philox bits,
-// takes the stretch factor z (_stretch_z), a uniform partner in its own
-// group's other half (the one-hot law), proposes y = x_p + z (x - x_p),
+// takes the stretch factor z (_stretch_z), a partner in its own group's
+// other half, proposes y = x_p + z (x - x_p),
 // evaluates the joint log-posterior through the shared joint_ll_tile, and
 // accepts by _gw_accept: log u < (D-1) log z + beta (lp_y - lp).  Philox is
 // keyed on (seed, 0) with counter (g*H + i, step, half, 0) for rungs and
 // (i, step, half, cluster) for clusters, so a cluster's stream does not
-// depend on how many clusters there are.
+// depend on how many clusters there are.  Two partner laws, a launch
+// argument: the one-hot law draws a uniform row of the fixed half from
+// Philox word 1 (emcee's law; the cluster grid takes it at every W); the
+// hashed-roll law (make_step_kernel / make_tempered_step_kernel with
+// partner="roll", pallas_joint.py:1439-1443, :2212-2219) pairs moving row
+// i with fixed row (i - s) mod H, s = hash_shift(seed, step, half, H,
+// rung), the jnp.roll rotation, and leaves word 1 unused.
 //
 // The swap sweep (pallas_joint.py:2383-2432) runs after half 1 on the
 // whole grid, boundaries kk = 0 .. K-2 in order with a barrier after each
@@ -52,8 +58,11 @@
 // addressed by the row's place in the whole half, counter (row_off + i,
 // step, half, 0), and joint_ll_tile does not depend on a walker's slot in
 // its tile, so any split of the half over shards gives, bit for bit, what
-// the step kernel gives for the whole ensemble at G = 1.  Both kernels run
-// one piece of device code per tile, stretch_half_tile.
+// the step kernel gives for the whole ensemble at G = 1.  Under the roll
+// law its row i, global row row_off + i, pairs with fixed row (row_off +
+// i - s) mod H (the shift2 = s + noff of pallas_joint.py:1748-1765), the
+// single-device partner.  Both kernels run one piece of device code per
+// tile, stretch_half_tile.
 //
 // What bounds them on the card: the likelihood of the moving rows (~84 k
 // FP32 operations a walker); the step kernel also pays 2 + (K-1) grid
@@ -74,17 +83,19 @@
 // of n_move rows (xm, lpm, accm) against a fixed half of n_fixed rows (xf).
 // Moving row i draws Philox at counter (ctr0 + i, step, which, c3).  The
 // tail guard uses n_move for the moving rows and n_fixed for the partner
-// clamp.  x and xf are plain pointers, never __restrict__: in the step
-// kernel other blocks write them between barriers, and a read-only (.nc)
-// load would not see that.  With fx non-null the tile then copies its
-// rows' new x and lp to fx / flp (a frame).  st: the staged constants of
-// the tile's group; smem: HALF_EXTRA floats, then tile_layout(c).total
-// floats of scratch unless the plan put that in the global workspace.
+// clamp.  shift < 0: the one-hot law; else the roll law, row i pairing
+// with fixed row (i - shift) mod n_fixed.  x and xf are plain pointers,
+// never __restrict__: in the step kernel other blocks write them between
+// barriers, and a read-only (.nc) load would not see that.  With fx
+// non-null the tile then copies its rows' new x and lp to fx / flp (a
+// frame).  st: the staged constants of the tile's group; smem: HALF_EXTRA
+// floats, then tile_layout(c).total floats of scratch unless the plan put
+// that in the global workspace.
 template <bool FIT, bool FAM>
 __device__ __forceinline__ void stretch_half_tile(
     float* xm, float* lpm, float* accm, const float* xf, int n_move,
     int n_fixed, int i0, uint32_t ctr0, uint32_t c3, int which,
-    uint32_t seed, int step, float zc1, float zc2, float bg,
+    uint32_t seed, int step, int shift, float zc1, float zc2, float bg,
     const LLConsts& c, const float* st, float* smem, float* fx, float* flp) {
   const int WT = TILE_WALKERS;
   float* y = smem;                         // WT x MAX_D proposals
@@ -106,8 +117,14 @@ __device__ __forceinline__ void stretch_half_tile(
     float t = __fadd_rn(zc1, __fmul_rn(u0, zc2));
     rz[tid] = __fmul_rn(t, t);
     ru[tid] = bits_to_uniform(b[2]);
-    int pidx = (int)__fmul_rn(u1, (float)n_fixed);
-    pidx = pidx < n_fixed - 1 ? pidx : n_fixed - 1;
+    int pidx;
+    if (shift < 0) {
+      pidx = (int)__fmul_rn(u1, (float)n_fixed);
+      pidx = pidx < n_fixed - 1 ? pidx : n_fixed - 1;
+    } else {
+      pidx = i - shift;
+      if (pidx < 0) pidx += n_fixed;
+    }
     slot[tid] = i;
     pslot[tid] = pidx;
   }
@@ -163,6 +180,19 @@ __device__ inline int rotation_shift(uint32_t seed, int step, int kk, int H) {
   return m < 0 ? m + H : m;
 }
 
+// Partner shift of the roll law at (step, half which) of rung extra: the
+// int32 expression of pallas_joint.py:1140-1151, _hash_shift (wrapping
+// multiply, arithmetic >> 7, floor-mod by H), as sampling/tempered.py::
+// hash_shift computes it.
+__host__ __device__ inline int hash_shift(uint32_t seed, int step, int which,
+                                          int H, int extra) {
+  uint32_t v = seed * 1103515245u + (uint32_t)step * 40503u
+               + (uint32_t)which * 10007u + (uint32_t)extra * 7919u;
+  int s = ((int)v) >> 7;
+  int m = s % H;
+  return m < 0 ? m + H : m;
+}
+
 struct StepArgs {
   float* x;
   float* lp;
@@ -175,6 +205,7 @@ struct StepArgs {
   unsigned int* bar;       // grid barrier counter, 0 at launch
   size_t cstride;
   int G, W, step0, n_steps, thin, per_cluster;
+  int roll;                // 1: the hashed-roll partner law; 0: one-hot
   uint32_t seed;
   float zc1, zc2;
 };
@@ -284,7 +315,8 @@ __device__ __forceinline__ void stretch_steps_body(const StepArgs& a,
         stretch_half_tile<FIT, FAM>(
             a.x + mv * D, a.lp + mv, a.acc + mv, a.x + fx * D, H, H,
             tile * WT, a.per_cluster ? 0u : (uint32_t)(g * H),
-            a.per_cluster ? (uint32_t)g : 0u, which, a.seed, i, a.zc1, a.zc2,
+            a.per_cluster ? (uint32_t)g : 0u, which, a.seed, i,
+            a.roll ? hash_shift(a.seed, i, which, H, g) : -1, a.zc1, a.zc2,
             a.beta ? a.beta[g] : 1.0f, c, st, sm, frame, frame_lp);
       }
       grid_barrier(a.bar, target);
@@ -330,12 +362,13 @@ STRETCH_STEPS_KERNEL(stretch_steps_fam_large_kernel, false, true)
 // against the whole fixed half xf (H rows, a gathered copy).  Row i of the
 // shard is row row_off + i of the half and draws at that counter, so the
 // shards together draw exactly the bits the step kernel draws for the
-// whole ensemble at G = 1.
+// whole ensemble at G = 1.  shift: -1 for the one-hot law, else the roll
+// law's shift less row_off, mod H (the launch computes it).
 template <bool FIT, bool FAM>
 __device__ __forceinline__ void coupled_half_body(
     float* xu, float* lpu, float* accu, const float* xf, int H_loc, int H,
-    int row_off, int which, uint32_t seed, int step, float zc1, float zc2,
-    const LLConsts& c, float* smem) {
+    int row_off, int which, uint32_t seed, int step, int shift, float zc1,
+    float zc2, const LLConsts& c, float* smem) {
   float* sm = smem + (c.stage ? c.n_buf : 0) + 4;   // as the step kernel's
   const float* st = use_consts<FIT>(c, 0, smem);
   int t0, t1;
@@ -343,18 +376,19 @@ __device__ __forceinline__ void coupled_half_body(
   for (int t = t0; t < t1; ++t)
     stretch_half_tile<FIT, FAM>(xu, lpu, accu, xf, H_loc, H,
                                 t * TILE_WALKERS, (uint32_t)row_off, 0u,
-                                which, seed, step, zc1, zc2, 1.0f, c, st, sm,
-                                nullptr, nullptr);
+                                which, seed, step, shift, zc1, zc2, 1.0f, c,
+                                st, sm, nullptr, nullptr);
 }
 
 #define COUPLED_HALF_KERNEL(name, FIT, FAM)                                 \
   __global__ void __launch_bounds__(JT_THREADS, 1)                          \
   name(float* xu, float* lpu, float* accu, const float* xf, int H_loc,      \
-       int H, int row_off, int which, uint32_t seed, int step, float zc1,   \
-       float zc2, LLConsts c) {                                             \
+       int H, int row_off, int which, uint32_t seed, int step, int shift,   \
+       float zc1, float zc2, LLConsts c) {                                  \
     extern __shared__ __align__(16) float smem[];                           \
     coupled_half_body<FIT, FAM>(xu, lpu, accu, xf, H_loc, H, row_off,       \
-                                which, seed, step, zc1, zc2, c, smem);      \
+                                which, seed, step, shift, zc1, zc2, c,      \
+                                smem);                                      \
   }
 COUPLED_HALF_KERNEL(coupled_half_kernel, true, false)
 COUPLED_HALF_KERNEL(coupled_half_large_kernel, false, false)
@@ -363,7 +397,7 @@ COUPLED_HALF_KERNEL(coupled_half_fam_large_kernel, false, true)
 
 typedef void (*StepKernel)(StepArgs, LLConsts);
 typedef void (*CoupledKernel)(float*, float*, float*, const float*, int, int,
-                              int, int, uint32_t, int, float, float,
+                              int, int, uint32_t, int, int, float, float,
                               LLConsts);
 static const StepKernel STEP_KERNELS[2][2] = {
     {stretch_steps_kernel, stretch_steps_large_kernel},
@@ -401,12 +435,14 @@ extern "C" int stretch_steps_config(int G, int W, const int* iv,
 // G groups of W walkers: K rungs (per_cluster == 0, beta and db on the
 // device, one set of constants) or C clusters (per_cluster != 0, beta and
 // db null, cluster g's constants at buf + g * cstride floats).  One
-// cooperative launch of n_steps full steps; bar: one zeroed unsigned int.
+// cooperative launch of n_steps full steps; bar: one zeroed unsigned int;
+// roll: the partner law (1 roll, 0 one-hot; rungs only).
 extern "C" int launch_stretch_steps(
     float* x, float* lp, float* acc, int* sacc, const float* beta,
     const float* db, int G, int W, unsigned int seed, int step0, int n_steps,
     int thin, float* chain, float* chain_lp, float zc1, float zc2,
-    int per_cluster, long long cstride, unsigned int* bar, const float* buf,
+    int per_cluster, int roll, long long cstride, unsigned int* bar,
+    const float* buf,
     const int* iv, const float* fv, void* stream) {
   LLConsts c = make_consts(buf, iv, fv);
   int dev = 0, coop = 0;
@@ -430,7 +466,8 @@ extern "C" int launch_stretch_steps(
   a.chain = chain; a.chain_lp = chain_lp; a.bar = bar;
   a.cstride = (size_t)cstride;
   a.G = G; a.W = W; a.step0 = step0; a.n_steps = n_steps; a.thin = thin;
-  a.per_cluster = per_cluster; a.seed = seed; a.zc1 = zc1; a.zc2 = zc2;
+  a.per_cluster = per_cluster; a.roll = per_cluster ? 0 : roll;
+  a.seed = seed; a.zc1 = zc1; a.zc2 = zc2;
   void* args[] = {&a, &c};
   e = cudaLaunchCooperativeKernel((void*)kernel, dim3(blocks),
                                   dim3(JT_THREADS), args, smem,
@@ -440,11 +477,12 @@ extern "C" int launch_stretch_steps(
 }
 
 // The moving block (H_loc rows) and the fixed half (H rows) are separate
-// buffers; row_off is the block's first row within the half.
+// buffers; row_off is the block's first row within the half; roll: the
+// partner law (1 roll, 0 one-hot).
 extern "C" int launch_coupled_half(float* xu, float* lpu, float* accu,
                                    const float* xf, int H_loc, int H,
                                    int row_off, int which, unsigned int seed,
-                                   int step, float zc1, float zc2,
+                                   int step, int roll, float zc1, float zc2,
                                    const float* buf, const int* iv,
                                    const float* fv, void* stream) {
   LLConsts c = make_consts(buf, iv, fv);
@@ -457,7 +495,13 @@ extern "C" int launch_coupled_half(float* xu, float* lpu, float* accu,
                           (H_loc + TILE_WALKERS - 1) / TILE_WALKERS, &blocks);
   if (!err) err = take_workspace(&c, blocks, ws, (cudaStream_t)stream);
   if (err) return err;
+  int shift = -1;
+  if (roll) {
+    shift = (hash_shift(seed, step, which, H, 0) - row_off % H) % H;
+    if (shift < 0) shift += H;
+  }
   kernel<<<blocks, JT_THREADS, smem, (cudaStream_t)stream>>>(
-      xu, lpu, accu, xf, H_loc, H, row_off, which, seed, step, zc1, zc2, c);
+      xu, lpu, accu, xf, H_loc, H, row_off, which, seed, step, shift, zc1,
+      zc2, c);
   return release_workspace(c, (cudaStream_t)stream);
 }

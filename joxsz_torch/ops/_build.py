@@ -33,11 +33,11 @@ SIGNATURES = {
     },
     "stretch_step": {
         "launch_stretch_steps": [_P, _P, _P, _P, _P, _P, _I, _I, _U, _I, _I,
-                                 _I, _P, _P, _F, _F, _I, _L, _P, _P, _P, _P,
-                                 _P],
+                                 _I, _P, _P, _F, _F, _I, _I, _L, _P, _P, _P,
+                                 _P, _P],
         "stretch_steps_config": [_I, _I, _P, _P, _P],
-        "launch_coupled_half": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _F,
-                                _F, _P, _P, _P, _P],
+        "launch_coupled_half": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I,
+                                _F, _F, _P, _P, _P, _P],
     },
     "sz_core": {
         "launch_sz_core": [_P, _P, _P, _I, _P, _P, _P, _P, _P],

@@ -5,11 +5,16 @@ half-substep of a single Goodman-Weare ensemble of W = 2 H walkers that
 is spread over ``n_shards`` shards.  A shard holds ``H_loc = H /
 n_shards`` rows of the moving half and, for the launch, a gathered copy
 of the whole fixed half; it draws its rows' bits at the rows' place in
-the whole half (``row_off + i``), takes ``z = _stretch_z(u0)``, the
-partner ``min(int(u1 H), H - 1)`` in the FULL fixed half, proposes ``y =
-x_p + z (x_m - x_p)``, evaluates the joint log-posterior and accepts by
-``_gw_accept``.  The sampler that loops it — gather B, move A, gather A,
-move B — is ``parallel.kernel_sharded.run_coupled_sharded_ensemble``.
+the whole half (``row_off + i``), takes ``z = _stretch_z(u0)``, a
+partner in the FULL fixed half, proposes ``y = x_p + z (x_m - x_p)``,
+evaluates the joint log-posterior and accepts by ``_gw_accept``.  The
+partner follows one of the two laws of the step kernel
+(``ops.step_kernel``): one-hot, ``min(int(u1 H), H - 1)``; or the hashed
+roll, row ``(row_off + i - s) mod H`` with ``s = hash_shift(seed, step,
+which, H)`` (the TPU kernel's ``shift2 = s + noff``), the partner the
+single-device step kernel gives that row.  The sampler that loops it —
+gather B, move A, gather A, move B — is ``parallel.kernel_sharded.
+run_coupled_sharded_ensemble``.
 
 The TPU kernel packs lp and the accept count into lanes of a (rows, Dp)
 state, rolls the shard's rows to the top of the full draw and gathers
@@ -25,11 +30,9 @@ Random bits: Philox-4x32-10 keyed (seed, 0), counter (row_off + i, step,
 which, 0) — the counter ``ops.step_kernel.stretch_steps`` uses at K = 1.
 The likelihood's reductions do not depend on a walker's slot in its
 tile, so a coupled step over any number of shards is bit for bit the
-K = 1 step kernel on the whole ensemble with the same seed (the TPU
+K = 1 step kernel on the whole ensemble with the same seed and partner
+law (the TPU
 kernels agree with each other in lp only to float32 ulps).
-
-One-hot partner law only; the hashed-roll law (``partner="roll"``,
-``_hash_shift``) is not ported (``ROADMAP.md``, Queue B).
 
 What bounds it on the card: the likelihood of H_loc rows; at the mesh
 shapes (H_loc of 16 to 128 rows) a launch is one to eight tiles on 132
@@ -43,22 +46,27 @@ from __future__ import annotations
 import torch
 
 from .joint_kernel import JointConsts, joint_ll_plain
-from .step_kernel import _M, philox_stream
-from ..sampling.stretch import STRETCH_ZC, uniforms, stretch_half_update
+from .step_kernel import _M, PARTNERS, philox_stream
+from ..sampling.stretch import (STRETCH_ZC, roll_partners, uniforms,
+                                stretch_half_update)
+from ..sampling.tempered import hash_shift
 
 
 def coupled_half_plain(x_upd, lp_upd, acc_upd, x_fixed, row_off: int, bits,
-                       lp_fn):
+                       lp_fn, shift: int | None = None):
     """Plain version of kernel 6: the block ``x_upd`` (H_loc, D), ``lp_upd``
     / ``acc_upd`` (H_loc,) at rows ``row_off ..`` of the moving half
     against the whole fixed half ``x_fixed`` (H, D).  ``bits`` (H, >=3)
     are the draws of the WHOLE half for this (step, which); the block
-    keeps its rows.  Returns ``(x, lp, acc, accept (H_loc,), margin)`` as
-    new tensors."""
+    keeps its rows.  ``shift``: None for the one-hot law, else the roll
+    law's ``hash_shift`` of this (step, which).  Returns ``(x, lp, acc,
+    accept (H_loc,), margin)`` as new tensors."""
     H_loc, D = x_upd.shape
     u = uniforms(bits[row_off:row_off + H_loc, :3])
+    partner = (None if shift is None else roll_partners(
+        [shift], H_loc, x_fixed.shape[0], row_off, x_upd.device)[0])
     xm, lm, accept, margin = stretch_half_update(
-        lp_fn, u, x_upd, lp_upd, x_fixed, D, 1.0)
+        lp_fn, u, x_upd, lp_upd, x_fixed, D, 1.0, partner=partner)
     return xm, lm, acc_upd + accept.to(acc_upd.dtype), accept, margin
 
 
@@ -86,12 +94,10 @@ def coupled_half(x_upd, lp_upd, acc_upd, x_fixed, which: int, seed: int,
                  step: int, row_off: int, c: JointConsts,
                  partner: str = "onehot"):
     """Advance one shard's block of the moving half ``which`` in place
-    (kernel 6 for CUDA tensors, its plain version for CPU tensors)."""
-    if partner == "roll":
-        raise NotImplementedError(
-            "the hashed-roll partner law (partner='roll') is not ported; "
-            "see ROADMAP.md, Queue B")
-    if partner != "onehot":
+    (kernel 6 for CUDA tensors, its plain version for CPU tensors) under
+    the partner law ``partner``: 'onehot' (the default, as
+    ``make_coupled_half_kernel``'s) or 'roll'."""
+    if partner not in PARTNERS:
         raise ValueError(f"partner must be 'onehot' or 'roll', got "
                          f"{partner!r}")
     _check_state(x_upd, lp_upd, acc_upd, x_fixed, row_off, c)
@@ -100,7 +106,8 @@ def coupled_half(x_upd, lp_upd, acc_upd, x_fixed, which: int, seed: int,
         bits = philox_stream(seed, x_upd.device)(step, which, H, 4)
         xn, lpn, accn, _, _ = coupled_half_plain(
             x_upd, lp_upd, acc_upd, x_fixed, row_off, bits,
-            lambda th: joint_ll_plain(th, c))
+            lambda th: joint_ll_plain(th, c),
+            hash_shift(seed, step, which, H) if partner == "roll" else None)
         x_upd.copy_(xn)
         lp_upd.copy_(lpn)
         acc_upd.copy_(accn)
@@ -112,8 +119,8 @@ def coupled_half(x_upd, lp_upd, acc_upd, x_fixed, which: int, seed: int,
         err = lib.launch_coupled_half(
             x_upd.data_ptr(), lp_upd.data_ptr(), acc_upd.data_ptr(),
             x_fixed.data_ptr(), H_loc, H, row_off, which, seed & _M, step,
-            STRETCH_ZC[0], STRETCH_ZC[1], c.buf.data_ptr(), c.params.iv_ptr,
-            c.params.fv_ptr,
+            int(partner == "roll"), STRETCH_ZC[0], STRETCH_ZC[1],
+            c.buf.data_ptr(), c.params.iv_ptr, c.params.fv_ptr,
             torch.cuda.current_stream(x_upd.device).cuda_stream)
     check_launch(err, "coupled_half")
     coupled_half.launches += 1

@@ -23,9 +23,9 @@ layout; ``launches_by_family`` counts the launches per
 ``consts_layout.family_key``.
 
 Like the TPU kernel it keeps the unpacked state layout and the one-hot
-partner law only, which is meant for survey-scale ensembles (W up to
-~4096 per cluster); the hashed-roll partner law of the single-cluster
-TPU kernels above that size is not ported.
+partner law at every W (``make_multicluster_step_kernel`` has no
+``partner`` argument): survey-scale ensembles; the hashed-roll law is
+the single-cluster kernels' (``ops.step_kernel``).
 
 Random bits: Philox-4x32-10 keyed on (seed, 0) with counter (i, step,
 half, cluster): clusters never share bits and a cluster's stream does not

@@ -5,12 +5,24 @@ plain sampler) and ``make_tempered_step_kernel`` (K rungs, with its swap
 sweep), which run ``n_inner`` full steps per call: ``stretch_steps`` is
 one cooperative launch of ``csrc/stretch_step.cu::stretch_steps_kernel``
 that advances the state by a whole chunk of steps — per step half 0,
-half 1 (Philox bits, stretch factor, one-hot-law partner, proposal, the
-joint log-posterior through the device function kernel 1 uses,
-beta-scaled acceptance) and the K-1 swap boundaries in order, with grid
-barriers between them — and writes the cold rung's thinned frames
-itself.  The cluster grid (``ops.multicluster_kernel``) is the same
-kernel with the cluster axis on.
+half 1 (Philox bits, stretch factor, partner, proposal, the joint
+log-posterior through the device function kernel 1 uses, beta-scaled
+acceptance) and the K-1 swap boundaries in order, with grid barriers
+between them — and writes the cold rung's thinned frames itself.  The
+cluster grid (``ops.multicluster_kernel``) is the same kernel with the
+cluster axis on.
+
+Two partner laws, as the TPU kernels' ``partner`` argument: 'onehot'
+draws a uniform row of the fixed half per walker (emcee's law), 'roll'
+pairs moving row i with fixed row (i - s) mod H, one hashed shift s =
+``sampling.tempered.hash_shift(seed, step, which, H, rung)`` per
+half-step and rung (``_hash_shift`` with ``jnp.roll``).  'auto' (the
+default) takes roll above ``PARTNER_AUTO_THRESHOLD`` walkers per rung,
+as ``make_step_kernel`` and ``make_tempered_step_kernel`` do; the
+cluster grid is one-hot at every W, as ``make_multicluster_step_kernel``
+is.  Both laws leave the posterior invariant; the kernel takes the law
+as a launch argument, and both consume the same Philox words but the
+partner word.
 
 What bounds it on the card: the likelihood of K*W/2 rows per half-step
 (~84 k FP32 operations a walker, so operations), plus two or three grid
@@ -23,7 +35,8 @@ Philox-4x32-10 keyed on (seed, 0) with counter (row, step, which, group):
 swap at boundary kk, ``row`` is k*H + i for half-steps and the cold slot
 j for swaps, ``group`` is 0 here (the cluster-grid step of
 ``ops.multicluster_kernel`` puts the cluster there); the four output
-words are the draws (z, partner, accept).
+words are the draws (z, partner, accept); the roll law leaves the
+partner word unused.
 ``philox4x32_10`` below is the same generator in torch int64, so the
 plain versions and the kernels consume identical bits.
 
@@ -40,10 +53,28 @@ from __future__ import annotations
 import torch
 
 from .joint_kernel import JointConsts, joint_ll_plain
-from ..sampling.stretch import STRETCH_ZC, uniforms, stretch_half_update
-from ..sampling.tempered import rotation_shift, swap_update
+from ..sampling.stretch import (STRETCH_ZC, roll_partners, uniforms,
+                                stretch_half_update)
+from ..sampling.tempered import hash_shift, rotation_shift, swap_update
 
 _M = 0xFFFFFFFF
+# partner="auto" takes the hashed-roll law above this many walkers (per
+# rung), as ``pallas_joint.py::_PARTNER_AUTO_THRESHOLD``
+PARTNER_AUTO_THRESHOLD = 4096
+PARTNERS = ("onehot", "roll")
+
+
+def resolve_partner(partner: str, n_walkers: int) -> str:
+    """The partner law of an ensemble of ``n_walkers`` (per rung):
+    'onehot' (a uniform row of the fixed half per walker), 'roll' (the
+    fixed half rotated by one hashed shift per half-step), or 'auto':
+    roll above ``PARTNER_AUTO_THRESHOLD`` walkers, one-hot up to it."""
+    if partner == "auto":
+        return "roll" if n_walkers > PARTNER_AUTO_THRESHOLD else "onehot"
+    if partner not in PARTNERS:
+        raise ValueError(f"partner must be 'onehot', 'roll' or 'auto', "
+                         f"got {partner!r}")
+    return partner
 PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
@@ -87,22 +118,37 @@ def philox_stream(seed: int, device):
     return bits
 
 
-def half_step_plain(x, lp, acc, beta, which: int, bits, lp_fn):
+def half_step_plain(x, lp, acc, beta, which: int, bits, lp_fn,
+                    shifts=None):
     """Plain version of one half-step of the step kernel on state x (K,
     W, D), lp/acc (K, W); ``beta`` (K,) float32; ``bits`` (K*H, >=3) for
-    this (step, which).
+    this (step, which); ``shifts``: None for the one-hot law, else the K
+    rungs' shifts of the hashed-roll law (``roll_shifts``).
     Returns ``(x, lp, acc, accept (K, H), margin (K, H))`` as new tensors."""
     K, W, D = x.shape
     H = W // 2
     u = uniforms(bits[:, :3]).reshape(K, H, 3)
     mv = slice(which * H, (which + 1) * H)
     fx = slice((1 - which) * H, (2 - which) * H)
+    partner = (None if shifts is None
+               else roll_partners(shifts, H, H, device=x.device))
     xm, lm, accept, margin = stretch_half_update(
-        lp_fn, u, x[:, mv], lp[:, mv], x[:, fx], D, beta[:, None])
+        lp_fn, u, x[:, mv], lp[:, mv], x[:, fx], D, beta[:, None],
+        partner=partner)
     x, lp, acc = x.clone(), lp.clone(), acc.clone()
     x[:, mv], lp[:, mv] = xm, lm
     acc[:, mv] = acc[:, mv] + accept.to(acc.dtype)
     return x, lp, acc, accept, margin
+
+
+def roll_shifts(partner: str, seed: int, step: int, which: int, K: int,
+                H: int):
+    """The K rungs' shifts of the hashed-roll law at (step, which), rung r
+    folded in as ``extra`` (pallas_joint.py:2212-2219), or None for the
+    one-hot law."""
+    if partner == "onehot":
+        return None
+    return [hash_shift(seed, step, which, H, r) for r in range(K)]
 
 
 def swap_plain(x, lp, kk: int, seed: int, step: int, bits, db: float):
@@ -115,15 +161,17 @@ def swap_plain(x, lp, kk: int, seed: int, step: int, bits, db: float):
 
 
 def tempered_step_plain(x, lp, acc, beta, seed: int, step: int, bits_fn,
-                        lp_fn, db):
-    """One full plain step — two half-steps, then the swap boundaries in
-    order — from ``bits_fn(step, which, n_rows, n_words)``.  Returns
-    ``(x, lp, acc, swaps (K-1,) accepted counts)``."""
+                        lp_fn, db, partner: str = "onehot"):
+    """One full plain step — two half-steps under the partner law
+    ``partner`` ('onehot' or 'roll'), then the swap boundaries in order —
+    from ``bits_fn(step, which, n_rows, n_words)``.  Returns ``(x, lp,
+    acc, swaps (K-1,) accepted counts)``."""
     K, W, _ = x.shape
     H = W // 2
     for which in (0, 1):
         x, lp, acc, _, _ = half_step_plain(
-            x, lp, acc, beta, which, bits_fn(step, which, K * H, 4), lp_fn)
+            x, lp, acc, beta, which, bits_fn(step, which, K * H, 4), lp_fn,
+            roll_shifts(partner, seed, step, which, K, H))
     swaps = []
     for kk in range(K - 1):
         u = torch.stack([bits_fn(step, 16 + 2 * kk + hb, H, 1)[:, 0]
@@ -134,14 +182,15 @@ def tempered_step_plain(x, lp, acc, beta, seed: int, step: int, bits_fn,
 
 
 def steps_plain(x, lp, acc, beta, db, seed: int, n_steps: int, bits_fn,
-                lp_fn, thin: int = 0, step0: int = 0):
+                lp_fn, thin: int = 0, step0: int = 0,
+                partner: str = "onehot"):
     """Plain version of one launch of the step kernel: steps ``step0 ..
-    step0 + n_steps - 1`` of ``tempered_step_plain`` from state x (K, W,
-    D), lp/acc (K, W), bits from ``bits_fn(step, which, n_rows,
-    n_words)``.  With ``thin`` > 0 the cold rung is kept after every
-    ``thin``-th step.  Returns ``(x, lp, acc, swaps (K-1,) accepted
-    counts, chain (n_steps // thin, W, D), chain_lp (n_steps // thin,
-    W))`` as new tensors."""
+    step0 + n_steps - 1`` of ``tempered_step_plain`` under the partner
+    law ``partner`` from state x (K, W, D), lp/acc (K, W), bits from
+    ``bits_fn(step, which, n_rows, n_words)``.  With ``thin`` > 0 the
+    cold rung is kept after every ``thin``-th step.  Returns ``(x, lp,
+    acc, swaps (K-1,) accepted counts, chain (n_steps // thin, W, D),
+    chain_lp (n_steps // thin, W))`` as new tensors."""
     K, W, D = x.shape
     n_keep = n_steps // thin if thin else 0
     chain = x.new_empty((n_keep, W, D))
@@ -149,7 +198,8 @@ def steps_plain(x, lp, acc, beta, db, seed: int, n_steps: int, bits_fn,
     swaps = [0] * (K - 1)
     for n in range(1, n_steps + 1):
         x, lp, acc, sw = tempered_step_plain(
-            x, lp, acc, beta, seed, step0 + n - 1, bits_fn, lp_fn, db)
+            x, lp, acc, beta, seed, step0 + n - 1, bits_fn, lp_fn, db,
+            partner)
         swaps = [a + b for a, b in zip(swaps, sw)]
         if thin and n % thin == 0:
             chain[n // thin - 1] = x[0]
@@ -195,9 +245,10 @@ def frames_out(out, shape_x, shape_lp, device):
 
 def launch_steps(x, lp, acc, sacc, beta, db, seed: int, step0: int,
                  n_steps: int, thin: int, chain, chain_lp, per_cluster: int,
-                 cstride: int, buf, params, what: str):
+                 cstride: int, buf, params, what: str, roll: bool = False):
     """One cooperative launch of ``stretch_steps_kernel`` on CUDA
-    tensors (raises when the card refuses it)."""
+    tensors (raises when the card refuses it); ``roll`` picks the
+    hashed-roll partner law."""
     from ._build import kernel_library, check_launch
 
     G, W, _ = x.shape
@@ -213,7 +264,7 @@ def launch_steps(x, lp, acc, sacc, beta, db, seed: int, step0: int,
             ptr(beta), ptr(db), G, W, seed & _M, step0, n_steps, thin,
             ptr(chain) if chain.numel() else None,
             ptr(chain_lp) if chain_lp.numel() else None, STRETCH_ZC[0],
-            STRETCH_ZC[1], per_cluster, cstride, bar.data_ptr(),
+            STRETCH_ZC[1], per_cluster, int(roll), cstride, bar.data_ptr(),
             buf.data_ptr(), params.iv_ptr, params.fv_ptr,
             torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(err, what)
@@ -236,7 +287,8 @@ def step_kernel_config(c, G: int, W: int) -> tuple[int, int, bool, int]:
 
 
 def stretch_steps(x, lp, acc, sacc, beta, db, seed: int, n_steps: int,
-                  c: JointConsts, thin: int = 0, step0: int = 0, out=None):
+                  c: JointConsts, thin: int = 0, step0: int = 0, out=None,
+                  partner: str = "auto"):
     """Advance K rungs x (K, W, D), lp/acc (K, W) in place by steps
     ``step0 .. step0 + n_steps - 1`` of the chunk seeded by ``seed``: per
     step two half-steps at inverse temperatures ``beta`` (K,) float32 and
@@ -246,9 +298,11 @@ def stretch_steps(x, lp, acc, sacc, beta, db, seed: int, n_steps: int,
     launch of the step kernel for CUDA tensors, its plain version for CPU
     tensors.  Returns the cold rung's frames after every ``thin``-th step
     ``(chain (n_steps // thin, W, D), chain_lp (n_steps // thin, W))``
-    (empty for thin 0), written into ``out`` when given."""
+    (empty for thin 0), written into ``out`` when given.  ``partner``:
+    the partner law (``resolve_partner`` at W walkers per rung)."""
     K, W, D = x.shape
     check_schedule(W, n_steps, thin, step0)
+    partner = resolve_partner(partner, W)
     if D != c.ints["D"] or lp.shape != (K, W) or acc.shape != (K, W):
         raise ValueError(f"state must be x (K, W, {c.ints['D']}), lp and "
                          f"acc (K, W); got {tuple(x.shape)}, "
@@ -266,7 +320,7 @@ def stretch_steps(x, lp, acc, sacc, beta, db, seed: int, n_steps: int,
         xn, lpn, accn, swaps, ch, ch_lp = steps_plain(
             x, lp, acc, beta, db.tolist(), seed, n_steps,
             philox_stream(seed, "cpu"),
-            lambda th: joint_ll_plain(th, c), thin, step0)
+            lambda th: joint_ll_plain(th, c), thin, step0, partner=partner)
         for t, v in ((x, xn), (lp, lpn), (acc, accn), (chain, ch),
                      (chain_lp, ch_lp)):
             t.copy_(v)
@@ -277,13 +331,17 @@ def stretch_steps(x, lp, acc, sacc, beta, db, seed: int, n_steps: int,
         return chain, chain_lp
     launch_steps(x, lp, acc, sacc, beta, db if K > 1 else None, seed, step0,
                  n_steps, thin, chain, chain_lp, 0, 0, c.buf, c.params,
-                 "stretch_steps")
+                 "stretch_steps", roll=partner == "roll")
     stretch_steps.launches += 1
     if K > 1:
         stretch_steps.launches_tempered += 1
+    if partner == "roll":
+        stretch_steps.launches_roll[K > 1] += 1
     return chain, chain_lp
 
 
-# launches of the step kernel on rung state, and those of them at K > 1
+# launches of the step kernel on rung state, those of them at K > 1, and
+# those under the roll law at K = 1 and at K > 1
 stretch_steps.launches = 0
 stretch_steps.launches_tempered = 0
+stretch_steps.launches_roll = [0, 0]

@@ -1,4 +1,5 @@
-from .mesh import Mesh, make_mesh, on_device, scatter, gather, all_gather
+from .mesh import (Mesh, RemoteShard, make_mesh, on_device, scatter, gather,
+                   all_gather, local_blocks)
 from .sharded import run_sharded_ensemble, run_multi_cluster
 from .kernel_sharded import (
     run_sharded_kernel_ensembles, run_sharded_tempered_ensembles,
@@ -7,7 +8,8 @@ from .kernel_sharded import (
 )
 
 __all__ = [
-    "Mesh", "make_mesh", "on_device", "scatter", "gather", "all_gather",
+    "Mesh", "RemoteShard", "make_mesh", "on_device", "scatter", "gather",
+    "all_gather", "local_blocks",
     "run_sharded_ensemble", "run_multi_cluster",
     "run_sharded_kernel_ensembles", "run_sharded_tempered_ensembles",
     "run_coupled_sharded_ensemble", "run_hybrid_coupled_ensemble",

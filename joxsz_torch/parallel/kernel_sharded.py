@@ -15,7 +15,10 @@ layouts of a walker mesh, and one of a cluster mesh:
   shard, moves each shard's rows of half A through kernel 6
   (``ops.coupled_kernel``), gathers A and moves B: every walker's partner
   comes from the FULL other half, exactly the single-device move, and the
-  chain does not depend on the number of shards, bit for bit.
+  chain does not depend on the number of shards, bit for bit, under
+  either partner law (``partner``: 'onehot' by default, as the JAX
+  runners'; the independent ensembles take the step kernel's 'auto' at
+  their per-shard W, as ``make_step_kernel`` does).
 * **hybrid** (``run_hybrid_coupled_ensemble``): windows of ``sync_every -
   1`` independent per-shard steps, then one coupled step that mixes the
   ensemble across shards.  Every move is a stretch move that leaves the
@@ -27,7 +30,12 @@ layouts of a walker mesh, and one of a cluster mesh:
   exact parallelism.
 
 A shard is a set of tensors on its mesh device; data moves between
-shards only through ``mesh.scatter`` / ``gather`` / ``all_gather``.  Each
+shards only through ``mesh.scatter`` / ``gather`` / ``all_gather``.  A
+mesh may span processes (``parallel.multihost``): each process then runs
+its own shards only, and the coupled and hybrid runners return this
+process's walkers alone, with their global indices in
+``EnsembleResult.walker_indices`` (chains never cross processes; the
+independent runners' joins are collectives that return every walker).  Each
 loop launches every shard's kernels of a step before it waits for any,
 each on its device's current stream, so shards on different cards
 overlap.  The constants are copied to each mesh device once per call.
@@ -40,7 +48,8 @@ import warnings
 import numpy as np
 import torch
 
-from .mesh import Mesh, all_gather, gather, on_device, scatter
+from .mesh import (Mesh, all_gather, gather, is_local, local_blocks,
+                   on_device, scatter)
 from ..ops.coupled_kernel import coupled_half
 from ..ops.joint_kernel import JointConsts, JointConstsStack, joint_ll
 from ..ops.multicluster_kernel import stretch_steps_multicluster
@@ -88,19 +97,29 @@ def _per_device_layout(W: int, n_dev: int):
 def _independent_steps(shards: list, betas, seeds, n_steps: int,
                        thin: int | None):
     """Advance every shard's ensemble (x (K, w_loc, D), lp, acc, sacc,
-    consts on its device) in place by ``n_steps`` on ``seeds[s]``: one
-    launch of the step kernel per shard, every shard's launched before
-    any is waited for.  With ``thin``, returns the cold-rung frames per
-    shard as device tensors ``[(chain (n_keep, w_loc, D), chain_lp
-    (n_keep, w_loc))]``."""
-    rungs = [rung_tensors(betas, sh[0].device) for sh in shards]
+    consts on its device; None for another process's shard) in place by
+    ``n_steps`` on ``seeds[s]``: one launch of the step kernel per shard,
+    every shard's launched before any is waited for.  With ``thin``,
+    returns the cold-rung frames per shard as device tensors ``[(chain
+    (n_keep, w_loc, D), chain_lp (n_keep, w_loc))]`` (None for another
+    process's shard)."""
     frames = []
-    for s, (x, lp, acc, sacc, consts) in enumerate(shards):
+    for s, sh in enumerate(shards):
+        if sh is None:
+            frames.append(None)
+            continue
+        x, lp, acc, sacc, consts = sh
         with on_device(x.device):
-            frames.append(stretch_steps(x, lp, acc, sacc, *rungs[s],
+            frames.append(stretch_steps(x, lp, acc, sacc,
+                                        *rung_tensors(betas, x.device),
                                         int(seeds[s]), n_steps, consts,
                                         thin=thin or 0))
     return frames
+
+
+def _part(items: list, k: int) -> list:
+    """Entry ``k`` of every shard's tuple, None for another process's."""
+    return [None if it is None else it[k] for it in items]
 
 
 def _run_independent(consts: JointConsts, x0: torch.Tensor, betas,
@@ -123,19 +142,20 @@ def _run_independent(consts: JointConsts, x0: torch.Tensor, betas,
     shards = []
     for xs, ls, dev in zip(scatter(x0, devices, dim=1),
                            scatter(lp0, devices, dim=1), devices):
-        shards.append((xs, ls, torch.zeros_like(ls),
-                       torch.zeros(max(K - 1, 1), dtype=torch.int32,
-                                   device=dev), consts.to(dev)))
+        shards.append(None if xs is None else (
+            xs, ls, torch.zeros_like(ls),
+            torch.zeros(max(K - 1, 1), dtype=torch.int32, device=dev),
+            consts.to(dev)))
     chains, chain_lps = [], []
     chunks = chain_chunk_schedule(n_steps, thin) if n_steps else []
     seeds = rng.integers(0, _SEED_MAX, size=(len(chunks), n_dev))
     for n_inner, row in zip(chunks, seeds):
         frames = _independent_steps(shards, betas, row, n_inner, thin)
-        chains.append(gather([f[0] for f in frames], home, dim=1))
-        chain_lps.append(gather([f[1] for f in frames], home, dim=1))
-    x, lp, acc = (gather([sh[k] for sh in shards], home, dim=1)
-                  for k in range(3))
-    sacc = sum(sh[3].to(home) for sh in shards)[:K - 1]
+        chains.append(gather(_part(frames, 0), home, dim=1))
+        chain_lps.append(gather(_part(frames, 1), home, dim=1))
+    x, lp, acc = (gather(_part(shards, k), home, dim=1) for k in range(3))
+    sacc = gather([None if sh is None else sh[3][None] for sh in shards],
+                  home).sum(0)[:K - 1]
     empty = torch.empty((0, W, D), device=home)
     return (x, lp, acc, sacc,
             torch.cat(chains) if chains else empty,
@@ -192,14 +212,16 @@ def run_sharded_tempered_ensembles(consts: JointConsts, p0: torch.Tensor,
 class _CoupledState:
     """One ensemble of W walkers cut for the coupled step: half A (rows
     0..H) and half B (rows H..W), each in blocks of H_loc rows, block s
-    of both on shard s with that shard's copy of the constants."""
+    of both on shard s with that shard's copy of the constants
+    (``consts[s]``, None for another process's shard)."""
 
-    def __init__(self, consts: list, x, lp, acc):
-        devices = [c.device for c in consts]
+    def __init__(self, devices: list, consts: list, x, lp, acc,
+                 partner: str = "onehot"):
         H = x.shape[0] // 2
         self.home = x.device
-        self.H_loc = H // len(devices)
+        self.H, self.H_loc = H, H // len(devices)
         self.consts = consts
+        self.partner = partner
         self.halves = [[scatter(t[h * H:(h + 1) * H], devices)
                         for t in (x, lp, acc)] for h in (0, 1)]
 
@@ -209,13 +231,28 @@ class _CoupledState:
             xm, lm, am = self.halves[which]
             fixed = all_gather(self.halves[1 - which][0])
             for s, c in enumerate(self.consts):
-                coupled_half(xm[s], lm[s], am[s], fixed[s], which, seed, i,
-                             s * self.H_loc, c)
+                if c is not None:
+                    coupled_half(xm[s], lm[s], am[s], fixed[s], which, seed,
+                                 i, s * self.H_loc, c, partner=self.partner)
 
     def joined(self, k: int) -> torch.Tensor:
         """Tensor k (0 x, 1 lp, 2 acc) of the whole ensemble, walker
-        order [A; B], on the home device."""
+        order [A; B], on the home device (a collective across
+        processes)."""
         return gather(self.halves[0][k] + self.halves[1][k], self.home)
+
+    def local(self, k: int) -> torch.Tensor:
+        """Tensor k of this process's walkers, in the order of
+        ``walker_indices``, on the home device."""
+        return torch.cat([b.to(self.home) for b in local_blocks(
+            self.halves[0][k] + self.halves[1][k])])
+
+    def walker_indices(self) -> np.ndarray:
+        """The global indices of ``local``'s walkers."""
+        rows = np.concatenate([
+            np.arange(s * self.H_loc, (s + 1) * self.H_loc)
+            for s, c in enumerate(self.consts) if c is not None])
+        return np.concatenate([rows, self.H + rows])
 
 
 def _coupled_layout(W: int, n_dev: int) -> int:
@@ -228,18 +265,27 @@ def _coupled_layout(W: int, n_dev: int) -> int:
     return H
 
 
+def _local_consts(consts: JointConsts, devices: list) -> list:
+    """The constants on each of this process's mesh devices, None for
+    another process's shard."""
+    return [consts.to(d) if is_local(d) else None for d in devices]
+
+
 def run_coupled_sharded_ensemble(consts: JointConsts, p0: torch.Tensor,
                                  n_steps: int, seed: int, mesh: Mesh,
-                                 thin: int = 1,
-                                 axis: str = "walker") -> EnsembleResult:
+                                 thin: int = 1, axis: str = "walker",
+                                 partner: str = "onehot") -> EnsembleResult:
     """ONE ensemble of W walkers over the mesh's shards through kernel 6:
     ``p0`` (W, D), H = W / 2 divisible by the number of shards.  Step i
     draws at (seed, i); the result is, bit for bit, that of
-    ``stretch_steps`` at K = 1 on the whole ensemble with the same seed
-    and step numbers, for any number of shards.  It pays two launches and
-    two gathers per shard and step, so it is meant for ensembles too
-    small per shard for independent ones
-    (``run_sharded_kernel_ensembles`` above 64 walkers per shard)."""
+    ``stretch_steps`` at K = 1 on the whole ensemble with the same seed,
+    step numbers and partner law (``partner``), for any number of shards.
+    It pays two launches and two gathers per shard and step, so it is
+    meant for ensembles too small per shard for independent ones
+    (``run_sharded_kernel_ensembles`` above 64 walkers per shard).  Over
+    a mesh that spans processes, chain, acceptance and final state are
+    this process's walkers (``walker_indices``: its half-row blocks in
+    half A, then in half B)."""
     W, D = p0.shape
     devices = mesh.axis_devices(axis)
     _coupled_layout(W, len(devices))
@@ -249,27 +295,32 @@ def run_coupled_sharded_ensemble(consts: JointConsts, p0: torch.Tensor,
     home = consts.device
     x = p0.to(home, torch.float32).contiguous()
     lp = joint_ll(x, consts)
-    st = _CoupledState([consts.to(d) for d in devices], x, lp,
-                       torch.zeros_like(lp))
+    st = _CoupledState(devices, _local_consts(consts, devices), x, lp,
+                       torch.zeros_like(lp), partner)
+    widx = st.walker_indices()
     n_keep = n_steps // thin
-    chain = torch.empty((n_keep, W, D), dtype=torch.float32, device=home)
-    chain_lp = torch.empty((n_keep, W), dtype=torch.float32, device=home)
+    chain = torch.empty((n_keep, widx.size, D), dtype=torch.float32,
+                        device=home)
+    chain_lp = torch.empty((n_keep, widx.size), dtype=torch.float32,
+                           device=home)
     for i in range(n_steps):
         st.step(seed, i)
         if (i + 1) % thin == 0:
-            chain[(i + 1) // thin - 1] = st.joined(0)
-            chain_lp[(i + 1) // thin - 1] = st.joined(1)
+            chain[(i + 1) // thin - 1] = st.local(0)
+            chain_lp[(i + 1) // thin - 1] = st.local(1)
     return EnsembleResult(
         chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
-        acceptance_fraction=(st.joined(2) / max(n_steps, 1)).cpu().numpy(),
-        final_state=(st.joined(0), st.joined(1)))
+        acceptance_fraction=(st.local(2) / max(n_steps, 1)).cpu().numpy(),
+        final_state=(st.local(0), st.local(1)),
+        walker_indices=widx if mesh.spans_processes else None)
 
 
 def run_hybrid_coupled_ensemble(consts: JointConsts, p0: torch.Tensor,
                                 n_windows: int, sync_every: int, seed: int,
                                 mesh: Mesh, thin: int = 1,
                                 axis: str = "walker",
-                                allow_small: bool = False) -> EnsembleResult:
+                                allow_small: bool = False,
+                                partner: str = "onehot") -> EnsembleResult:
     """``n_windows`` windows, each ``sync_every - 1`` steps of independent
     per-shard ensembles (the step kernel, no traffic) and then one step of the
     whole ensemble coupled across the mesh (kernel 6, partners from the
@@ -281,8 +332,12 @@ def run_hybrid_coupled_ensemble(consts: JointConsts, p0: torch.Tensor,
     spread over ``n_windows * (sync_every - 1) / thin`` frames and the
     result carries ``frame_spacing = thin * sync_every / (sync_every -
     1)``.  Window seeds and the coupled step's seed come from
-    ``numpy.random.default_rng(seed)``.  The walker guard applies as in
-    the other runners."""
+    ``numpy.random.default_rng(seed)``, shard s of a window taking the
+    window's s-th.  The walker guard applies as in the other runners;
+    ``partner`` is the coupled step's partner law (the windows take the
+    step kernel's 'auto' at their per-shard W).  Over a mesh that spans
+    processes, chain and acceptance are this process's walker blocks
+    (``walker_indices``) and the final state the whole ensemble."""
     W, D = p0.shape
     devices = mesh.axis_devices(axis)
     n_dev = len(devices)
@@ -304,34 +359,42 @@ def run_hybrid_coupled_ensemble(consts: JointConsts, p0: torch.Tensor,
     x = p0.to(home, torch.float32).contiguous()
     lp = joint_ll(x, consts)
     acc = torch.zeros_like(lp)
-    local = [consts.to(d) for d in devices]
+    local = _local_consts(consts, devices)
+    w_loc = W // n_dev
+    widx = np.concatenate([np.arange(s * w_loc, (s + 1) * w_loc)
+                           for s, c in enumerate(local) if c is not None])
     rng = np.random.default_rng(seed)
     chains, chain_lps = [], []
     for _ in range(n_windows):
         # walker blocks as ensembles of their own (a leading rung axis of 1)
-        shards = [(xs[None], ls[None], as_[None],
-                   torch.zeros(1, dtype=torch.int32, device=d), c)
-                  for xs, ls, as_, d, c in zip(
-                      scatter(x, devices), scatter(lp, devices),
-                      scatter(acc, devices), devices, local)]
+        shards = [None if xs is None else (
+            xs[None], ls[None], as_[None],
+            torch.zeros(1, dtype=torch.int32, device=d), c)
+            for xs, ls, as_, d, c in zip(
+                scatter(x, devices), scatter(lp, devices),
+                scatter(acc, devices), devices, local)]
         frames = _independent_steps(
             shards, np.ones(1), rng.integers(0, _SEED_MAX, size=n_dev),
             n_win_steps, thin)
-        chains.append(gather([f[0] for f in frames], home, dim=1))
-        chain_lps.append(gather([f[1] for f in frames], home, dim=1))
-        x, lp, acc = (gather([sh[k][0] for sh in shards], home)
-                      for k in range(3))
+        # this process's frames only; the state is joined whole
+        chains.append(torch.cat([f.to(home) for f in local_blocks(
+            _part(frames, 0))], dim=1))
+        chain_lps.append(torch.cat([f.to(home) for f in local_blocks(
+            _part(frames, 1))], dim=1))
+        x, lp, acc = (gather([None if sh is None else sh[k][0]
+                              for sh in shards], home) for k in range(3))
         # one step of the whole ensemble, cut by halves
-        st = _CoupledState(local, x, lp, acc)
+        st = _CoupledState(devices, local, x, lp, acc, partner)
         st.step(int(rng.integers(0, _SEED_MAX)), 0)
         x, lp, acc = st.joined(0), st.joined(1), st.joined(2)
     return EnsembleResult(
         chain=torch.cat(chains).cpu().numpy(),
         log_prob=torch.cat(chain_lps).cpu().numpy(),
-        acceptance_fraction=(acc / float(n_windows * sync_every))
-        .cpu().numpy(),
+        acceptance_fraction=(acc[torch.as_tensor(widx, device=home)]
+                             / float(n_windows * sync_every)).cpu().numpy(),
         final_state=(x, lp),
-        frame_spacing=thin * sync_every / (sync_every - 1))
+        frame_spacing=thin * sync_every / (sync_every - 1),
+        walker_indices=widx if mesh.spans_processes else None)
 
 
 def make_sharded_multicluster_step(stack: JointConstsStack, mesh: Mesh,
@@ -352,26 +415,50 @@ def make_sharded_multicluster_step(stack: JointConstsStack, mesh: Mesh,
     if C % n_dev:
         raise ValueError(f"clusters ({C}) must divide over the mesh's "
                          f"{n_dev} '{axis}' devices")
-    c_loc = C // n_dev
     if thin is not None and (thin <= 0 or n_inner % thin):
         raise ValueError(f"n_inner ({n_inner}) must be a positive multiple "
                          f"of thin ({thin})")
-    blocks = [stack.block(s * c_loc, (s + 1) * c_loc, d)
-              for s, d in enumerate(devices)]
+    step = cluster_block_steps(cluster_blocks(stack, devices), devices,
+                               n_inner, thin)
     home = stack.device
 
     def run(x, lp, acc, seeds):
         xs, ls, as_ = (scatter(t.to(home), devices) for t in (x, lp, acc))
+        frames = step(xs, ls, as_, seeds)
+        out = tuple(gather(t, home) for t in (xs, ls, as_))
+        if thin is None:
+            return out
+        return out + (gather(_part(frames, 0), home),
+                      gather(_part(frames, 1), home))
+
+    return run
+
+
+def cluster_blocks(stack: JointConstsStack, devices: list) -> list:
+    """Shard s's block of the constants (clusters s C/n .. (s+1) C/n) on
+    its device, None for another process's shard."""
+    c_loc = stack.n_clusters // len(devices)
+    return [stack.block(s * c_loc, (s + 1) * c_loc, d) if is_local(d)
+            else None for s, d in enumerate(devices)]
+
+
+def cluster_block_steps(blocks: list, devices: list, n_inner: int,
+                        thin: int | None):
+    """``fn(xs, ls, as_, seeds) -> frames``: ``n_inner`` steps of kernel 4
+    for each of this process's shards, in place on its blocks (C / n, W,
+    D) against ``blocks[s]`` on the seed ``seeds[s]``; frames per shard
+    (``(chain, chain_lp)`` with ``thin``, None for another process's
+    shard)."""
+    def run(xs, ls, as_, seeds):
         frames = []
         for s, d in enumerate(devices):
+            if blocks[s] is None:
+                frames.append(None)
+                continue
             with on_device(d):
                 frames.append(stretch_steps_multicluster(
                     xs[s], ls[s], as_[s], int(seeds[s]), n_inner, blocks[s],
                     thin=thin or 0))
-        out = tuple(gather(t, home) for t in (xs, ls, as_))
-        if thin is None:
-            return out
-        return out + (gather([f[0] for f in frames], home),
-                      gather([f[1] for f in frames], home))
+        return frames
 
     return run

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .mesh import Mesh, all_gather, gather, on_device, scatter
+from .mesh import Mesh, all_gather, gather, is_local, on_device, scatter
 from ..sampling.stretch import (EnsembleResult, stretch_half_update,
                                 validate_schedule)
 
@@ -101,6 +101,27 @@ def run_multi_cluster(log_prob_batch_cluster, p0: torch.Tensor, n_steps: int,
     The draws are those of ``sampling.batched.run_batched_ensembles``.
     Returns ``{"positions", "log_prob", "acceptance_fraction"}`` as numpy
     (the final state; no chain is kept, as in the JAX package)."""
+    out = cluster_blocks_sampler(log_prob_batch_cluster, p0, n_steps, gen,
+                                 mesh, thin)
+    return {k: out[k] for k in ("positions", "log_prob",
+                                "acceptance_fraction")}
+
+
+def cluster_blocks_sampler(log_prob_batch_cluster, p0: torch.Tensor,
+                           n_steps: int, gen: torch.Generator, mesh: Mesh,
+                           thin: int = 1, n_burn: int = 0,
+                           record: bool = False) -> dict:
+    """``run_multi_cluster`` for this process's cluster blocks: ``n_burn``
+    unrecorded steps first (acceptance reset after them), then
+    ``n_steps``, every step's uniforms drawn for all C clusters from
+    ``gen`` alike on every process, so a block's chain does not depend on
+    which process runs it.  A block's devices must all be one process's
+    (a process owns whole clusters); the likelihood list may hold None
+    for the others' blocks.  Returns ``{"cluster_range": (c0, c1),
+    "positions", "log_prob", "acceptance_fraction"}`` of clusters [c0,
+    c1) as numpy, and with ``record`` the frames every ``thin`` sampling
+    steps, ``"chain" (n_saved, c1 - c0, W, D)`` and ``"chain_log_prob"``.
+    """
     C, W, D = p0.shape
     validate_schedule(n_steps, thin, W)
     n_c = mesh.shape.get("cluster", 1)
@@ -114,6 +135,17 @@ def run_multi_cluster(log_prob_batch_cluster, p0: torch.Tensor, n_steps: int,
     # cluster block b runs on the mesh's devices at index b of 'cluster'
     rows = [mesh.sub("cluster", b) if n_c > 1 else mesh.devices
             for b in range(n_c)]
+    mine = []
+    for b, devs in enumerate(rows):
+        here = [is_local(d) for d in devs]
+        if any(here) and not all(here):
+            raise ValueError(f"cluster block {b} spans processes: a "
+                             "process must own whole clusters")
+        if all(here):
+            mine.append(b)
+    if not mine or mine != list(range(mine[0], mine[-1] + 1)):
+        raise ValueError(f"this process's cluster blocks {mine} are none "
+                         "or not contiguous")
     c_loc = C // n_c
 
     def flat(fn):
@@ -121,17 +153,35 @@ def run_multi_cluster(log_prob_batch_cluster, p0: torch.Tensor, n_steps: int,
         return lambda th: fn(th.reshape(c_loc, -1, D)).reshape(-1)
 
     home = p0.device
-    xs = list(p0.chunk(n_c, dim=0))
-    lps = [c_fns[b](xs[b].to(rows[b][0])).to(home) for b in range(n_c)]
-    accs = [torch.zeros(l.shape, dtype=torch.float32, device=home)
-            for l in lps]
-    for _ in range(n_steps):
+    xs = {b: p0[b * c_loc:(b + 1) * c_loc].clone() for b in mine}
+    lps = {b: c_fns[b](xs[b].to(rows[b][0])).to(home) for b in mine}
+    accs = {b: torch.zeros(lps[b].shape, dtype=torch.float32, device=home)
+            for b in mine}
+    n_saved = n_steps // thin if record else 0
+    chain = torch.empty((n_saved, len(mine) * c_loc, W, D), dtype=p0.dtype,
+                        device=home)
+    chain_lp = torch.empty((n_saved, len(mine) * c_loc, W),
+                           dtype=p0.dtype, device=home)
+    for i in range(n_burn + n_steps):
+        if i == n_burn:
+            for b in mine:
+                accs[b].zero_()
         u = torch.rand((2, C, W // 2, 3), generator=gen, dtype=p0.dtype,
                        device=home)
-        for b in range(n_c):
+        for b in mine:
             xs[b], lps[b], accs[b] = _sharded_step(
                 [flat(c_fns[b])] * len(rows[b]), rows[b], xs[b], lps[b],
                 accs[b], u[:, b * c_loc:(b + 1) * c_loc])
-    return {"positions": torch.cat(xs).cpu().numpy(),
-            "log_prob": torch.cat(lps).cpu().numpy(),
-            "acceptance_fraction": (torch.cat(accs) / n_steps).cpu().numpy()}
+        n = i + 1 - n_burn
+        if record and n > 0 and n % thin == 0:
+            chain[n // thin - 1] = torch.cat([xs[b] for b in mine])
+            chain_lp[n // thin - 1] = torch.cat([lps[b] for b in mine])
+    out = {"cluster_range": (mine[0] * c_loc, (mine[-1] + 1) * c_loc),
+           "positions": torch.cat([xs[b] for b in mine]).cpu().numpy(),
+           "log_prob": torch.cat([lps[b] for b in mine]).cpu().numpy(),
+           "acceptance_fraction": (torch.cat([accs[b] for b in mine])
+                                   / n_steps).cpu().numpy()}
+    if record:
+        out["chain"] = chain.cpu().numpy()
+        out["chain_log_prob"] = chain_lp.cpu().numpy()
+    return out

@@ -267,9 +267,15 @@ def main(argv=None):
               + ("fused" if args.fused else "model's") + " batched "
               "likelihood")
     else:
+        from .ops.step_kernel import PARTNER_AUTO_THRESHOLD, resolve_partner
+
         sampler = make_kernel_sampler(sess)
-        print("sampling via the CUDA step kernels" if device.type == "cuda"
-              else "sampling via the kernels' plain torch versions (CPU)")
+        w_run = m.nwalkers // (args.mesh or 1)
+        print(("sampling via the CUDA step kernels" if device.type == "cuda"
+               else "sampling via the kernels' plain torch versions (CPU)")
+              + f"; partner law {resolve_partner(sampler.partner, w_run)} "
+              f"at {w_run} walkers per rung (roll above "
+              f"{PARTNER_AUTO_THRESHOLD})")
 
     mesh = None
     if args.mesh:

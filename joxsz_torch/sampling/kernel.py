@@ -8,7 +8,9 @@ per chunk of steps (``ops.step_kernel.stretch_steps``: the two
 half-steps and the K-1 swap boundaries of every step of the chunk), with
 initial log-probs from kernel 1.  The kernel writes the cold rung's
 frames every ``thin`` steps into a preallocated device tensor, fetched
-once.
+once.  The partner law is the step kernel's ``partner`` ('auto' by
+default: the hashed roll above 4096 walkers per rung, as the TPU
+kernels' default).
 
 ``run_multicluster_steps`` runs the survey fit's C ensembles against C
 sets of constants: one launch of the cluster-grid step kernel (kernel 4)
@@ -94,9 +96,11 @@ class KernelSampler:
     """Kernel-driven sampler for one session; build with
     :func:`make_kernel_sampler`."""
 
-    def __init__(self, consts: JointConsts):
+    def __init__(self, consts: JointConsts, partner: str = "auto"):
         self.consts = consts
         self.device = consts.device
+        # the step kernel's partner law ('auto', 'onehot' or 'roll')
+        self.partner = partner
         # sub-64 routing of run_sharded per (W, n_dev, thin), sticky
         # within one logical run: a chunked or extended run must not mix
         # hybrid and independent-ensemble chunks in one chain
@@ -113,9 +117,11 @@ class KernelSampler:
                         self.consts)
 
     def _steps(self, x, lp, acc, betas: np.ndarray, n_steps: int,
-               rng: np.random.Generator, thin: int, store_chain: bool):
+               rng: np.random.Generator, thin: int, store_chain: bool,
+               partner: str | None = None):
         """Advance state x (K, W, D), lp/acc (K, W) in place by
-        ``n_steps``; returns (chain, chain_lp, sacc) of the cold rung."""
+        ``n_steps`` under ``partner`` (default: the sampler's); returns
+        (chain, chain_lp, sacc) of the cold rung."""
         K, W, D = x.shape
         dev = self.device
         beta, db = rung_tensors(betas, dev)
@@ -131,7 +137,8 @@ class KernelSampler:
             stretch_steps(x, lp, acc, sacc, beta, db, seed, n_inner,
                           self.consts, thin=thin if store_chain else 0,
                           out=(chain[frame:frame + n_keep],
-                               chain_lp[frame:frame + n_keep]))
+                               chain_lp[frame:frame + n_keep]),
+                          partner=partner or self.partner)
             frame += n_keep
         return chain, chain_lp, sacc[:K - 1]
 
@@ -248,9 +255,11 @@ class KernelSampler:
 
 def run_tempered_kernel(sampler: KernelSampler, p0: torch.Tensor, betas,
                         n_steps: int, rng: np.random.Generator,
-                        thin: int = 1) -> TemperedResult:
+                        thin: int = 1,
+                        partner: str | None = None) -> TemperedResult:
     """K-rung tempered sampling from p0 (K, W, D), or (W, D) replicated
-    to every rung."""
+    to every rung, under the partner law ``partner`` (default: the
+    sampler's, 'auto': the roll above 4096 walkers per rung)."""
     betas = np.asarray(betas, dtype=np.float64)
     K = betas.size
     if K < 2:
@@ -266,7 +275,8 @@ def run_tempered_kernel(sampler: KernelSampler, p0: torch.Tensor, betas,
     lp = sampler.log_prob_batch(x.reshape(K * W, D)).reshape(K, W)
     acc = torch.zeros((K, W), dtype=torch.float32, device=sampler.device)
     chain, chain_lp, sacc = sampler._steps(x, lp, acc, betas, n_steps, rng,
-                                           thin, store_chain=True)
+                                           thin, store_chain=True,
+                                           partner=partner)
     n = max(n_steps, 1)
     return TemperedResult(
         chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
@@ -297,6 +307,29 @@ def run_multicluster_steps(stack: JointConstsStack, x: torch.Tensor,
     return frames if thin is not None else None
 
 
+def multicluster_start(session, sz_stack, xray_stack, centers,
+                       n_walkers: int, seed: int, init_spread: float):
+    """The kernel route's start, the same on every process of a job: the
+    constants of every cluster on the session's device, the walkers drawn
+    from a generator seeded by ``seed`` (finite by kernel 1, per cluster)
+    and their log-posteriors.  Returns ``(stack, x (C, W, D), lp (C, W),
+    acc (C, W) zeros)``."""
+    from .batched import batched_init
+
+    dev = session.device
+    stack = pack_consts_stack(session, sz_stack, xray_stack, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    x = batched_init(lambda th: multicluster_ll(th, stack), centers,
+                     n_walkers, gen, device=dev, dtype=torch.float32,
+                     spread=init_spread).contiguous()
+    lp = multicluster_ll(x, stack)
+    acc = torch.zeros(lp.shape, dtype=torch.float32, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return stack, x, lp, acc
+
+
 def fit_multicluster_kernel(session, sz_stack, xray_stack, centers, *,
                             n_walkers, n_burn, n_steps, thin, seed,
                             init_spread, mesh=None):
@@ -309,23 +342,13 @@ def fit_multicluster_kernel(session, sz_stack, xray_stack, centers, *,
     Returns ``(chain (n_saved, C, W, D), lp_chain, acceptance,
     timings)``; raises ``StackMismatch`` for a stack outside the
     specialisation."""
-    from .batched import batched_init
     from .stretch import validate_schedule
 
     validate_schedule(n_steps, thin, n_walkers)
-    dev = session.device
     t0 = time.time()
-    stack = pack_consts_stack(session, sz_stack, xray_stack, device=dev)
-    C = centers.shape[0]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    x = batched_init(lambda th: multicluster_ll(th, stack), centers,
-                     n_walkers, gen, device=dev, dtype=torch.float32,
-                     spread=init_spread).contiguous()
-    lp = multicluster_ll(x, stack)
-    acc = torch.zeros((C, n_walkers), dtype=torch.float32, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    stack, x, lp, acc = multicluster_start(session, sz_stack, xray_stack,
+                                           centers, n_walkers, seed,
+                                           init_spread)
     t_setup = time.time() - t0
 
     t0 = time.time()

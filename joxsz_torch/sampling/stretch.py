@@ -42,6 +42,10 @@ class EnsembleResult:
     # hybrid coupled sampler records frames only inside its local windows,
     # so its frames lie thin * sync_every / (sync_every - 1) steps apart
     frame_spacing: float | None = None
+    # a mesh that spans processes: the coupled and hybrid samplers return
+    # this process's walkers only, and here their global indices (the
+    # chain's columns); None where the chain holds every walker
+    walker_indices: np.ndarray | None = None
 
 
 def uniforms(bits: torch.Tensor) -> torch.Tensor:
@@ -68,7 +72,7 @@ def stretch_zc(a: float) -> tuple[float, float]:
 def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
                         lp_move: torch.Tensor, x_fixed: torch.Tensor,
                         ndim: int, beta: torch.Tensor, aux_move=None,
-                        a: float = STRETCH_A):
+                        a: float = STRETCH_A, partner=None):
     """Stretch-move update of one half of every rung.
 
     ``u`` (..., H, >=3) float32 uniforms (z, partner, accept); ``x_move``
@@ -76,6 +80,10 @@ def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
     broadcastable to (..., H).  ``lp_fn`` maps (N, D) -> (N,).  Returns
     ``(x_new, lp_new, accept, margin)`` with ``margin = log u - threshold``
     (the decision's distance from its threshold).
+
+    ``partner``: None for the one-hot law (a uniform row of the fixed half
+    from ``u[..., 1]``), or the fixed-half rows themselves, int64 (..., H)
+    (the hashed-roll law, ``roll_partners``; ``u[..., 1]`` goes unused).
 
     With ``aux_move``, a tuple of (..., H) values carried beside the state
     (the evidence ladder's prior and likelihood), ``lp_fn`` returns
@@ -87,7 +95,8 @@ def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
     zc = stretch_zc(a)
     t = zc[0] + u[..., 0] * zc[1]
     z = t * t
-    pidx = torch.clamp((u[..., 1] * H).to(torch.long), max=H - 1)
+    pidx = (torch.clamp((u[..., 1] * H).to(torch.long), max=H - 1)
+            if partner is None else partner)
     xp = torch.gather(x_fixed, -2, pidx[..., None].expand(*pidx.shape, D))
     y = xp + z[..., None] * (x_move - xp)
     lp_y = lp_fn(y.reshape(-1, D))
@@ -104,6 +113,17 @@ def stretch_half_update(lp_fn, u: torch.Tensor, x_move: torch.Tensor,
     aux_new = tuple(torch.where(accept, n.reshape(o.shape), o)
                     for n, o in zip(aux_y, aux_move))
     return x_new, lp_new, accept, margin, aux_new
+
+
+def roll_partners(shifts, n_rows: int, H: int, row_off: int = 0,
+                  device=None) -> torch.Tensor:
+    """Partners of the hashed-roll law: moving row ``row_off + i`` of a
+    half pairs with row ``(row_off + i - s) mod H`` of the fixed half (the
+    fixed half rotated by ``jnp.roll``), one shift ``s`` per leading
+    index.  ``shifts`` (G,) ints -> int64 (G, n_rows)."""
+    s = torch.as_tensor(list(shifts), dtype=torch.long, device=device)
+    i = torch.arange(row_off, row_off + n_rows, device=device)
+    return (i[None, :] - s[:, None]) % H
 
 
 def _index(u: torch.Tensor, n: int) -> torch.Tensor:

@@ -56,6 +56,19 @@ def rotation_shift(seed: int, step: int, kk: int, H: int) -> int:
     return (v >> 8) % H
 
 
+def hash_shift(seed: int, step: int, which: int, H: int,
+               extra: int = 0) -> int:
+    """Partner shift of the hashed-roll law at (``step``, half ``which``),
+    rung ``extra``: the literal int32 expression of pallas_joint.py:
+    1140-1151 (wrapping multiply, arithmetic ``>> 7``, floor-mod by H).
+    Moving row i of a half pairs with row (i - shift) mod H of the fixed
+    half, as ``jnp.roll`` rotates."""
+    v = _i32(_i32(_i32(_i32(seed) * 1103515245) + _i32(step * 40503))
+             + _i32(which * 10007))
+    v = _i32(v + _i32(extra * 7919))
+    return (v >> 7) % H
+
+
 def swap_update(x: torch.Tensor, lp: torch.Tensor, kk: int, shift: int,
                 u: torch.Tensor, db: float):
     """Swap sweep at boundary ``kk`` on state x (K, W, D), lp (K, W);

@@ -47,6 +47,18 @@ where h5py is missing), and ``--population PARAM[:FAMILY]`` runs the
 stage-2 hierarchical fit of one parameter over every cluster
 (``sampling.population``; one model family only).
 
+Several processes (``--multihost HOST:PORT --nprocs N --procid i``, one
+per host or card group; ``--multihost-launch N`` starts N workers on this
+machine) fit one survey as one ``torch.distributed`` job
+(``parallel.multihost``): the cluster axis is cut over every process's
+shards (its visible cards, or ``--cpu-devices K`` CPU shards), each
+process fits and keeps its own clusters (``--save-chains`` writes them
+where it runs), and only each cluster's medians, sds and acceptance are
+gathered; process 0 prints the table and writes ``--out`` with the JAX
+package's ``multihost`` block.  The seeds follow the global shard index,
+so P processes of K shards give, cluster by cluster and bit for bit, what
+``--mesh P*K`` gives in one process.
+
 Usage:
     python -m joxsz_torch.survey --mock 4 --config cfg.json
     python -m joxsz_torch.survey --mock 2 --config cfg.json --cpu --quick
@@ -55,9 +67,10 @@ Usage:
     python -m joxsz_torch.survey --mock 4 --config cfg.json --mesh 4
     python -m joxsz_torch.survey --mock 8 --config cfg.json --population P_0
     python -m joxsz_torch.survey --spec survey.json --save-chains
-
-Not ported yet: the ``--multihost*`` group (ROADMAP.md Queue A item
-8.2).
+    python -m joxsz_torch.survey --mock 4 --config cfg.json \
+        --multihost-launch 2
+    python -m joxsz_torch.survey --mock 2 --config cfg.json --cpu --quick \
+        --multihost-launch 2 --cpu-devices 1
 """
 
 from __future__ import annotations
@@ -65,7 +78,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import pathlib
+import sys
 import time
 import warnings
 
@@ -381,6 +396,330 @@ def _merge_by_family(results: list[SurveyResult], orders: list[list[int]]):
     return bundles
 
 
+# seconds the workers of --multihost-launch may take, all told
+MULTIHOST_DEADLINE_S = 1800
+
+
+def _multihost_kernel_fit(args, sess, sz_stack, xray_stack, centers, mesh,
+                          init_spread: float = 0.05) -> dict:
+    """The kernel route across processes (``sampling.kernel.
+    fit_multicluster_kernel`` over a mesh of n shards, of which this
+    process runs its own): the same start on every process, burn on the
+    seeds ``(2 seed + 1) n + s`` and sampling on ``(2 seed + 2) n + s``
+    for shard s, acceptance reset after the burn.  Returns this process's
+    clusters: ``cluster_range`` [c0, c1), ``chain`` (n_saved, c1 - c0, W,
+    D), ``chain_log_prob``, ``acceptance_fraction`` (c1 - c0, W).  Raises
+    ``StackMismatch`` outside the kernel's specialisation."""
+    import torch
+
+    from .parallel.multihost import (local_block,
+                                     make_multihost_multicluster_step,
+                                     place_multicluster_consts)
+    from .sampling.kernel import multicluster_start
+
+    stack, x, lp, acc = multicluster_start(sess, sz_stack, xray_stack,
+                                           centers, args.walkers, args.seed,
+                                           init_spread)
+    n = mesh.shape["cluster"]
+    consts = place_multicluster_consts(stack, mesh)
+
+    def seeds(base):
+        return [base * n + d for d in range(n)]
+
+    if args.burn:
+        x, lp, _ = make_multihost_multicluster_step(
+            stack, mesh, args.burn, consts_global=consts)(
+                x, lp, acc, seeds(2 * args.seed + 1))
+    x, lp, acc, chain, chain_lp = make_multihost_multicluster_step(
+        stack, mesh, args.steps, thin=args.thin, consts_global=consts)(
+            x, lp, torch.zeros_like(acc), seeds(2 * args.seed + 2))
+    c0, c1, chain = local_block(chain)
+    _, _, chain_lp = local_block(chain_lp)
+    # the acceptance divided on the device, as the one-process route does
+    # (a card divides by a scalar through its reciprocal)
+    acc = dataclasses.replace(acc, shards=[
+        (s, st, t / float(args.steps)) for s, st, t in acc.shards])
+    return {"cluster_range": (c0, c1),
+            "chain": np.transpose(chain, (1, 0, 2, 3)),
+            "chain_log_prob": np.transpose(chain_lp, (1, 0, 2)),
+            "acceptance_fraction": local_block(acc)[2]}
+
+
+def _multihost_plain_fit(args, sess, sz_stack, xray_stack, centers, mesh,
+                         device, init_spread: float = 0.05) -> dict:
+    """The plain batched ensembles across processes, for a stack outside
+    the kernel's specialisation (``parallel.multihost.
+    run_multihost_multi_cluster``): the same start on every process, this
+    process's cluster blocks on likelihoods of their own data."""
+    import torch
+
+    from .models.multicluster import (make_multicluster_log_like,
+                                      stack_sz_data, stack_xray_data,
+                                      unstack)
+    from .parallel.mesh import is_local
+    from .parallel.multihost import run_multihost_multi_cluster
+    from .sampling.batched import batched_init
+
+    C = centers.shape[0]
+    devices = mesh.axis_devices("cluster")
+    c_loc = C // len(devices)
+
+    def block_ll(c0, c1):
+        take = lambda st: None if st is None else [   # noqa: E731
+            unstack(st, c) for c in range(c0, c1)]
+        szs, xrs = take(sz_stack), take(xray_stack)
+        return make_multicluster_log_like(
+            sess.model, stack_sz_data(szs),
+            None if xrs is None else stack_xray_data(xrs))
+
+    fns = [block_ll(s * c_loc, (s + 1) * c_loc) if is_local(d) else None
+           for s, d in enumerate(devices)]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(args.seed))
+    with torch.no_grad():
+        p0 = batched_init(make_multicluster_log_like(
+            sess.model, sz_stack, xray_stack), centers, args.walkers, gen,
+            device=device, dtype=sz_stack.L.dtype, spread=init_spread)
+        return run_multihost_multi_cluster(
+            fns, p0, args.steps, gen, mesh, thin=args.thin,
+            n_burn=args.burn, record=True)
+
+
+def _run_multihost_survey(args, group, info, device, suffix):
+    """Worker body of the multi-process survey
+    (``joxsz_tpu/survey.py::_run_multihost_survey``): one fit over the
+    global 'cluster' mesh, each process keeping its own clusters (chains
+    written where it runs), then every cluster's median, sd and
+    acceptance gathered so that process 0 prints and writes the whole
+    survey.  Returns ``{"cluster_range", "medians", "sds",
+    "acceptance"}``."""
+    import torch
+    import torch.distributed as dist
+
+    from .ops.joint_kernel import StackMismatch
+    from .ops.multicluster_kernel import stretch_steps_multicluster
+    from .parallel.multihost import finalize, global_mesh
+
+    sess, sz_stack, xray_stack, centers, names, truths, _ = group
+    C, D = centers.shape
+    mesh = global_mesh(axis_names=("cluster",))
+    n_dev = info.global_devices
+    pid = info.process_id
+    print(f"process {pid}/{info.num_processes}: global mesh of {n_dev} "
+          "devices")
+    if device.type == "cuda":
+        vis = os.environ.get("CUDA_VISIBLE_DEVICES", "all")
+        print(f"process {pid}: cards {vis} ({torch.cuda.device_count()} "
+              f"visible, {torch.cuda.get_device_name(device)})")
+    if C % n_dev:
+        raise SystemExit(f"clusters ({C}) must divide over the job's "
+                         f"{n_dev} devices")
+    n0 = stretch_steps_multicluster.launches
+    t0 = time.time()
+    try:
+        out = _multihost_kernel_fit(args, sess, sz_stack, xray_stack,
+                                    centers, mesh)
+        route = "kernel route (cluster-grid kernel)"
+    except StackMismatch as e:
+        warnings.warn("configuration outside the multicluster step-kernel "
+                      f"specialisation ({e}); falling back to the plain "
+                      "batched ensemble sampler", stacklevel=2)
+        out = _multihost_plain_fit(args, sess, sz_stack, xray_stack,
+                                   centers, mesh, device)
+        route = "plain batched ensembles"
+    wall = time.time() - t0
+    c0, c1 = out["cluster_range"]
+    acc = out["acceptance_fraction"]
+    acc_loc = np.array([acc[i].mean() for i in range(c1 - c0)])
+    evals = C * args.walkers * (args.burn + args.steps)
+    print(f"process {pid}: clusters [{c0}, {c1}) sampled in {wall:.1f}s "
+          f"({evals / wall:.0f} global evals/s); acceptance "
+          f"{acc_loc.mean():.3f}; {route}, "
+          f"{stretch_steps_multicluster.launches - n0} launches of the "
+          "cluster-grid kernel")
+
+    # local (n_saved, C_loc, W, D) -> per-cluster flat posteriors
+    chain = out["chain"]
+    flat = np.transpose(chain, (1, 0, 2, 3)).reshape(c1 - c0, -1, D)
+    med_loc = np.median(flat, axis=1)
+    sd_loc = np.std(flat, axis=1)
+    pnames = list(sess.params.thawed)
+    if suffix is not None:
+        from .io.checkpoint import save_chain
+
+        outdir = pathlib.Path(args.out).parent
+        for i, c in enumerate(range(c0, c1)):
+            p = outdir / f"{names[c]}_chain{suffix}"
+            save_chain(str(p), chain[:, i], out["chain_log_prob"][:, i],
+                       acc[i], pnames, nburn=args.burn, nthin=args.thin)
+            print(f"process {pid}: written {p}")
+
+    # the summaries cross processes; blocks are placed by their gathered
+    # [c0, c1) ranges, not by process order
+    parts = [None] * info.num_processes
+    dist.all_gather_object(parts, ((c0, c1), med_loc, sd_loc, acc_loc))
+    ranges = np.array([p[0] for p in parts], np.int64)
+    medians = np.empty((C, D))
+    sds = np.empty((C, D))
+    acceptance = np.empty(C)
+    covered = np.zeros(C, bool)
+    for (lo, hi), m, sd, a in parts:
+        medians[lo:hi], sds[lo:hi], acceptance[lo:hi] = m, sd, a
+        covered[lo:hi] = True
+    finalize()
+    if not covered.all():
+        raise SystemExit(f"cluster coverage gap: {np.flatnonzero(~covered)}")
+
+    if info.is_coordinator:
+        for c in range(C):
+            print(f"--- {names[c]} ---")
+            for i, n in enumerate(pnames):
+                line = (f"  {n:>18} | {medians[c, i]:9.3f} "
+                        f"+- {sds[c, i]:7.3f}")
+                if truths is not None:
+                    pull = ((medians[c, i] - truths[c, i])
+                            / max(sds[c, i], 1e-12))
+                    line += (f"   truth {truths[c, i]:9.3f} "
+                             f"(pull {pull:+.1f} sd)")
+                print(line)
+        summary = {
+            "param_names": pnames,
+            "multihost": {"num_processes": info.num_processes,
+                          "global_devices": n_dev,
+                          "ranges": ranges.tolist()},
+            "clusters": [
+                {"name": names[c],
+                 "acceptance": float(acceptance[c]),
+                 "median": dict(zip(pnames, medians[c].tolist())),
+                 "sd": dict(zip(pnames, sds[c].tolist())),
+                 **({"truth": dict(zip(pnames, truths[c].tolist()))}
+                    if truths is not None else {})}
+                for c in range(C)],
+        }
+        outp = pathlib.Path(args.out)
+        outp.write_text(json.dumps(summary, indent=2))
+        print(f"written {outp}")
+    return {"cluster_range": (c0, c1), "medians": medians, "sds": sds,
+            "acceptance": acceptance}
+
+
+def _strip_launch(argv: list) -> list:
+    """``argv`` without its ``--multihost-launch N``."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a == "--multihost-launch":
+            skip = True
+        elif not a.startswith("--multihost-launch="):
+            out.append(a)
+    return out
+
+
+def _worker_cards(n: int) -> list:
+    """``CUDA_VISIBLE_DEVICES`` of each of n workers on this machine's M
+    visible cards: M // n cards each where M >= n, else card i mod M for
+    worker i (workers share cards)."""
+    import torch
+
+    m = torch.cuda.device_count()
+    if m == 0:
+        raise SystemExit("--multihost-launch: no CUDA card visible (pass "
+                         "--cpu to run the workers on the CPU)")
+    vis = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = ([v for v in vis.split(",") if v.strip()] if vis
+           else [str(i) for i in range(m)])[:m]
+    if m >= n:
+        per = m // n
+        return [",".join(ids[i * per:(i + 1) * per]) for i in range(n)]
+    return [ids[i % m] for i in range(n)]
+
+
+def _multihost_launch(args, argv: list):
+    """Start N worker processes on this machine running this survey as
+    one job (``joxsz_tpu/survey.py::_multihost_launch``): a free local
+    port as the rendezvous, each worker its own log, polled so that one
+    failing (or the deadline passing) ends its peers at once; then worker
+    0's log, and the others' status lines."""
+    import socket
+    import subprocess
+    import tempfile
+
+    if args.population:
+        raise SystemExit(
+            "--population needs every cluster's chain in one process; "
+            "run it offline from --save-chains output")
+    n = args.multihost_launch
+    if n < 1:
+        raise SystemExit(f"--multihost-launch needs N >= 1, got {n}")
+    cards = None if args.cpu else _worker_cards(n)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    base = ([sys.executable, "-u", "-m", "joxsz_torch.survey"]
+            + _strip_launch(argv)
+            + ["--multihost", f"127.0.0.1:{port}", "--nprocs", str(n)])
+    if args.cpu and args.cpu_devices is None:
+        base += ["--cpu-devices", "1"]
+    # the workers import this package wherever they start
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    path = os.environ.get("PYTHONPATH")
+    with tempfile.TemporaryDirectory(prefix="joxsz_mh_") as td:
+        td = pathlib.Path(td)
+        procs = []
+        try:
+            for i in range(n):
+                env = dict(os.environ,
+                           PYTHONPATH=root + (os.pathsep + path if path
+                                              else ""))
+                if cards is not None:
+                    env["CUDA_VISIBLE_DEVICES"] = cards[i]
+                    print(f"worker {i}: CUDA_VISIBLE_DEVICES={cards[i]}")
+                log = open(td / f"w{i}.log", "w")
+                procs.append((subprocess.Popen(
+                    base + ["--procid", str(i)], stdout=log,
+                    stderr=subprocess.STDOUT, env=env), log))
+            deadline = time.monotonic() + MULTIHOST_DEADLINE_S
+            fail = False
+            live = dict(enumerate(procs))
+            while live and not fail:
+                for i in list(live):
+                    rc = live[i][0].poll()
+                    if rc is None:
+                        continue
+                    del live[i]
+                    if rc:
+                        fail = True
+                        print(f"worker {i} FAILED (rc={rc}):")
+                        print((td / f"w{i}.log").read_text()[-3000:])
+                if live and not fail and time.monotonic() > deadline:
+                    fail = True
+                    print(f"TIMEOUT: workers {sorted(live)} still running "
+                          f"after {MULTIHOST_DEADLINE_S}s")
+                if live and not fail:
+                    time.sleep(0.25)
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.terminate()
+                    try:
+                        p.wait(timeout=10)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait()
+                log.close()
+        if fail:
+            raise SystemExit(1)
+        # the coordinator's output (summary table, files), then the
+        # others' status lines
+        print((td / "w0.log").read_text(), end="")
+        for i in range(1, n):
+            for line in (td / f"w{i}.log").read_text().splitlines():
+                if line.startswith("process "):
+                    print(line)
+    return None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="JoXSZ multi-cluster survey fit (PyTorch/CUDA)")
@@ -424,11 +763,54 @@ def main(argv=None):
                          "(<name>_chain.hdf5 in the emcee layout, or its "
                          ".npz twin without h5py; usable with run.py "
                          "--postprocess)")
+    mh = ap.add_argument_group(
+        "multi-host", "one torch.distributed job spanning processes/hosts: "
+        "the cluster axis shards over every process's devices; chains "
+        "never cross hosts (parallel/multihost.py). Run one process per "
+        "host with --multihost/--nprocs/--procid; --multihost-launch N "
+        "spawns N local workers (single-host mode: each its own cards, or "
+        "cards shared where there are fewer than N; with --cpu, CPU "
+        "workers).")
+    mh.add_argument("--multihost", metavar="HOST:PORT",
+                    help="join the job at this coordinator address")
+    mh.add_argument("--nprocs", type=int, default=None,
+                    help="total processes in the job")
+    mh.add_argument("--procid", type=int, default=None,
+                    help="this process's id (0..nprocs-1)")
+    mh.add_argument("--cpu-devices", type=int, default=None,
+                    help="CPU shards per process (test mode; implies "
+                         "--cpu; omit on cards)")
+    mh.add_argument("--multihost-launch", type=int, metavar="N",
+                    help="spawn N local worker processes running this "
+                         "same survey as one distributed job "
+                         "(--cpu-devices defaults to 1 with --cpu)")
     args = ap.parse_args(argv)
+    if args.cpu_devices is not None:
+        args.cpu = True
+
+    if args.multihost_launch:
+        return _multihost_launch(args, list(sys.argv[1:] if argv is None
+                                            else argv))
+
+    mh_info = None
+    if args.multihost:
+        if args.nprocs is None or args.procid is None:
+            raise SystemExit("--multihost needs --nprocs and --procid")
+        if args.population:
+            raise SystemExit(
+                "--population needs every cluster's chain in one "
+                "process; run it offline from --save-chains output "
+                "(chains never cross hosts in multihost mode)")
 
     from .device import resolve_device
 
     device = resolve_device("cpu" if args.cpu else None)
+    if args.multihost:
+        from .parallel.multihost import initialize
+
+        mh_info = initialize(args.multihost, args.nprocs, args.procid,
+                             cpu_devices=(args.cpu_devices or 1) if args.cpu
+                             else None)
     if args.quick:
         args.walkers, args.burn, args.steps, args.thin = 32, 150, 150, 5
     # the chains' format is settled before the fit, so a missing writer
@@ -453,6 +835,15 @@ def main(argv=None):
               else f"joint SZ+X ({n_xray}) and SZ-only ({C - n_xray})")
     print(f"survey of {C} clusters built in {time.time() - t0:.1f}s "
           f"({probes}; {len(groups)} stack group(s); device {device})")
+
+    if mh_info is not None:
+        if len(groups) > 1:
+            raise SystemExit(
+                "--multihost needs a homogeneous survey (one stack "
+                f"group; this spec has {len(groups)}): split the spec "
+                "by instrument configuration for multihost runs")
+        return _run_multihost_survey(args, groups[0], mh_info, device,
+                                     suffix)
 
     mesh = None
     if args.mesh:

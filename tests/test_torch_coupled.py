@@ -141,8 +141,13 @@ def test_coupled_half_argument_checks(sessions):
     sess, c, _, x0, lp0 = sessions
     xm, lm, am = torch.tensor(x0[:4]), torch.tensor(lp0[:4]), torch.zeros(4)
     fixed = torch.tensor(x0[H:])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        coupled_half(xm, lm, am, fixed, 0, SEED, 0, 0, c, partner="roll")
+    # the roll law runs, in place: accepted rows carry their new lp
+    x1, l1 = xm.clone(), lm.clone()
+    coupled_half(xm, lm, am, fixed, 0, SEED, 0, 0, c, partner="roll")
+    moved = am > 0
+    assert torch.equal(moved, (xm != x1).any(dim=1))
+    assert torch.equal(lm[~moved], l1[~moved])
+    assert torch.equal(lm[moved], joint_ll_plain(xm[moved], c))
     with pytest.raises(ValueError, match="partner"):
         coupled_half(xm, lm, am, fixed, 0, SEED, 0, 0, c, partner="other")
     with pytest.raises(ValueError, match="outside"):

@@ -17,7 +17,9 @@ import pytest
 from joxsz_torch import build, run
 from joxsz_torch.synth import config_json
 
-from test_torch_build import small_config
+from test_torch_build import single_thread, small_config  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 W = 32
 FLAGSHIP = "gnfw pressure + upp T + single density"

@@ -49,6 +49,7 @@ EXPECTED = ["joxsz_torch.run", "joxsz_torch.survey", "joxsz_torch.simulate",
             "joxsz_torch.sampling.batched", "joxsz_torch.sampling.kernel",
             "joxsz_torch.sampling.driver", "joxsz_torch.ops.coupled_kernel",
             "joxsz_torch.parallel", "joxsz_torch.parallel.mesh",
+            "joxsz_torch.parallel.multihost",
             "joxsz_torch.parallel.sharded",
             "joxsz_torch.parallel.kernel_sharded",
             "joxsz_torch.sampling.mle", "joxsz_torch.io.checkpoint",

@@ -10,8 +10,9 @@ import pytest
 from joxsz_torch import run, survey
 from joxsz_torch.synth import config_json
 
-from test_torch_build import small_config
+from test_torch_build import single_thread, small_config  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("single_thread")
 D = 13
 
 
@@ -19,7 +20,12 @@ D = 13
 def base(tmp_path_factory):
     root = tmp_path_factory.mktemp("torch_mesh_cli")
     cfg = small_config(root / "data")
-    return dict(cfg=cfg, root=root, path=config_json(cfg, root / "cfg.json"))
+    # the run fits assert nothing about the MLE: they share one cold MLE
+    # through an MLE cache of this module's own (the second fit hits it)
+    mp = pytest.MonkeyPatch()
+    mp.setattr(run, "MLE_CACHE_DIR", root / "mle_cache")
+    yield dict(cfg=cfg, root=root, path=config_json(cfg, root / "cfg.json"))
+    mp.undo()
 
 
 @pytest.mark.parametrize("temper", ["0", "2"])
@@ -29,7 +35,7 @@ def test_run_cli_mesh_end_to_end(base, temper):
     path = config_json(cfg, base["root"] / f"cfg{temper}.json")
     res = run.main(["--config", path, "--cpu", "--quick", "--walkers", "64",
                     "--mesh", "2", "--temper", temper, "--seed", "4",
-                    "--no-plots", "--fresh-mle"])
+                    "--no-plots"])
     assert res.chain.shape == (400 // 5, 64, D)
     assert np.all(np.isfinite(res.chain)) and np.all(np.isfinite(res.log_prob))
     assert 0.05 < float(np.mean(res.acceptance_fraction)) < 0.9

@@ -11,11 +11,11 @@ import pytest
 from joxsz_torch import run
 from joxsz_torch.synth import TRUTH, config_json
 
-from test_torch_build import small_config
+from test_torch_build import single_thread, small_config  # noqa: F401
 
 
 @pytest.fixture(scope="module")
-def fit(tmp_path_factory):
+def fit(tmp_path_factory, single_thread):
     root = tmp_path_factory.mktemp("torch_run")
     cfg = small_config(root / "data")
     cfg.save_dir = str(root / "out")

@@ -5,6 +5,7 @@ mode draw from an integer hash (``pallas_joint.py::_make_random_bits``).
 The plain version of one launch (``steps_plain``) takes its bits from a
 callable, so here it is fed a copy of that hash and must then follow
 ``make_step_kernel`` (K = 1) and ``make_tempered_step_kernel`` (K = 2)
+under both partner laws (one-hot, and the hashed roll)
 over a whole chunk of n_inner = 4 steps at thin 1 and 2: frames shaped
 (n_inner // thin, W, D) as the JAX chains are, positions to 1e-5, accept
 counts and swap counts equal, log-probs to the joint kernel's tolerance.
@@ -73,27 +74,33 @@ def _start(sess, js32, K: int):
     return x0, lp0
 
 
-def _port_steps(c, x0, lp0, betas, n_steps, thin):
+def _port_steps(c, x0, lp0, betas, n_steps, thin, partner="onehot"):
     """The plain path of one step-kernel launch on the hash stream;
     returns its frames, final state and swap counts."""
     beta, db = rung_tensors(betas, "cpu")
     x, lp, acc, swaps, chain, chain_lp = steps_plain(
         torch.tensor(x0), torch.tensor(lp0), torch.zeros(lp0.shape), beta,
         db.tolist(), SEED, n_steps, hash_stream(SEED),
-        lambda th: joint_ll_plain(th, c), thin)
+        lambda th: joint_ll_plain(th, c), thin, partner=partner)
     return chain.numpy(), chain_lp.numpy(), x, lp, acc, np.array(swaps)
 
 
-@pytest.mark.parametrize("thin", [1, 2])
-def test_plain_step_matches_interpret_kernel(sessions, thin):
+# (thin, partner law): the one-hot cases keep their ids
+LAWS = [pytest.param(t, law, id=str(t) + ("" if law == "onehot" else
+                                           f"-{law}"))
+        for law in ("onehot", "roll") for t in (1, 2)]
+
+
+@pytest.mark.parametrize("thin,partner", LAWS)
+def test_plain_step_matches_interpret_kernel(sessions, thin, partner):
     sess, c, js32 = sessions
     x0, lp0 = _start(sess, js32, 1)
     step = make_step_kernel(js32, n_inner=STEPS, n_walkers=W,
-                            interpret=True, thin=thin, partner="onehot")
+                            interpret=True, thin=thin, partner=partner)
     xk, lpk, acck, chain, chain_lp = (np.asarray(v) for v in step(
         jnp.asarray(x0[0]), jnp.asarray(lp0[0]), jnp.zeros(W), SEED))
     frames, frames_lp, x, lp, acc, _ = _port_steps(c, x0, lp0, [1.0], STEPS,
-                                                   thin)
+                                                   thin, partner)
     assert chain.shape == frames.shape == (STEPS // thin, W, x0.shape[-1])
     np.testing.assert_allclose(frames, chain, rtol=1e-5, atol=0)
     np.testing.assert_allclose(frames_lp, chain_lp, rtol=RTOL, atol=ATOL)
@@ -103,18 +110,18 @@ def test_plain_step_matches_interpret_kernel(sessions, thin):
     np.testing.assert_allclose(lp[0].numpy(), lpk, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("thin", [1, 2])
-def test_tempered_step_matches_interpret_kernel(sessions, thin):
+@pytest.mark.parametrize("thin,partner", LAWS)
+def test_tempered_step_matches_interpret_kernel(sessions, thin, partner):
     sess, c, js32 = sessions
     betas = [1.0, 0.6]
     x0, lp0 = _start(sess, js32, 2)
     step = make_tempered_step_kernel(js32, betas, n_inner=STEPS,
                                      n_walkers=W, interpret=True, thin=thin,
-                                     partner="onehot")
+                                     partner=partner)
     xk, lpk, acck, sacck, chain, chain_lp = (np.asarray(v) for v in step(
         jnp.asarray(x0), jnp.asarray(lp0), jnp.zeros((2, W)), SEED))
     frames, frames_lp, x, lp, acc, sacc = _port_steps(c, x0, lp0, betas,
-                                                      STEPS, thin)
+                                                      STEPS, thin, partner)
     assert chain.shape == frames.shape == (STEPS // thin, W, x0.shape[-1])
     np.testing.assert_allclose(frames, chain, rtol=1e-5, atol=0)
     np.testing.assert_allclose(frames_lp, chain_lp, rtol=RTOL, atol=ATOL)
