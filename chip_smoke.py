@@ -182,6 +182,14 @@ the emcee shim — and checks their output.  Phases:
      the coupled sampler at W=128 across the two processes bit for bit
      one process with 2 shards (with four cards, the survey at 2 workers
      x 2 cards, --mock 8, against a 4-card mesh).
+ 25. the posterior-level referee (``tests/torch_parity.py``) on phase 2's
+     dataset, the launch counters set to 0 just before it: an independent
+     numpy stretch sampler on kernel 1 against the step kernel at K=1
+     (one-hot), at K=4 (``default_betas(4)``, the cold rung) and at K=1
+     under the roll law, each arm within the calibrated MED_BAND and
+     WIDTH_BAND, the broken-move control ((d-1) -> (d+1)) outside
+     WIDTH_BAND, kernel 1 and the step kernel under both laws launched;
+     then ``examples/torch_*.py --smoke`` on the card in child processes.
 
 Prints the kernel JSON line (the six kernels on the flagship's paths,
 then each kernel for each family, "name[family]", kernel 4's family
@@ -191,7 +199,7 @@ line, and as the last line
 when a phase fails or no GPU is visible.  The MLE cache entries the run
 writes (``data/cache/mle_torch_*.json``) are removed at its end.
 
-    python3 chip_smoke.py [--seed N] [--only 23,24]
+    python3 chip_smoke.py [--seed N] [--only 23,24,25]
 """
 
 from __future__ import annotations
@@ -326,34 +334,69 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_time_per_launch(fn, reps: int):
+# torch.profiler drops a kernel whose span it places outside its capture
+# window, and it places the card's timestamps off the host's by a
+# different amount in each session: a kernel up to 3.1 ms before its own
+# launch, the host's return from the synchronisation up to 22 ms after
+# the kernel's end; and some sessions record no kernel at all, most after
+# the card sat idle (scripts/torch_profiler_window.py, one 40 ms launch a
+# session, results/torch_profiler_window.log: 4 of 120 sessions made back
+# to back, 16 of 24 made after 20 s idle, with the window held open 50 ms
+# around the launch as often as not).  So a session stays open
+# PROFILE_PAD_S around its launches, and one that recorded no kernel of
+# the wanted name is made again with the window held open 4x longer, up
+# to PROFILE_TRIES sessions (5.12 s at the last)
+PROFILE_PAD_S, PROFILE_TRIES = 0.02, 5
+
+
+def device_time_per_launch(fn, reps: int, want: str = ""):
     """({kernel name: device microseconds per launch}, device-busy share
     of the wall time) over ``reps`` calls of ``fn``, from torch.profiler's
-    trace of the card; ({}, 0) when it recorded no device kernels."""
+    trace of the card, from the first of up to PROFILE_TRIES sessions that
+    recorded a kernel whose name starts with ``want``; ({}, None) when
+    none did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
+    for i in range(PROFILE_TRIES):
+        pad = PROFILE_PAD_S * 4 ** i
+        fn()
         torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    per, total = {}, 0.0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        # device events carry the demangled signature: "name(float*, ...)";
-        # a family's kernel ("x_fam_kernel") counts under its name "x_kernel"
-        name = e.key.split("(")[0].replace("_fam_", "_")
-        if us > 0 and name.endswith("_kernel"):
-            per[name] = us / e.count
-            total += us
-    return per, (total / wall_us if wall_us > 0 else 0.0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+            time.sleep(pad)
+        per, total = {}, 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = getattr(e, "self_cuda_time_total", 0.0)
+            # device events carry the demangled signature: "name(float*,
+            # ...)"; a family's kernel ("x_fam_kernel") counts under its
+            # name "x_kernel"
+            name = e.key.split("(")[0].replace("_fam_", "_")
+            if us > 0 and name.endswith("_kernel"):
+                per[name] = us / e.count
+                total += us
+        if any(k.startswith(want) for k in per):
+            if i:
+                print(f"    (the profiler recorded {want or 'a kernel'} "
+                      f"in session {i + 1}, the window open {1e3 * pad:.0f}"
+                      " ms around the launches)")
+            return per, total / wall_us
+    print(f"    (the profiler recorded no {want or 'kernel'} in "
+          f"{PROFILE_TRIES} sessions, the window open up to "
+          f"{1e3 * pad:.0f} ms around the launches)")
+    return {}, None
+
+
+def busy_text(busy) -> str:
+    return "not measured" if busy is None else f"{100 * busy:.1f}%"
 
 
 def check(cond: bool, what: str):
@@ -776,7 +819,8 @@ def phase_step_times(sess, c, st: dict) -> tuple[dict, dict, dict]:
 
     def timed(label, fn, k, w):
         ms = cuda_ms(fn, reps=5, warmup=1)
-        dev_us, busy = device_time_per_launch(fn, reps=5)
+        dev_us, busy = device_time_per_launch(fn, reps=5,
+                                              want="stretch_steps_kernel")
         us = dev_us.get("stretch_steps_kernel")
         blocks, smem, _, _ = step_kernel_config(c, k, w)
         step_us = us / n if us else float("nan")
@@ -785,7 +829,7 @@ def phase_step_times(sess, c, st: dict) -> tuple[dict, dict, dict]:
               + (f"{step_us:.2f} us of device time ({step_us / 2:.2f} us per "
                  f"half-step of {k * w // 2} rows)" if us else
                  "device time not measured")
-              + f", device busy {100 * busy:.1f}%; bound {bound:.2f} us per "
+              + f", device busy {busy_text(busy)}; bound {bound:.2f} us per "
               f"step (operations); grid {blocks} blocks x 512 threads, "
               f"{smem} B of shared memory per block; {card}")
         rows[label] = dict(ms=ms, step_us=step_us, busy=busy, bound_us=bound)
@@ -905,7 +949,7 @@ def phase_sz_core(cfg, sess, seed: int) -> dict:
     ms = cuda_ms(lambda: sz_core(pp, t_all, cal, c), reps=50)
     plain_ms = cuda_ms(lambda: sz_core_plain(pp, t_all, cal, c), reps=10)
     dev_us, _ = device_time_per_launch(lambda: sz_core(pp, t_all, cal, c),
-                                       reps=100)
+                                       reps=100, want="sz_core_kernel")
     flops = sz_core_flops(c) * B_LL
     nbytes = sz_core_bytes(c, B_LL)
     bound = 1e3 * max(nbytes / PEAK_BYTES_S, flops / PEAK_F32_S)
@@ -1027,7 +1071,8 @@ def phase_multicluster(sess, c, seed: int) -> dict:
     run = lambda: stretch_steps_multicluster(             # noqa: E731
         x, lp, acc, step_seed, n, stack)
     ms = cuda_ms(run, reps=5, warmup=1)
-    dev_us, busy = device_time_per_launch(run, reps=5)
+    dev_us, busy = device_time_per_launch(run, reps=5,
+                                          want="stretch_steps_kernel")
     plain_ms = cuda_ms(lambda: steps_multicluster_plain(
         x, lp, acc, n, lambda step, which: multicluster_bits(
             step_seed, dev, step, which, C, H), stack), reps=1, warmup=0)
@@ -1046,7 +1091,7 @@ def phase_multicluster(sess, c, seed: int) -> dict:
           f"|lp err| {err_half:.4g}; stored lp == fresh kernel 1 per "
           f"cluster; different-data gaps {gap:.1f} / {gap2:.1f}; one launch "
           f"of {n} steps {ms:.4f} ms = {1e3 * ms / n:.2f} us per step ({dv}, "
-          f"device busy {100 * busy:.1f}%; plain {plain_ms:.1f} ms, bound "
+          f"device busy {busy_text(busy)}; plain {plain_ms:.1f} ms, bound "
           f"{bound:.4f} ms) on {card_line()}")
     return dict(name="stretch_steps_multicluster", route="cuda",
                 source="joxsz_torch/csrc/stretch_step.cu",
@@ -1230,7 +1275,8 @@ def phase_coupled(sess, c, seed: int) -> dict:
         run = lambda: coupled_half(xm, lm, am, fixed, 0, step_seed,  # noqa
                                    0, 0, c)
         ms = cuda_ms(run, reps=50)
-        dev_us, _ = device_time_per_launch(run, reps=100)
+        dev_us, _ = device_time_per_launch(run, reps=100,
+                                           want="coupled_half_kernel")
         b = bits(0, 0, H, 4)
         plain_ms = cuda_ms(lambda: coupled_half_plain(
             xm, lm, am, fixed, 0, b, lp_fn), reps=10)
@@ -1428,12 +1474,13 @@ def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
     # copy to the host) weighs little in the busy share
     dev_us, busy = device_time_per_launch(
         lambda: run_coupled_sharded_ensemble(sampler.consts, p0, n_c, seed,
-                                             mesh, thin=THIN_MESH), reps=2)
+                                             mesh, thin=THIN_MESH), reps=2,
+        want="coupled_half_kernel")
     check(np.all(np.isfinite(rc.log_prob)) and 0.1 < float(np.mean(
         rc.acceptance_fraction)) < 0.6, "coupled sampler acceptance")
     print(f"[12] coupled sampler alone, W={W_MESH}, {N_SHARDS} shards, "
           f"{n_c} steps: {step_us:.1f} us per coupled step (2 x {N_SHARDS} "
-          f"launches + 2 gathers), kernels 1 and 6 busy {100 * busy:.1f}% of "
+          f"launches + 2 gathers), kernels 1 and 6 busy {busy_text(busy)} of "
           f"the wall time; acceptance {float(np.mean(rc.acceptance_fraction)):.3f}")
 
     def short_fit(**kw):
@@ -1705,8 +1752,9 @@ def phase_families(cfg, seed: int) -> list:
         rows, err1, err64, n_veto = check_joint_rows(
             sess, c, family_rows(sess, center, seed, B_LL), TIGHT_BELOW)
         ms1 = cuda_ms(lambda: joint_ll(rows, c), reps=20)
-        us1 = device_time_per_launch(lambda: joint_ll(rows, c),
-                                     reps=20)[0].get("joint_ll_kernel")
+        us1 = device_time_per_launch(lambda: joint_ll(rows, c), reps=20,
+                                     want="joint_ll_kernel")[0].get(
+                                         "joint_ll_kernel")
         plain1 = cuda_ms(lambda: joint_ll_plain(rows, c), reps=3)
         flops = joint_ll_flops(c)
         bound1 = 1e3 * max(joint_ll_bytes(c, B_LL) / PEAK_BYTES_S,
@@ -1733,8 +1781,9 @@ def phase_families(cfg, seed: int) -> list:
             fn = lambda: stretch_steps(x, lp, acc, sacc, beta, db,  # noqa
                                        step_seed, n, c)
             ms = cuda_ms(fn, reps=3, warmup=1)
-            us = device_time_per_launch(fn, reps=3)[0].get(
-                "stretch_steps_kernel")
+            us = device_time_per_launch(fn, reps=3,
+                                        want="stretch_steps_kernel")[0].get(
+                                            "stretch_steps_kernel")
             x, lp, acc = family_start(c, center, k, W, rng)
             plain = cuda_ms(lambda: steps_plain(
                 x, lp, acc, beta, db.tolist(), step_seed, n,
@@ -1979,7 +2028,7 @@ def phase_cluster_grid_families(cfg, seed: int) -> tuple[list, dict]:
         fn = lambda: stretch_steps_multicluster(            # noqa: E731
             x, lp, acc, step_seed, n, stack)
         ms = cuda_ms(fn, reps=3, warmup=1)
-        per = device_time_per_launch(fn, reps=3)[0]
+        per = device_time_per_launch(fn, reps=3, want="stretch_steps")[0]
         us = next((v for k, v in per.items()
                    if k.startswith("stretch_steps")), None)
         if us is None:
@@ -2591,7 +2640,8 @@ def phase_roll_kernels(cfg, seed: int) -> dict:
                                        step_seed, TIME_STEPS, c,
                                        partner=law)
             ms = cuda_ms(fn, reps=1, warmup=1)
-            dev_us, busy = device_time_per_launch(fn, reps=1)
+            dev_us, busy = device_time_per_launch(
+                fn, reps=1, want="stretch_steps_kernel")
             us = dev_us.get("stretch_steps_kernel")
             step_us = us / TIME_STEPS if us else float("nan")
             bound = steps_bound(c, k, w, TIME_STEPS)
@@ -2602,7 +2652,7 @@ def phase_roll_kernels(cfg, seed: int) -> dict:
                   f"{TIME_STEPS} steps by CUDA events, "
                   + (f"{step_us:.2f} us of device time a step"
                      if us else "device time not measured")
-                  + f", device busy {100 * busy:.1f}%, {evals / 1e6:.1f} M "
+                  + f", device busy {busy_text(busy)}, {evals / 1e6:.1f} M "
                   f"evals/s; bound {bound:.3f} ms (operations, "
                   f"{100 * bound / ms:.1f}% of the time); grid {blocks} x "
                   f"512, {smem} B shared; {card}")
@@ -2902,6 +2952,83 @@ def phase_multihost(cfg5, path: str, tmp: str, seed: int) -> tuple[int, int]:
           f"a step) vs {wall1:.2f} s in one process with 2 shards; chains, "
           "acceptance and final walkers bit for bit, every walker once")
     return n4, n6
+
+
+# ---- the posterior-level referee and the examples (phase 25) ------------
+
+EXAMPLES = ("torch_custom_pressure.py", "torch_model_comparison.py",
+            "torch_multicluster_fit.py")
+
+
+def phase_referee(cfg, tmp: str, seed: int) -> dict:
+    """Phase 25: the posterior-level referee of ``tests/torch_parity.py``
+    on phase 2's dataset (the calibrated one at the default ``--seed``):
+    the numpy stretch sampler on kernel 1 against the step kernel at K=1
+    (one-hot), at K=4 (cold rung, with the swap sweep) and at K=1 under
+    the roll law, every launch counter set to 0 just before and read just
+    after; each arm within MED_BAND and WIDTH_BAND of the referee, the
+    (d+1) control outside WIDTH_BAND.  Then the three examples
+    (``examples/torch_*.py --smoke``) on the card, in child processes.
+    Returns the referee's launches."""
+    import numpy as np
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "tests"))
+    import torch_parity as tp
+
+    card = card_line()
+    if seed != tp.DATA_SEED:
+        cfg = None
+    sess, consts, theta_c = tp.referee_session(
+        cfg, "cuda", root=f"{tmp}/referee")
+    zero_launches()
+    t0 = time.time()
+    out = tp.run_referee(consts, theta_c)
+    wall = time.time() - t0
+    launches = read_launches()
+    sc = tp.SCHEDULE
+    print(f"[25] the posterior-level referee on {card}: W={sc.w}, "
+          f"{sc.burn} burn + {sc.steps} steps (frames every {sc.thin}), "
+          f"{sc.k_ref} numpy replicates and {sc.k_ctrl} of the (d-1) -> "
+          f"(d+1) control in lockstep ({out['np']['wall']:.1f} s), "
+          f"{sc.k_dev} per arm; {wall:.1f} s in all; launches {launches}")
+    bad = []
+    for arm in tp.ARMS:
+        dmed, dwidth = tp.stats(out, arm, "np")
+        ok = dmed < tp.MED_BAND and dwidth < tp.WIDTH_BAND
+        print(f"[25] {arm:4s} vs numpy: dmed {dmed:.4f} (band "
+              f"{tp.MED_BAND}), dwidth {dwidth:.4f} (band {tp.WIDTH_BAND})"
+              f" -> {'pass' if ok else 'FAIL'}; {out[arm]['wall']:.2f} s "
+              f"on {card}")
+        if not ok:
+            bad.append(arm)
+    c_med, c_width = tp.stats(out, "ctrl", "k1")
+    print(f"[25] control (d+1) vs k1: dmed {c_med:.4f}, dwidth "
+          f"{c_width:.4f} (must reach {tp.WIDTH_BAND}) on {card}")
+
+    # the examples, on the card, each its own child process
+    repo = pathlib.Path(__file__).resolve().parent
+    code = ("import runpy, sys, time; t = time.time(); sys.argv = "
+            "sys.argv[1:]; runpy.run_path(sys.argv[0], run_name="
+            "'__main__'); print(f'example wall {time.time() - t:.1f} s')")
+    logs = run_children([[sys.executable, "-c", code,
+                          str(repo / "examples" / name), "--smoke"]
+                         for name in EXAMPLES], tmp, "example")
+    for name, log in zip(EXAMPLES, logs):
+        lines = log.strip().splitlines()
+        check(lines and lines[-1].startswith("example wall"),
+              f"{name}: no wall line")
+        print(f"[25] examples/{name} --smoke on the card: {lines[-1][8:]} "
+              f"(imports and dataset included) on {card}")
+
+    check(not bad, f"the referee: {bad} outside the bands")
+    check(c_width >= tp.WIDTH_BAND, "the broken-move control passed the "
+          "width band: the referee has no power")
+    check(launches["joint_ll"] > 0 and launches["stretch_steps"] > 0
+          and launches["stretch_steps_tempered"] > 0
+          and launches["stretch_steps_roll"] > 0,
+          f"the referee launched a kernel of its path no time: {launches}")
+    return launches
 
 
 def all_launches() -> dict:
@@ -3259,8 +3386,9 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 
 
 def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
-    """``--only``: phases 23 and / or 24 on phase 2's dataset, written as
-    phase 5 writes its config; the kernels line holds their rows only."""
+    """``--only``: phases 23, 24 and / or 25 on phase 2's dataset, written
+    as phase 5 writes its config; the kernels line holds phase 23's rows
+    only."""
     import torch
     from joxsz_torch.config import JoXSZConfig, MCMCConfig
     from joxsz_torch.synth import config_json
@@ -3277,6 +3405,8 @@ def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
                      [:2])
     if 24 in phases:
         phase_multihost(cfg5, path, tmp, seed)
+    if 25 in phases:
+        phase_referee(cfg5, tmp, seed)
     print(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS}
                                   for r in rows]}))
     print(card)
@@ -3289,10 +3419,10 @@ def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--only", metavar="23,24",
-                    help="run phases 1-2, then only these of phases 23 "
-                         "and 24 (a quick check of a change; the full run "
-                         "is the check)")
+    ap.add_argument("--only", metavar="23,24,25",
+                    help="run phases 1-2, then only these of phases 23, "
+                         "24 and 25 (a quick check of a change; the full "
+                         "run is the check)")
     ap.add_argument("--family-fit", help=argparse.SUPPRESS)
     ap.add_argument("--coupled-worker", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--base", help=argparse.SUPPRESS)
@@ -3375,6 +3505,8 @@ def main() -> int:
         n4, n6 = phase_multihost(cfg5, path, tmp, args.seed)
         k4["launches"] += n4
         k6["launches"] += n6
+        # the posterior-level referee and the examples
+        phase_referee(cfg5, tmp, args.seed)
         kernels = [{key: k[key] for key in KERNEL_KEYS}
                    for k in (k1, k2, k3, k4, k5, k6, *kf, *k17, k2r, k3r)]
         r4 = rows[f"K={K_SMOKE}, W={W_SMOKE}"]

@@ -7,3 +7,8 @@ path runs through hand-written CUDA kernels (``ops``, sources in
 """
 
 __version__ = "0.1.0"
+
+from . import constants
+from .cosmology import Cosmology
+
+__all__ = ["constants", "Cosmology", "__version__"]

@@ -56,6 +56,10 @@ class FitSession:
     bands: list | None = None      # the X-ray bands' BandData (figures)
 
     @property
+    def log_like(self):
+        return self.model.log_like
+
+    @property
     def params(self) -> ParamSet:
         return self.model.params
 

@@ -50,6 +50,10 @@ class Annuli:
     cosmology: Cosmology
 
     @property
+    def nshells(self) -> int:
+        return self.edges_arcmin.size - 1
+
+    @property
     def edges_kpc(self) -> np.ndarray:
         return self.edges_arcmin * 60.0 * self.cosmology.kpc_per_arcsec
 

@@ -103,6 +103,14 @@ class ParamSet:
     def thawed_values(self) -> np.ndarray:
         return np.array([self._params[n].val for n in self.thawed])
 
+    def set_thawed_values(self, theta):
+        for n, v in zip(self.thawed, np.asarray(theta)):
+            self._params[n].val = float(v)
+
+    def table_rows(self) -> list[tuple[str, float, str, bool]]:
+        """(name, value, unit, frozen) rows for summaries."""
+        return [(n, p.val, p.unit, p.frozen) for n, p in self._params.items()]
+
     def unpack(self, theta: torch.Tensor) -> dict:
         """(B, D) thawed tensor -> name -> (B, 1) column or python float,
         so every value broadcasts against (B, n_radius) profiles."""

@@ -20,21 +20,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.splines import lerp_lookup
 from ..ops.szkernel import SZOperator
-
-
-def lerp_lookup(table_x: torch.Tensor, table_y: torch.Tensor,
-                x: torch.Tensor) -> torch.Tensor:
-    """Piecewise-linear lookup into a small sorted table with linear
-    extrapolation past both ends (scipy ``interp1d(..., 'linear',
-    fill_value='extrapolate')``, the Compton->mJy conversion of reference
-    joxsz_main.py:109)."""
-    n = table_x.shape[0]
-    idx = torch.clamp(torch.searchsorted(table_x, x.contiguous(),
-                                         right=True) - 1, 0, n - 2)
-    x0, x1 = table_x[idx], table_x[idx + 1]
-    y0, y1 = table_y[idx], table_y[idx + 1]
-    return y0 + (x - x0) / (x1 - x0) * (y1 - y0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +85,33 @@ def sz_log_like(pars: dict, sz: SZData, pressure, temperature):
         cint = pressure(pars, sz.r_press_kpc) @ sz.integ_w
         ll = ll - 0.5 * ((cint - sz.integ_mu) / sz.integ_sig) ** 2
     return ll
+
+
+def sz_integrated_y(pars: dict, sz: SZData, pressure) -> torch.Tensor:
+    """(B,) integrated Compton parameter (arcmin^2), the reference's
+    'integ' output."""
+    return pressure(pars, sz.r_press_kpc) @ sz.integ_w
+
+
+def sz_outputs(pars: dict, sz: SZData, pressure, temperature,
+               output: str = "ll") -> torch.Tensor:
+    """Named-output selector mirroring the reference's
+    ``get_sz_like(output=...)`` API (joxsz_funcs.py:439-493):
+    'll' | 'chisq' | 'pp' | 'bright' | 'integ', each batched over the
+    rows of ``pars``."""
+    if output == "pp":
+        return pressure(pars, sz.r_press_kpc)
+    if output == "bright":
+        return sz_brightness(pars, sz, pressure, temperature)
+    if output == "integ":
+        return sz_integrated_y(pars, sz, pressure)
+    if output == "ll":
+        return sz_log_like(pars, sz, pressure, temperature)
+    if output == "chisq":
+        # flux chi^2 only, excluding any integrated-Y prior term (the
+        # reference computes chisq before that addition)
+        prof = sz_brightness(pars, sz, pressure, temperature)
+        resid = (sz.flux - prof @ sz.G.T) / sz.flux_err
+        return torch.nansum(resid * resid, dim=1)
+    raise ValueError(
+        "output must be one of 'll', 'chisq', 'pp', 'bright', 'integ'")

@@ -23,6 +23,26 @@ import torch
 
 from ..geometry.annuli import Annuli
 from ..io.readers import BandData
+from ..ops.splines import lerp_lookup
+
+
+def uniform_hat_weights(grid: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Dense (..., n) hat-basis lerp weights on a UNIFORM grid:
+    w[j] = (1-frac)[j==k] + frac[j==k+1] with the position clipped to
+    [0, n-1-1e-6], so ``w @ table`` is the linear interpolation of
+    ``table`` at ``x`` (a NaN position matches no hat: all weights 0).
+    The JAX package's form of the lookup; ``uniform_hat_lerp`` computes
+    the same value from its two non-zero taps.  ``grid`` may carry
+    leading batch axes; only its first row's spacing is used."""
+    g = grid.reshape(-1, grid.shape[-1])[0]
+    n = g.shape[0]
+    pos = torch.clamp((x - g[0]) / (g[1] - g[0]), 0.0, n - 1 - 1e-6)
+    k = torch.floor(pos)[..., None]
+    frac = (pos - torch.floor(pos))[..., None]
+    j = torch.arange(n, dtype=pos.dtype, device=pos.device)
+    zero = torch.zeros((), dtype=pos.dtype, device=pos.device)
+    return (torch.where(j == k, 1.0 - frac, zero)
+            + torch.where(j == k + 1.0, frac, zero))
 
 
 def uniform_hat_lerp(Tlog: torch.Tensor, table: torch.Tensor,
@@ -67,6 +87,17 @@ class CountRateTable:
         r1 = torch.exp(uniform_hat_lerp(self.Tlog, self.lograte_Z1, tl))
         rates = r0 * (1.0 - Z_solar[..., None]) + r1 * Z_solar[..., None]
         return rates.movedim(-1, -2)
+
+    def flux(self, T_keV, Z_solar, ne_cm3, norm_per_cm3):
+        """Observed bolometric flux per cm^3 of emitting plasma
+        (erg/cm^2/s/cm^3), for cooling-time profiles (cf. reference
+        joxsz_plots.py:243); the log-flux tables extrapolate linearly
+        past the grid's ends."""
+        tl = torch.log(T_keV)
+        f0 = torch.exp(lerp_lookup(self.Tlog, self.logflux_Z0, tl))
+        f1 = torch.exp(lerp_lookup(self.Tlog, self.logflux_Z1, tl))
+        f = f0 * (1.0 - Z_solar) + f1 * Z_solar
+        return f * ne_cm3 * ne_cm3 * norm_per_cm3
 
     @classmethod
     def from_npz(cls, path: str, *, dtype, device,

@@ -108,3 +108,9 @@ def forward_abel_matrix(r: np.ndarray, scheme: str = "pyabel") -> np.ndarray:
 
     # fold in the w = 2 r f change of integrand
     return W * (2.0 * r)[None, :]
+
+
+def forward_abel(f: np.ndarray, r: np.ndarray,
+                 scheme: str = "pyabel") -> np.ndarray:
+    """Convenience direct evaluation (host-side)."""
+    return forward_abel_matrix(r, scheme) @ np.asarray(f, dtype=np.float64)

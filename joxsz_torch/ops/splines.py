@@ -10,13 +10,14 @@ reference's interpolant), and the runtime cost is one matrix product.
 
 The only interpolations whose *query* points vary per evaluation are small
 sorted-table lookups (Compton->mJy conversion, count-rate vs log T); the
-port evaluates those in torch next to the likelihood (``models``,
-``ops.joint_kernel``).
+port evaluates those in torch next to the likelihood (``lerp_lookup``
+here, ``models.xray.uniform_hat_lerp``, ``ops.joint_kernel``).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 from scipy.interpolate import interp1d
 
 
@@ -120,3 +121,26 @@ def mirrored_interp_matrix(
     n = r_pos.size
     # fold mirrored-knot columns back onto the positive-radius values
     return M[:, :n][:, ::-1] + M[:, n:]
+
+
+def lerp_lookup(table_x: torch.Tensor, table_y: torch.Tensor,
+                x: torch.Tensor, extrapolate: bool = True) -> torch.Tensor:
+    """Piecewise-linear lookup into a small sorted table ``table_x``;
+    ``table_y`` may carry leading axes (``table_y[..., idx]``).
+
+    With ``extrapolate=True`` the end segments are extended linearly,
+    matching scipy ``interp1d(..., 'linear', fill_value='extrapolate')``
+    as used for the Compton->mJy conversion (reference
+    joxsz_main.py:109); with ``extrapolate=False`` the value is clamped at
+    the table's ends (``np.interp``)."""
+    idx = torch.clamp(torch.searchsorted(table_x, x.contiguous(),
+                                         right=True) - 1,
+                      0, table_x.shape[0] - 2)
+    x0 = table_x[idx]
+    x1 = table_x[idx + 1]
+    y0 = table_y[..., idx]
+    y1 = table_y[..., idx + 1]
+    t = (x - x0) / (x1 - x0)
+    if not extrapolate:
+        t = torch.clamp(t, 0.0, 1.0)
+    return y0 + t * (y1 - y0)

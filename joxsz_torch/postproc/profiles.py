@@ -26,7 +26,6 @@ import torch
 
 from .. import constants as K
 from ..models.mass import mass_overdensity
-from ..models.sz import lerp_lookup
 
 
 def equal_tailed(data: np.ndarray, ci: float = 95.0) -> np.ndarray:
@@ -126,10 +125,7 @@ def make_profile_fns(model, cosmo, r_kpc, Z_name: str = "Z"):
             # (models/xray.py::predicted_counts)
             Z = pars[Z_name] * pars.get("line_scale", 1.0) \
                 * torch.ones_like(t_sz)
-            tl = torch.log(t_sz)
-            f0 = torch.exp(lerp_lookup(table.Tlog, table.logflux_Z0, tl))
-            f1 = torch.exp(lerp_lookup(table.Tlog, table.logflux_Z1, tl))
-            lum = (f0 * (1 - Z) + f1 * Z) * ne * ne * lum_scale
+            lum = table.flux(t_sz, Z, ne, lum_scale)
             # t_cool = (5/2) ne (1 + 1/ne_nH) T keV_erg / lum / yr_s
             tcool = (2.5 * ne * (1.0 + 1.0 / K.ne_nH) * t_sz
                      * (K.keV_erg / K.yr_s) / lum)

@@ -255,11 +255,12 @@ class KernelSampler:
 
 def run_tempered_kernel(sampler: KernelSampler, p0: torch.Tensor, betas,
                         n_steps: int, rng: np.random.Generator,
-                        thin: int = 1,
-                        partner: str | None = None) -> TemperedResult:
+                        thin: int = 1, partner: str | None = None,
+                        store_chain: bool = True) -> TemperedResult:
     """K-rung tempered sampling from p0 (K, W, D), or (W, D) replicated
     to every rung, under the partner law ``partner`` (default: the
-    sampler's, 'auto': the roll above 4096 walkers per rung)."""
+    sampler's, 'auto': the roll above 4096 walkers per rung).  Without
+    ``store_chain`` no frame is kept (a burn-in): the chain is empty."""
     betas = np.asarray(betas, dtype=np.float64)
     K = betas.size
     if K < 2:
@@ -275,7 +276,7 @@ def run_tempered_kernel(sampler: KernelSampler, p0: torch.Tensor, betas,
     lp = sampler.log_prob_batch(x.reshape(K * W, D)).reshape(K, W)
     acc = torch.zeros((K, W), dtype=torch.float32, device=sampler.device)
     chain, chain_lp, sacc = sampler._steps(x, lp, acc, betas, n_steps, rng,
-                                           thin, store_chain=True,
+                                           thin, store_chain=store_chain,
                                            partner=partner)
     n = max(n_steps, 1)
     return TemperedResult(

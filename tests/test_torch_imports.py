@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``joxsz_torch`` (nor the chip check
-``chip_smoke.py``, nor the port's scripts ``scripts/torch_*.py``) imports
-``jax`` or anything of ``joxsz_tpu``, and none imports h5py or matplotlib
-outside a function (the card may lack both).
+``chip_smoke.py``, nor the port's scripts ``scripts/torch_*.py``, examples
+``examples/torch_*.py`` and posterior referee ``tests/torch_parity.py``)
+imports ``jax`` or anything of ``joxsz_tpu``, and none imports h5py or
+matplotlib outside a function (the card may lack both).
 
 Checked twice: statically, on every import statement of every source
 file, and dynamically, by importing every module in a fresh interpreter
@@ -27,7 +28,18 @@ FORBIDDEN = ("jax", "jaxlib", "joxsz_tpu")
 
 def _sources():
     return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-            + sorted((REPO / "scripts").glob("torch_*.py")))
+            + sorted((REPO / "scripts").glob("torch_*.py"))
+            + sorted((REPO / "examples").glob("torch_*.py"))
+            + [REPO / "tests" / "torch_parity.py"])
+
+
+def test_the_sources_include_the_examples_and_the_referee():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"examples/torch_custom_pressure.py",
+            "examples/torch_model_comparison.py",
+            "examples/torch_multicluster_fit.py",
+            "tests/torch_parity.py",
+            "scripts/torch_parity_calibrate.py"} <= names
 
 
 def _modules():
@@ -118,7 +130,8 @@ def test_h5py_and_matplotlib_only_inside_functions(path):
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, json, sys\n"
-        f"for m in {_modules()!r}:\n"
+        "sys.path.insert(0, 'tests')\n"
+        f"for m in {_modules() + ['torch_parity']!r}:\n"
         "    importlib.import_module(m)\n"
         f"bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         f"{FORBIDDEN + LAZY!r})\n"
