@@ -88,7 +88,8 @@ the emcee shim — and checks their output.  Phases:
      the result; times at 512, 128 and 16 rows per shard;
  13. (run after phase 11) kernels 1, 4, 5, 6 and the step kernel at
      shapes whose constants do not fit in a block's shared memory, as
-     phases 3, 4, 7, 8 and 11 check them, on two more synthetic datasets
+     phases 3, 4, 7, 8 and 11 check them (``shape_checks``, which phase
+     26 runs at other clusters' shapes), on two more synthetic datasets
      of a cluster at z = 0.3: on a 200" map (542 pressure radii, 127 map
      radii: the constants read in place) and integrated out to 20 Mpc
      (2167 pressure radii: the tiles' scratch in global memory too), the
@@ -190,6 +191,24 @@ the emcee shim — and checks their output.  Phases:
      WIDTH_BAND, the broken-move control ((d-1) -> (d+1)) outside
      WIDTH_BAND, kernel 1 and the step kernel under both laws launched;
      then ``examples/torch_*.py --smoke`` on the card in child processes.
+ 26. other clusters and instruments: every kernel at the eight corners of
+     ``synth.CORNERS`` (the JAX geometry sweep's six: table nT 32 / 96,
+     24 annuli x 12 bands, a large map, 5 knots, double density, SZ-only;
+     line_scale and config #4 at other band and annulus counts) and for
+     every family of phase 14 at phase 13's two shapes (the ``*_fam_
+     large_kernel`` instances), each held as phase 13 holds its shapes
+     (``shape_checks``: kernel 1 on 1024 rows, the step kernel at K=1 and
+     K=4, kernel 4 on two clusters, kernel 5 where the corner is joint,
+     kernel 6 over 2 shards; thresholds within twice TIGHT_RTOL |lp|
+     where lp passes TIGHT_BELOW), the launch plan the card takes checked
+     against the host's mirror (``consts_layout.launch_plan``); the veto
+     clouds of ``tests/test_torch_precision.py`` through kernel 1 against
+     the plain float32 version, no flip (a flip printed with its float64
+     verdict); the knots corner written by ``python -m joxsz_torch.synth``
+     and fitted by ``run --config <it> --quick --no-plots`` in a child
+     process (W=1024 x K=4: finite medians, fit.dat, the family instances
+     launched); and each of the 14 compiled instances (``ops._build.
+     INSTANCES``) launched at least once over the run.
 
 Prints the kernel JSON line (the six kernels on the flagship's paths,
 then each kernel for each family, "name[family]", kernel 4's family
@@ -199,7 +218,7 @@ line, and as the last line
 when a phase fails or no GPU is visible.  The MLE cache entries the run
 writes (``data/cache/mle_torch_*.json``) are removed at its end.
 
-    python3 chip_smoke.py [--seed N] [--only 23,24,25]
+    python3 chip_smoke.py [--seed N] [--only 13,14,17,23,24,25,26]
 """
 
 from __future__ import annotations
@@ -235,6 +254,8 @@ FUSED_BURN, FUSED_STEPS = 200, 400
 W_MESH, N_SHARDS, THIN_MESH, MESH_WINDOWS = 128, 4, 5, 40
 STEPS_CMP_COUPLED = 5
 STEPS_CMP_LARGE = 5             # phase 13: steps at the larger shapes
+# phase 13: (outermost SZ radius ", extent kpc) of a cluster at z = 0.3
+LARGE_SHAPES = ((200.0, 5000.0), (118.0, 20000.0))
 TIME_STEPS = 100                # steps per timed launch: one chunk
 # the model families (phases 14-15): tag, the run flags that select it,
 # the thawed D on the synthetic CL J1226 (7 pressure knots), and how
@@ -506,13 +527,16 @@ def check_joint_rows(sess, c, rows64, tight_below: float = math.inf):
     check(n_veto >= 3 * n // 16, f"only {n_veto} vetoed rows")
     near = fin & (np.abs(p) < tight_below)
     gap = np.abs(k - p)
-    err32 = float(np.max(gap[near]))
+    # where every row is past tight_below (a bright cluster), the largest
+    # gap of all, held to RTOL / ATOL only
+    err32 = float(np.max(gap[near if near.any() else fin]))
     err64 = float(np.max(np.abs(k[fin] - f64[fin])))
     worst = int(np.argmax(np.where(near, gap, -1.0)))
     check(np.allclose(k[fin], p[fin], rtol=RTOL, atol=ATOL),
           f"kernel 1 vs plain f32: max abs err "
           f"{float(np.max(gap[fin]))}")
-    check(err32 < TIGHT_ATOL, f"kernel 1 vs plain f32: max abs err {err32} "
+    check(not near.any() or err32 < TIGHT_ATOL,
+          f"kernel 1 vs plain f32: max abs err {err32} "
           f">= {TIGHT_ATOL} (row {worst}: kernel {k[worst]}, plain f32 "
           f"{p[worst]}, plain f64 {f64[worst]})")
     check(np.allclose(k[fin], f64[fin], rtol=RTOL, atol=ATOL),
@@ -675,12 +699,13 @@ def compare_fused(what: str, x, lp, acc, n_steps: int, plain_half,
 
 
 def compare_steps(x, lp, acc, betas, c, step_seed: int, n_steps: int,
-                  tag: str = "[4]"):
+                  tag: str = "[4]", tol: float = TIGHT_ATOL):
     """Phase 4: the step kernel on rung state x (K, W, D) at inverse
-    temperatures ``betas`` against the plain step (``compare_fused``),
-    both under the partner law 'auto' takes at W (one-hot up to 4096
-    walkers per rung, the hashed roll above: phase 23).  Returns the
-    final state and the largest lp error."""
+    temperatures ``betas`` against the plain step (``compare_fused``; the
+    plain float32 likelihood may move a threshold by beta ``tol``), both
+    under the partner law 'auto' takes at W (one-hot up to 4096 walkers
+    per rung, the hashed roll above: phase 23).  Returns the final state
+    and the largest lp error."""
     import torch
     from joxsz_torch.ops.joint_kernel import joint_ll, joint_ll_plain
     from joxsz_torch.ops.step_kernel import (half_step_plain, philox_stream,
@@ -721,7 +746,7 @@ def compare_steps(x, lp, acc, betas, c, step_seed: int, n_steps: int,
 
     x, lp, acc, n_dec, n_near, n_diff, err, n_swaps = compare_fused(
         f"K={K}, W={W}", x, lp, acc, n_steps, plain_half, kernel,
-        beta[:, None] * TIGHT_ATOL, swaps_ref if K > 1 else None)
+        beta[:, None] * tol, swaps_ref if K > 1 else None)
     torch.cuda.synchronize()
     fresh = joint_ll(x.reshape(K * W, D), c).reshape(K, W)
     check(torch.equal(fresh, lp), f"K={K}: stored lp differs from a fresh "
@@ -883,8 +908,9 @@ def phase_step_times(sess, c, st: dict) -> tuple[dict, dict, dict]:
     return out1, out4, rows
 
 
-def check_sz_core(cfg, sess, seed: int, n: int):
-    """Kernel 5 on n rows drawn as ``ll_rows`` draws them, with rows whose
+def check_sz_core(cfg, sess, seed: int, n: int, rows64=None):
+    """Kernel 5 on n rows drawn as ``ll_rows`` draws them (or the float64
+    parameter rows ``rows64`` of the session's family), with rows whose
     temperatures leave the conversion table and rows holding a NaN,
     against its plain float32 and float64 versions.  Returns (constants,
     (pp, t_all, cal), max |err| vs plain f32, its relative size, rel err vs
@@ -900,7 +926,8 @@ def check_sz_core(cfg, sess, seed: int, n: int):
                         read_conversion_table(cfg.sz.conversion_file),
                         *read_xy(cfg.sz.flux_file, ncol=3)[1:], device="cuda")
     c = core.consts
-    rows64 = ll_rows(sess, seed, n)
+    if rows64 is None:
+        rows64 = ll_rows(sess, seed, n)
     with torch.no_grad():
         pars = m.params.unpack(rows64)
         pp = m.pressure(pars, sz.r_press_kpc)
@@ -1118,7 +1145,7 @@ def coupled_bound(c, H_loc: int, H: int) -> tuple[float, str]:
 
 
 def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None,
-                    partner: str = "onehot"):
+                    partner: str = "onehot", tol: float = TIGHT_ATOL):
     """Kernel 6 over ``n_shards`` shards from the ensemble x0 (W, D), lp0
     (W,) for STEPS_CMP_COUPLED steps under the partner law ``partner``:
     every launch against its plain version on the same Philox bits, and
@@ -1126,7 +1153,8 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None,
     K = 1 on the whole ensemble (a launch of that one step, same law),
     bit for bit.
     ``devices``: one card per shard (default: all on the constants'
-    card; the plain comparison runs only there).  Returns (decisions,
+    card; the plain comparison runs only there); ``tol``: how far the
+    plain float32 likelihood may move a threshold.  Returns (decisions,
     near-threshold differences, largest lp error, final x, lp, acc)."""
     import torch
     from joxsz_torch.ops.coupled_kernel import (coupled_half,
@@ -1181,7 +1209,7 @@ def compare_coupled(x0, lp0, c, step_seed: int, n_shards: int, devices=None,
                     f"coupled, W={W}, {n_shards} shards, step {step}, half "
                     f"{which}, shard {s}", (am[s] - a_before) > 0.5, xm[s],
                     lm[s], (xp, lpp, accp, margin), (acc1, margin1),
-                    torch.tensor(TIGHT_ATOL, device=home))
+                    torch.tensor(tol, device=home))
                 n_dec, n_near, err = n_dec + nd, n_near + nn, max(err, e)
         # the step kernel at K = 1 on the whole ensemble, same seed and step
         stretch_steps(xr, lr, ar, sacc, beta1, db1, step_seed, 1, c,
@@ -1295,100 +1323,416 @@ def phase_coupled(sess, c, seed: int) -> dict:
                 bound_by=by, library_ms=None)
 
 
+class SharedOperator:
+    """Inside the block, ``build_session`` makes the SZ operator once and
+    hands every later session the same one: the sessions of one dataset
+    (the synthetic data's own, every family's) share its geometry, beam,
+    filter and SZ radii, and at 20 Mpc one operator takes ~10 s of the
+    host CPU."""
+
+    def __enter__(self):
+        from joxsz_torch import build
+
+        self.build, self.real, self.op = build, build.build_sz_operator, None
+
+        def once(*args, **kw):
+            if self.op is None:
+                self.op = self.real(*args, **kw)
+            return self.op
+
+        build.build_sz_operator = once
+        return self
+
+    def __exit__(self, *exc):
+        self.build.build_sz_operator = self.real
+
+
+def threshold_tol(lp) -> float:
+    """How far the plain float32 likelihood may move a step's threshold
+    at log-posteriors up to max |lp| (finite): TIGHT_ATOL below
+    TIGHT_BELOW, as phases 4, 8 and 11 hold it; above, twice TIGHT_RTOL
+    of it, as phase 22 holds lp near 5e5 (a threshold is a difference of
+    two lp)."""
+    import torch
+
+    peak = float(lp[torch.isfinite(lp)].abs().max())
+    return TIGHT_ATOL if peak < TIGHT_BELOW else 2 * TIGHT_RTOL * peak
+
+
+def card_plan(c) -> str:
+    """The step kernel's launch plan on this card (``step_kernel_config``)
+    as ``consts_layout.launch_plan`` names it, checked against that mirror
+    at the card's own shared-memory limit."""
+    import torch
+    from joxsz_torch.ops.consts_layout import H100_SMEM_OPTIN, launch_plan
+    from joxsz_torch.ops.step_kernel import step_kernel_config
+
+    _, _, staged, ws = step_kernel_config(c, 1, 64)
+    plan = "staged" if staged else "workspace" if ws else "in place"
+    optin = getattr(torch.cuda.get_device_properties(c.device),
+                    "shared_memory_per_block_optin", H100_SMEM_OPTIN)
+    mirror = launch_plan(c.params, "stretch_steps", optin)
+    check(plan == mirror, f"the card's plan {plan!r}, the host's mirror "
+          f"{mirror!r}")
+    return plan
+
+
+def check_center(sess):
+    """``synth.truth_theta`` as a centre for the checks at any extent:
+    clipped to 1e-3 of each box's span inside it (at 20 Mpc the truth's
+    pressure at the outermost knot lies below the knots' box), and with
+    the double density's second component negligible at every radius
+    (log(n_02) at its floor, beta_2 = 2: out to 20 Mpc the truth's r^-3
+    tail outweighs the main component and the HSE mass falls)."""
+    import numpy as np
+    from joxsz_torch.synth import truth_theta
+
+    p = sess.params
+    th = truth_theta(sess)
+    if "log(n_{02})" in p.thawed:
+        th[p.thawed.index("log(n_{02})")] = p.lo[p.thawed.index(
+            "log(n_{02})")]
+        th[p.thawed.index(r"\beta_2")] = 2.0
+    span = np.where(np.isfinite(p.hi - p.lo), p.hi - p.lo, 1.0)
+    return np.clip(th, np.where(np.isfinite(p.lo), p.lo + 1e-3 * span,
+                                -np.inf),
+                   np.where(np.isfinite(p.hi), p.hi - 1e-3 * span, np.inf))
+
+
+def second_truth(sess, center):
+    """(2, D): ``center`` and a cluster 20% brighter in pressure (P_0, or
+    every knot value by log10 1.2), the two clusters of kernel 4's check."""
+    import numpy as np
+
+    names = sess.params.thawed
+    truths = np.tile(center, (2, 1))
+    if "P_0" in names:
+        truths[1, names.index("P_0")] *= 1.2
+    else:
+        k = [i for i, n in enumerate(names) if n.startswith("logP_")]
+        truths[1, k] += np.log10(1.2)
+    return truths
+
+
+def shape_checks(tag: str, cfg, sess, seed: int, plan: str | None = None,
+                 rows64=None, tight_below: float = TIGHT_BELOW,
+                 sz_core: bool = True) -> dict:
+    """Every kernel at one configuration and model family (``sess`` on the
+    card, of ``cfg``'s dataset), each held against its plain version: the
+    launch plan (checked to be ``plan`` where given), kernel 1 on 1024
+    rows as phase 3 (``rows64``, default ``family_rows`` around
+    ``check_center``; within TIGHT_ATOL where |ll| < ``tight_below``), the
+    step kernel at W=64, K=1 and W=32, K=4 as phase 4, kernel 4 on two
+    clusters as phase 8, kernel 5 as phase 7 (1024 rows, where
+    ``sz_core``), kernel 6 over 2 shards as phase 11, each for
+    STEPS_CMP_LARGE steps (thresholds within ``threshold_tol``).  Returns
+    the row phase 26 prints."""
+    import numpy as np
+    import torch
+    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_bytes,
+                                              joint_ll_flops, pack_consts,
+                                              pack_consts_stack)
+    from joxsz_torch.ops.multicluster_kernel import multicluster_ll
+    from joxsz_torch.sampling.tempered import default_betas
+    from joxsz_torch.simulate import simulate_survey
+
+    t0 = time.time()
+    c = pack_consts(sess)
+    I = c.ints
+    got = card_plan(c)
+    check(plan is None or got == plan, f"{tag} plan {got!r}, want {plan!r}")
+    center = check_center(sess)
+    if rows64 is None:
+        rows64 = family_rows(sess, center, seed, 1024)
+    rows, err1, err64, n_veto = check_joint_rows(sess, c, rows64,
+                                                 tight_below)
+    ms1 = cuda_ms(lambda: joint_ll(rows, c), reps=20)
+    bound1 = 1e3 * max(joint_ll_bytes(c, 1024) / PEAK_BYTES_S,
+                       joint_ll_flops(c) * 1024 / PEAK_F32_S)
+    step_seed = int(np.random.default_rng(seed + 7).integers(0, 2 ** 31 - 1))
+    rng = np.random.default_rng(seed + 8)
+    x1, lp1, acc1 = family_start(c, center, 1, 64, rng)
+    tol = threshold_tol(lp1)
+    e2 = compare_steps(x1.clone(), lp1.clone(), acc1.clone(), np.ones(1), c,
+                       step_seed, STEPS_CMP_LARGE, tag, tol)[3]
+    e3 = compare_steps(*family_start(c, center, 4, 32, rng),
+                       default_betas(4), c, step_seed, STEPS_CMP_LARGE, tag,
+                       tol)[3]
+    truths = second_truth(sess, center)
+    survey = simulate_survey(sess.model, truths,
+                             np.random.default_rng(seed + 9))
+    stk = pack_consts_stack(sess, survey.sz_stack, survey.xray_stack)
+    x4, lp4, acc4 = cluster_grid_start(stk, truths, 64, rng)
+    x4, lp4, _, _, _, e4 = compare_cluster_grid(
+        x4, lp4, acc4, stk, step_seed, STEPS_CMP_LARGE,
+        tol=threshold_tol(lp4))
+    check(torch.equal(multicluster_ll(x4, stk), lp4),
+          f"{tag} cluster grid: stored lp differs from a fresh kernel-1 "
+          "evaluation")
+    k5 = ""
+    if sz_core:
+        _, _, e5, rel5, _, n_nan, n_tab = check_sz_core(cfg, sess, seed,
+                                                        1024, rows64)
+        k5 = (f"SZ core {e5:.4g} (rel {rel5:.3g}, {n_nan} NaN, {n_tab} "
+              "outside the table); ")
+    _, _, e6, _, _, _ = compare_coupled(x1[0], lp1[0], c, step_seed, 2,
+                                        tol=tol)
+    err = max(err1, e2, e3, e4, e6)
+    shapes = (f"{I['n_press']} pressure radii, {I['n_pix']} map radii, "
+              f"{I['n_data']} SZ points, {I['n_band']} bands x "
+              f"{I['n_ann']} annuli, nT {I['nT']}, D={I['D']}")
+    print(f"{tag} {shapes}; plan {got}; kernel 1 max |err| {err1:.4g} vs "
+          f"plain f32 ({n_veto} vetoed of 1024), {err64:.4g} vs plain f64, "
+          f"{ms1:.4f} ms at 1024 rows (bound {bound1:.4f} ms) on "
+          f"{card_line()}; step kernel max |lp err| {max(e2, e3):.4g}; "
+          f"cluster grid {e4:.4g}; {k5}kernel 6 over 2 shards == the step "
+          f"kernel, max |lp err| {e6:.4g}; {time.time() - t0:.1f} s")
+    return dict(tag=tag, shapes=shapes, plan=got, err=err, ms1=ms1,
+                bound1=bound1)
+
+
 def phase_large_shapes(seed: int):
     """Phase 13: every kernel at shapes where the constants do not fit in
     a block's shared memory, a cluster at z = 0.3: on a map of 200" (542
     pressure radii, 127 map radii: the constants read in place, two
     passes of map radii) and integrated out to 20 Mpc (2167 pressure
-    radii: the tiles' scratch in global memory too).  Kernel 1 as phase
-    3 (1024 rows), the step kernel at W=64, K=1 and W=32, K=4 as phase 4,
-    kernel 4 on two clusters as phase 8, kernel 5 as phase 7 (1024 rows),
-    kernel 6 over 2 shards as phase 11, each for STEPS_CMP_LARGE steps."""
-    import numpy as np
-    import torch
+    radii: the tiles' scratch in global memory too), by ``shape_checks``
+    on the rows of phase 3 (``ll_rows``)."""
     from joxsz_torch.build import build_session
-    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_bytes,
-                                              joint_ll_flops, pack_consts,
-                                              pack_consts_stack)
-    from joxsz_torch.ops.multicluster_kernel import multicluster_ll
-    from joxsz_torch.ops.step_kernel import step_kernel_config
-    from joxsz_torch.sampling.tempered import default_betas
-    from joxsz_torch.simulate import simulate_survey
-    from joxsz_torch.synth import TRUTH, write_synthetic_dataset
+    from joxsz_torch.synth import write_synthetic_dataset
 
-    for r_max, extent, in_global in ((200.0, 5000.0, False),
-                                     (118.0, 20000.0, True)):
+    for (r_max, extent), plan in zip(LARGE_SHAPES, ("in place",
+                                                    "workspace")):
         tmp = tempfile.mkdtemp(prefix="joxsz_large_")
         try:
-            cfg = write_synthetic_dataset(tmp, seed, redshift=0.3,
-                                          max_radius_arcsec=r_max,
-                                          extent_kpc=extent)
-            sess = build_session(cfg, device="cuda")
-            c = pack_consts(sess)
-            I, D = c.ints, c.ints["D"]
-            tag = f"[13] z=0.3, {r_max:g}\" map, {extent:g} kpc:"
-            blocks, smem, staged, ws = step_kernel_config(c, 1, 64)
-            check(not staged and (ws > 0) == in_global,
-                  f"{tag} plan staged={staged}, workspace {ws} floats")
-            rows, err1, err64, n_veto = check_joint(sess, c, seed, 1024)
-            ms1 = cuda_ms(lambda: joint_ll(rows, c), reps=20)
-            bound1 = 1e3 * max(joint_ll_bytes(c, 1024) / PEAK_BYTES_S,
-                               joint_ll_flops(c) * 1024 / PEAK_F32_S)
-            step_seed = int(np.random.default_rng(seed + 7).integers(
-                0, 2 ** 31 - 1))
-            th0 = np.array([TRUTH[k] for k in sess.params.thawed])
-            rng = np.random.default_rng(seed + 8)
-
-            def start(k, w):
-                x = torch.tensor(th0 * (1 + 0.01 * rng.standard_normal(
-                    (k, w, D))), dtype=torch.float32,
-                    device=c.device).contiguous()
-                lp = joint_ll(x.reshape(k * w, D), c).reshape(k, w)
-                check(bool(torch.isfinite(lp).all()),
-                      f"{tag} non-finite start state")
-                return x, lp, torch.zeros_like(lp)
-
-            e2 = compare_steps(*start(1, 64), np.ones(1), c, step_seed,
-                               STEPS_CMP_LARGE, tag)[3]
-            e3 = compare_steps(*start(4, 32), default_betas(4), c,
-                               step_seed, STEPS_CMP_LARGE, tag)[3]
-            truths = np.tile(th0, (2, 1))
-            truths[1, sess.params.thawed.index("P_0")] *= 1.2
-            survey = simulate_survey(sess.model, truths,
-                                     np.random.default_rng(seed + 9))
-            stk = pack_consts_stack(sess, survey.sz_stack,
-                                    survey.xray_stack)
-            x4 = torch.tensor(
-                truths[:, None] * (1 + 0.01 * rng.standard_normal(
-                    (2, 64, D))), dtype=torch.float32,
-                device=c.device).contiguous()
-            acc4 = torch.zeros((2, 64), device=c.device)
-            x4, lp4, _, _, _, e4 = compare_cluster_grid(
-                x4, multicluster_ll(x4, stk), acc4, stk, step_seed,
-                STEPS_CMP_LARGE)
-            check(torch.equal(multicluster_ll(x4, stk), lp4),
-                  f"{tag} cluster grid: stored lp differs from a fresh "
-                  "kernel-1 evaluation")
-            _, _, e5, rel5, _, n_nan, n_tab = check_sz_core(cfg, sess, seed,
-                                                            1024)
-            x0, lp0, _ = start(1, 64)
-            _, _, e6, _, _, _ = compare_coupled(x0[0], lp0[0], c, step_seed,
-                                                2)
-            print(f"{tag} {I['n_press']} pressure radii, {I['n_pix']} map "
-                  f"radii; constants in place, tiles' scratch in "
-                  f"{'global' if ws else 'shared'} memory ({blocks} blocks, "
-                  f"{smem} B of shared memory, {ws} floats of workspace "
-                  f"per block); kernel 1 max |err| {err1:.4g} vs plain "
-                  f"f32 ({n_veto} vetoed of 1024), {err64:.4g} vs plain "
-                  f"f64, {ms1:.4f} ms at 1024 rows (bound {bound1:.4f} "
-                  f"ms) on {card_line()}; step kernel max |lp err| {max(e2, e3):.4g}; "
-                  f"cluster grid {e4:.4g}; SZ core {e5:.4g} (rel "
-                  f"{rel5:.3g}, {n_nan} NaN, {n_tab} outside the table); "
-                  f"kernel 6 over 2 shards == the step kernel, max |lp "
-                  f"err| {e6:.4g}")
-            del sess, c, stk
+            with SharedOperator():
+                cfg = write_synthetic_dataset(tmp, seed, redshift=0.3,
+                                              max_radius_arcsec=r_max,
+                                              extent_kpc=extent)
+                sess = build_session(cfg, device="cuda")
+            shape_checks(f"[13] z=0.3, {r_max:g}\" map, {extent:g} kpc:",
+                         cfg, sess, seed, plan,
+                         rows64=ll_rows(sess, seed, 1024),
+                         tight_below=math.inf)
+            del sess
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 26: the families of phase 14 at phase 13's shapes, and the veto
+# clouds of tests/test_torch_precision.py (family, run flags; spreads)
+GEOMETRY_FAMILIES = tuple((t, f) for t, f, _, _ in FAMILIES if t != "widest")
+VETO_FAMILIES = (("flagship", ()), ("double", ("--density", "double")),
+                 ("knots", ("--pressure", "knots")))
+VETO_SPREADS, VETO_ROWS = (0.1, 0.2), 512
+CORNER_FIT = "knots"            # phase 26: the corner fitted through run
+CORNER_FIT_TIMEOUT = 600
+
+
+def phase_geometries(seed: int) -> list:
+    """Phase 26a: ``shape_checks`` at the eight corners of ``synth.
+    CORNERS`` (the JAX geometry sweep's six and two families; kernel 5
+    where the corner is joint) and for every family of phase 14 at phase
+    13's two shapes (kernel 5 there is phase 13's).  Returns the rows."""
+    from joxsz_torch.build import build_session
+    from joxsz_torch.synth import (CORNERS, write_corner,
+                                   write_synthetic_dataset)
+
+    rows = []
+    for i, (name, dims) in enumerate(CORNERS.items()):
+        tmp = tempfile.mkdtemp(prefix="joxsz_corner_")
+        try:
+            with SharedOperator():
+                cfg, sz_only = write_corner(tmp, seed + 40 + i, dims)
+                sess = build_session(cfg, device="cuda", sz_only=sz_only)
+            rows.append(shape_checks(f"[26] {name}:", cfg, sess, seed,
+                                     sz_core=not sz_only))
+            del sess
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    for (r_max, extent), plan in zip(LARGE_SHAPES, ("in place",
+                                                    "workspace")):
+        tmp = tempfile.mkdtemp(prefix="joxsz_large_")
+        try:
+            with SharedOperator():
+                cfg = write_synthetic_dataset(tmp, seed, redshift=0.3,
+                                              max_radius_arcsec=r_max,
+                                              extent_kpc=extent)
+                for tag, flags in GEOMETRY_FAMILIES:
+                    sess = family_session(cfg, flags)
+                    rows.append(shape_checks(
+                        f"[26] {tag}, z=0.3, {r_max:g}\" map, "
+                        f"{extent:g} kpc:", cfg, sess, seed, plan,
+                        sz_core=False))
+                    del sess
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return rows
+
+
+def phase_veto_clouds(cfg, seed: int) -> int:
+    """Phase 26b: the veto clouds of ``tests/test_torch_precision.py``
+    (VETO_ROWS rows at spreads VETO_SPREADS around the synthetic truth,
+    ``np.random.default_rng(7)``) for the flagship, double density and
+    knots on phase 2's dataset, through kernel 1 against the plain float32
+    version: no flip.  A flip is printed with its float64 verdict (the
+    session's own model) before the check fails.  Returns the rows where
+    both float32 versions veto what float64 keeps."""
+    import numpy as np
+    import torch
+    from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_plain,
+                                              pack_consts)
+    from joxsz_torch.synth import truth_theta
+
+    n_f64 = 0
+    for tag, flags in VETO_FAMILIES:
+        sess = family_session(cfg, flags)
+        c = pack_consts(sess)
+        th0 = truth_theta(sess)
+        for spread in VETO_SPREADS:
+            rng = np.random.default_rng(7)
+            rows = torch.tensor(th0[None] * (1 + spread * rng.standard_normal(
+                (VETO_ROWS, th0.size))), dtype=torch.float32,
+                device=c.device)
+            k = torch.isfinite(joint_ll(rows, c)).cpu().numpy()
+            p = torch.isfinite(joint_ll_plain(rows, c)).cpu().numpy()
+            with torch.no_grad():
+                f = torch.isfinite(sess.model.log_like_batch(
+                    rows.double())).cpu().numpy()
+            flips = np.flatnonzero(k != p)
+            for i in flips:
+                side = "the plain version" if f[i] == p[i] else "kernel 1"
+                print(f"[26] {tag} spread {spread}: row {i} kernel 1 "
+                      f"{'finite' if k[i] else '-inf'}, plain "
+                      f"{'finite' if p[i] else '-inf'}; float64 sides with "
+                      f"{side}; theta {rows[i].tolist()}")
+            check(flips.size == 0, f"[26] {tag} spread {spread}: "
+                  f"{flips.size} veto flips between kernel 1 and the plain "
+                  "float32 version")
+            gap = np.flatnonzero(f & ~p)
+            n_f64 += gap.size
+            print(f"[26] {tag} veto cloud at spread {spread}: {VETO_ROWS} "
+                  f"rows, {p.mean():.3f} finite, 0 flips between kernel 1 "
+                  f"and plain f32; rows float64 keeps and both float32 "
+                  f"versions veto: {gap.tolist()}")
+        del sess, c
+    return n_f64
+
+
+def corner_cli(kw: dict) -> list:
+    """The ``python -m joxsz_torch.synth`` flags of the arguments ``kw``
+    of ``write_synthetic_dataset`` (``synth.corner_kwargs``)."""
+    flags = {"redshift": "--redshift", "extent_kpc": "--extent-kpc",
+             "step_arcsec": "--step", "fwhm_arcsec": "--fwhm",
+             "n_sz": "--n-sz", "max_radius_arcsec": "--max-radius",
+             "n_annuli": "--n-annuli", "nT": "--nT", "nh_1022": "--nh",
+             "pressure_model": "--pressure",
+             "n_pressure_knots": "--n-knots",
+             "temperature_model": "--temperature",
+             "density_mode": "--density"}
+    argv = []
+    for k, v in kw.items():
+        if k == "bands":
+            argv += ["--bands", ",".join(f"{a}-{b}" for a, b in v)]
+        elif k in ("response", "keep_table", "line_systematic"):
+            argv += [f"--{k.replace('_', '-')}"] if v else []
+        else:
+            argv += [flags[k], repr(v) if isinstance(v, float) else str(v)]
+    return argv
+
+
+def corner_fit(path: str):
+    """The fit of a corner through ``run.main`` (a child process of phase
+    26), as ``python -m joxsz_torch.run --config PATH --quick --no-plots``
+    runs it: the launch counters set to 0 just before and read just after,
+    printed as a JSON line, last."""
+    import numpy as np
+    from joxsz_torch import run
+    from joxsz_torch.ops import _build
+
+    zero_launches()
+    before = dict(_build.instance_launches)
+    res = run.main(["--config", path, "--quick", "--no-plots"])
+    print(json.dumps({
+        "launches": read_launches(),
+        "instances": {k: v - before[k]
+                      for k, v in _build.instance_launches.items()},
+        "acceptance": float(np.mean(res.acceptance_fraction)),
+        "shape": list(res.chain.shape),
+        "finite": bool(np.all(np.isfinite(res.chain)))}))
+
+
+def phase_corner_fit(tmp: str, seed: int) -> dict:
+    """Phase 26c: another cluster fitted end to end: the CORNER_FIT corner
+    written by the ``synth`` CLI, then fitted by ``run --config <it>
+    --quick --no-plots`` (W=1024 x K=4, the config's production widths)
+    in a child process: a posterior table (fit.dat, the summary's finite
+    medians), finite chains, kernel 1 and the step kernel at K=1 and K=4
+    launched, through the family instances."""
+    import math as _math
+    from joxsz_torch.synth import CORNERS, corner_kwargs
+
+    kw, _ = corner_kwargs(CORNERS[CORNER_FIT])
+    out = f"{tmp}/corner_{CORNER_FIT}"
+    t0 = time.time()
+    syn = subprocess.run([sys.executable, "-m", "joxsz_torch.synth", out,
+                          "--seed", str(seed)] + corner_cli(kw),
+                         capture_output=True, text=True, timeout=300)
+    check(syn.returncode == 0, f"synth CLI failed: {syn.stderr[-2000:]}")
+    path = syn.stdout.strip().splitlines()[-1]
+    fit = subprocess.run([sys.executable, __file__, "--corner-fit", path],
+                         capture_output=True, text=True,
+                         timeout=CORNER_FIT_TIMEOUT)
+    wall = time.time() - t0
+    check(fit.returncode == 0, f"corner fit failed: {fit.stdout[-3000:]}"
+          f"{fit.stderr[-3000:]}")
+    res = json.loads(fit.stdout.strip().splitlines()[-1])
+    summary = json.loads(open(output_files(out)["summary"]).read())
+    medians = [v["median"] for v in summary["parameters"].values()]
+    check(os.path.exists(output_files(out)["fit.dat"]), "no fit.dat")
+    check(all(_math.isfinite(m) for m in medians) and res["finite"],
+          "corner fit: non-finite medians or chain")
+    check(all(f"{name} |" in fit.stdout for name in summary["parameters"]),
+          "corner fit: no posterior table in run's output")
+    n = res["launches"]
+    check(n["joint_ll"] > 0 and n["stretch_steps"] > 0
+          and n["stretch_steps_tempered"] > 0,
+          f"corner fit: kernels not launched: {n}")
+    check(res["instances"]["stretch_steps_fam_kernel"] > 0,
+          f"corner fit: the family instance not launched: "
+          f"{res['instances']}")
+    print(f"[26] {CORNER_FIT} corner fitted through the synth CLI and "
+          f"run --config --quick --no-plots in {wall:.1f} s: chain "
+          f"{res['shape']}, acceptance {res['acceptance']:.3f}, "
+          f"{len(medians)} finite medians, launches {n}")
+    return res
+
+
+def phase_other_clusters(cfg, tmp: str, seed: int, card: str):
+    """Phase 26: other clusters' geometries (26a), the veto clouds (26b),
+    a corner fitted end to end (26c), and every compiled instance
+    launched over the run."""
+    t0 = time.time()
+    phase_geometries(seed)
+    n_f64 = phase_veto_clouds(cfg, seed)
+    phase_corner_fit(tmp, seed)
+    check_instances(card)
+    print(f"[26] phase 26 in {time.time() - t0:.1f} s ({n_f64} cloud rows "
+          f"vetoed by both float32 versions and kept by float64) on {card}")
+
+
+def check_instances(card: str):
+    """Every compiled instance (``_build.INSTANCES``: kernel 1, the step
+    kernel and kernel 6 as flagship / family x fit / _large_, kernel 5 as
+    fit / _large_) launched at least once in this process."""
+    from joxsz_torch.ops import _build
+
+    n = _build.instance_launches
+    print(f"[26] launches of each compiled instance over the run: "
+          f"{json.dumps(n)} on {card}")
+    missing = [k for k, v in n.items() if v == 0]
+    check(len(n) == 14 and not missing,
+          f"compiled instances never launched: {missing}")
 
 
 def phase_mesh_path(cfg, tmp: str, path: str, seed: int, theta0) -> dict:
@@ -3386,9 +3730,9 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 
 
 def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
-    """``--only``: phases 23, 24 and / or 25 on phase 2's dataset, written
-    as phase 5 writes its config; the kernels line holds phase 23's rows
-    only."""
+    """``--only``: phases 13, 14, 17 (its kernel checks), 23, 24, 25 and /
+    or 26 on phase 2's dataset, written as phase 5 writes its config; the
+    kernels line holds phase 23's rows only."""
     import torch
     from joxsz_torch.config import JoXSZConfig, MCMCConfig
     from joxsz_torch.synth import config_json
@@ -3400,6 +3744,12 @@ def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
     cfg5 = JoXSZConfig.from_json(open(path).read())
     rows = []
     phases = {int(p) for p in which.split(",")}
+    if 13 in phases:
+        phase_large_shapes(seed)
+    if 14 in phases:
+        phase_families(cfg5, seed)
+    if 17 in phases:
+        phase_cluster_grid_families(cfg5, seed)
     if 23 in phases:
         rows += list(phase_roll_cli(path, phase_roll_kernels(cfg5, seed))
                      [:2])
@@ -3407,6 +3757,8 @@ def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
         phase_multihost(cfg5, path, tmp, seed)
     if 25 in phases:
         phase_referee(cfg5, tmp, seed)
+    if 26 in phases:
+        phase_other_clusters(cfg5, tmp, seed, card)
     print(json.dumps({"kernels": [{k: r[k] for k in KERNEL_KEYS}
                                   for r in rows]}))
     print(card)
@@ -3419,12 +3771,14 @@ def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--only", metavar="23,24,25",
-                    help="run phases 1-2, then only these of phases 23, "
-                         "24 and 25 (a quick check of a change; the full "
-                         "run is the check)")
+    ap.add_argument("--only", metavar="13,14,17,23,24,25,26",
+                    help="run phases 1-2, then only these of phases 13, "
+                         "14, 17 (its kernel checks), 23, 24, 25 and 26 (a "
+                         "quick check of a change; the full run is the "
+                         "check)")
     ap.add_argument("--family-fit", help=argparse.SUPPRESS)
     ap.add_argument("--coupled-worker", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--corner-fit", help=argparse.SUPPRESS)
     ap.add_argument("--base", help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
@@ -3442,6 +3796,9 @@ def main() -> int:
         return 0
     if args.coupled_worker is not None:
         coupled_worker(args.coupled_worker, args.base)
+        return 0
+    if args.corner_fit:
+        corner_fit(args.corner_fit)
         return 0
     from joxsz_torch.run import MLE_CACHE_DIR
 
@@ -3507,6 +3864,8 @@ def main() -> int:
         k6["launches"] += n6
         # the posterior-level referee and the examples
         phase_referee(cfg5, tmp, args.seed)
+        # other clusters' geometries; every compiled instance launched
+        phase_other_clusters(cfg5, tmp, args.seed, card)
         kernels = [{key: k[key] for key in KERNEL_KEYS}
                    for k in (k1, k2, k3, k4, k5, k6, *kf, *k17, k2r, k3r)]
         r4 = rows[f"K={K_SMOKE}, W={W_SMOKE}"]

@@ -52,15 +52,17 @@ static const LLKernel LL_KERNELS[2][2] = {
     {joint_ll_kernel, joint_ll_large_kernel},
     {joint_ll_fam_kernel, joint_ll_fam_large_kernel}};
 
+// picked: the instance launched, 2 x FAM + !FIT (_build.INSTANCES)
 extern "C" int launch_joint_ll(const float* theta, int B, float* out,
                                const float* buf, const int* iv,
-                               const float* fv, void* stream) {
+                               const float* fv, void* stream, int* picked) {
   LLConsts c = make_consts(buf, iv, fv);
   if (!tile_fits(c)) return (int)cudaErrorInvalidValue;
   size_t smem = 0, ws = 0;
   int err = plan_launch(&c, TILE_WALKERS * (MAX_D + 1), tile_layout(c).total,
                         &smem, &ws);
   auto kernel = pick_kernel(c, ws, LL_KERNELS);
+  *picked = picked_instance(c, ws);
   int blocks = 0;
   if (!err)
     err = resident_blocks(kernel, smem,

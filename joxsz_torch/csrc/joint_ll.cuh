@@ -918,6 +918,11 @@ static inline Kernel pick_kernel(const LLConsts& c, size_t ws,
                                  const Kernel (&k)[2][2]) {
   return k[!is_flagship(c)][!(c.stage && !ws)];
 }
+// pick_kernel's choice as one index, 2 x FAM + !FIT, which the launchers
+// report so that each compiled instance has its own launch count
+static inline int picked_instance(const LLConsts& c, size_t ws) {
+  return 2 * !is_flagship(c) + !(c.stage && !ws);
+}
 
 // Where a launch keeps what its tiles read: own floats of shared memory
 // the kernel needs for itself, scratch floats of the tiles' profiles.

@@ -436,14 +436,15 @@ extern "C" int stretch_steps_config(int G, int W, const int* iv,
 // device, one set of constants) or C clusters (per_cluster != 0, beta and
 // db null, cluster g's constants at buf + g * cstride floats).  One
 // cooperative launch of n_steps full steps; bar: one zeroed unsigned int;
-// roll: the partner law (1 roll, 0 one-hot; rungs only).
+// roll: the partner law (1 roll, 0 one-hot; rungs only); picked: the
+// instance launched (picked_instance).
 extern "C" int launch_stretch_steps(
     float* x, float* lp, float* acc, int* sacc, const float* beta,
     const float* db, int G, int W, unsigned int seed, int step0, int n_steps,
     int thin, float* chain, float* chain_lp, float zc1, float zc2,
     int per_cluster, int roll, long long cstride, unsigned int* bar,
     const float* buf,
-    const int* iv, const float* fv, void* stream) {
+    const int* iv, const float* fv, void* stream, int* picked) {
   LLConsts c = make_consts(buf, iv, fv);
   int dev = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -454,6 +455,7 @@ extern "C" int launch_stretch_steps(
   size_t smem = 0, ws = 0;
   int err = plan_half(&c, &smem, &ws);
   auto kernel = pick_kernel(c, ws, STEP_KERNELS);
+  *picked = picked_instance(c, ws);
   int blocks = 0;
   if (!err)
     err = resident_blocks(kernel, smem,
@@ -478,17 +480,19 @@ extern "C" int launch_stretch_steps(
 
 // The moving block (H_loc rows) and the fixed half (H rows) are separate
 // buffers; row_off is the block's first row within the half; roll: the
-// partner law (1 roll, 0 one-hot).
+// partner law (1 roll, 0 one-hot); picked: the instance launched.
 extern "C" int launch_coupled_half(float* xu, float* lpu, float* accu,
                                    const float* xf, int H_loc, int H,
                                    int row_off, int which, unsigned int seed,
                                    int step, int roll, float zc1, float zc2,
                                    const float* buf, const int* iv,
-                                   const float* fv, void* stream) {
+                                   const float* fv, void* stream,
+                                   int* picked) {
   LLConsts c = make_consts(buf, iv, fv);
   size_t smem = 0, ws = 0;
   int err = plan_half(&c, &smem, &ws);
   auto kernel = pick_kernel(c, ws, COUPLED_KERNELS);
+  *picked = picked_instance(c, ws);
   int blocks = 0;
   if (!err)
     err = resident_blocks(kernel, smem,

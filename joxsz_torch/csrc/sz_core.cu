@@ -72,7 +72,8 @@ sz_core_large_kernel(const float* __restrict__ pp,
 extern "C" int launch_sz_core(const float* pp, const float* tall,
                               const float* cal, int B, float* out,
                               const float* buf, const int* iv,
-                              const float* fv, void* stream) {
+                              const float* fv, void* stream,
+                              int* picked) {
   LLConsts c = make_consts(buf, iv, fv);
   if (!tile_fits(c)) return (int)cudaErrorInvalidValue;
   const int WT = TILE_WALKERS;
@@ -84,6 +85,7 @@ extern "C" int launch_sz_core(const float* pp, const float* tall,
   size_t smem = 0, ws = 0;
   int err = plan_launch(&c, 0, scratch, &smem, &ws);
   auto kernel = c.stage && !ws ? sz_core_kernel : sz_core_large_kernel;
+  *picked = !(c.stage && !ws);     // the instance launched: 1 for _large_
   int blocks = 0;
   if (!err) err = resident_blocks(kernel, smem, (B + WT - 1) / WT, &blocks);
   if (!err) err = take_workspace(&c, blocks, ws, (cudaStream_t)stream);

@@ -26,23 +26,37 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
-# C entry points: argument types (every launcher returns cudaGetLastError)
+_PI = ctypes.POINTER(ctypes.c_int)
+# C entry points: argument types (every launcher returns cudaGetLastError
+# and writes the instance it launched into its last argument)
 SIGNATURES = {
     "joint_ll": {
-        "launch_joint_ll": [_P, _I, _P, _P, _P, _P, _P],
+        "launch_joint_ll": [_P, _I, _P, _P, _P, _P, _P, _PI],
     },
     "stretch_step": {
         "launch_stretch_steps": [_P, _P, _P, _P, _P, _P, _I, _I, _U, _I, _I,
                                  _I, _P, _P, _F, _F, _I, _I, _L, _P, _P, _P,
-                                 _P, _P],
+                                 _P, _P, _PI],
         "stretch_steps_config": [_I, _I, _P, _P, _P],
         "launch_coupled_half": [_P, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I,
-                                _F, _F, _P, _P, _P, _P],
+                                _F, _F, _P, _P, _P, _P, _PI],
     },
     "sz_core": {
-        "launch_sz_core": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
+        "launch_sz_core": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _PI],
     },
 }
+
+# The compiled instances of each launcher, indexed by the number it
+# reports (csrc/joint_ll.cuh::picked_instance: 2 x family + large; the SZ
+# core: large), and the launches of each in this process (never reset:
+# chip_smoke.py requires every instance launched over a whole run).
+INSTANCES = {
+    kind: tuple(f"{kind}{fam}{large}_kernel" for fam in ("", "_fam")
+                for large in ("", "_large"))
+    for kind in ("joint_ll", "stretch_steps", "coupled_half")}
+INSTANCES["sz_core"] = ("sz_core_kernel", "sz_core_large_kernel")
+instance_launches = {name: 0 for names in INSTANCES.values()
+                     for name in names}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}      # seconds, ptxas report per source, build dir
@@ -114,6 +128,16 @@ def kernel_library(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return lib
+
+
+def launch_checked(kind: str, fn, *args, what: str | None = None):
+    """Call the C launcher ``fn`` of the ``INSTANCES[kind]`` kernels with
+    ``args`` and a place for the instance it reports, raise on a non-zero
+    CUDA error code (``check_launch``; ``what`` names the launch, default
+    ``kind``), and count the launch of that instance."""
+    picked = ctypes.c_int(-1)
+    check_launch(fn(*args, ctypes.byref(picked)), what or kind)
+    instance_launches[INSTANCES[kind][picked.value]] += 1
 
 
 def check_launch(err: int, what: str):

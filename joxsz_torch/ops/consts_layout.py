@@ -8,6 +8,9 @@ fills the SZ part only and leaves the rest zero.
 ``detect_family`` is the port's copy of ``joxsz_tpu/ops/pallas_joint.py::
 _detect_family``: which branch of the likelihood a thawed layout takes,
 and ``knot_table`` the port's form of that kernel's knot weight rows.
+``launch_plan`` mirrors the launchers' plan (``csrc/joint_ll.cuh::
+plan_launch``) from the same vectors, so that a host without a card can
+say whether a session's constants take the ``_large_`` instances.
 """
 
 from __future__ import annotations
@@ -39,6 +42,15 @@ INTS = ("n_press", "sep", "n_pix", "n_data", "n_sh", "n_ann", "n_band",
         "nT", "n_conv", "D", "mass_veto", "p_fam", "t_fam", "d_fam",
         "n_knots", "has_xray", "has_ls")
 FLOATS = ("c_gnfw", "alpha", "gamma", "mass_C", "t0g", "inv_dtg", "pos_hi")
+
+# the tile's sizes (the #defines of csrc/joint_ll.cuh; HALF_EXTRA of
+# csrc/stretch_step.cu): walkers a tile, parameters a row, k chunks of
+# pp @ L^T, map radii a pass, scalar and X-ray tap slots a walker
+TILE_WALKERS, MAX_D, KSPLIT, PIX_PASS, SC_STRIDE, XS_N = 16, 32, 8, 96, 29, 6
+HALF_EXTRA = TILE_WALKERS * MAX_D + 6 * TILE_WALKERS + 4
+# the dynamic shared memory a block of an H100 may opt in to (bytes), the
+# limit the plan meets on the card (cudaDevAttrMaxSharedMemoryPerBlockOptin)
+H100_SMEM_OPTIN = 232448
 
 
 # family codes of the ints p_fam, t_fam, d_fam (enum Fam in joint_ll.cuh)
@@ -190,3 +202,52 @@ class LaunchParams:
         self.fv = np.ascontiguousarray(fv, dtype=np.float32)
         self.iv_ptr = self.iv.ctypes.data_as(ctypes.c_void_p)
         self.fv_ptr = self.fv.ctypes.data_as(ctypes.c_void_p)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _pix_stride(n_pix: int) -> int:
+    return -(-n_pix // PIX_PASS) * PIX_PASS
+
+
+def launch_plan(params: LaunchParams, kernel: str,
+                smem_optin: int = H100_SMEM_OPTIN) -> str:
+    """Where a launch of ``kernel`` ('joint_ll', 'stretch_steps': the step
+    kernel and kernel 4, 'coupled_half' or 'sz_core': the keys of
+    ``ops._build.INSTANCES``) on the constants of ``params``
+    keeps what its tiles read, as ``plan_launch`` decides it on a card
+    whose blocks may opt in to ``smem_optin`` bytes: 'staged' (constants
+    and the tiles' scratch in shared memory: the instance without
+    ``_large``), 'in place' (the constants read from global memory, the
+    scratch in shared memory) or 'workspace' (the scratch in a global
+    workspace too)."""
+    iv = [int(v) for v in params.iv]
+    I = dict(zip(INTS, iv))
+    off = iv[len(INTS) + len(ROLES):]
+    NP, PIX, ND, NS = I["n_press"], I["n_pix"], I["n_data"], I["n_sh"]
+    NA, NB, NT = I["n_ann"], I["n_band"], I["nT"]
+    NK = int(I["p_fam"] == P_KNOTS)
+    NBA, NBT = NB * NA, NB * NT
+    size = (NP, NP, NP * PIX, PIX * ND, ND, ND, I["sep"], NP, NS, NS, NBT,
+            NBT, NS * NA, NBA, NBA, NBA, NBA, I["D"], I["D"], I["D"], I["D"],
+            I["n_conv"], I["n_conv"], I["n_conv"], 1, NK * 3 * NP,
+            NK * 3 * NS, NK * I["mass_veto"] * 6 * (I["n_knots"] - 1))
+    n_buf = _r4(max(o + n for o, n in zip(off, size)))
+    WT = TILE_WALKERS
+    if kernel == "sz_core":
+        own = 0
+        scratch = (_r4(WT * NP) + _r4(WT * PIX) + WT * _pix_stride(PIX)
+                   + KSPLIT // 2 * WT * PIX_PASS + WT * _r4(ND) + 2 * WT)
+    else:
+        own = WT * (MAX_D + 1) if kernel == "joint_ll" else 4 + HALF_EXTRA
+        xr = WT * NS * XS_N + 2 * WT * NB * NS + WT * NB * NA
+        scratch = (_r4(WT * NP) + _r4(WT * I["sep"]) + WT * _pix_stride(PIX)
+                   + WT * _r4(ND) + _r4(WT * SC_STRIDE) + _r4(2 * WT)
+                   + _r4(max(WT * NP, KSPLIT // 2 * WT * PIX_PASS, xr)))
+    limit = smem_optin // 4
+    if own + scratch + n_buf <= limit:
+        return "staged"
+    return "in place" if own + scratch <= limit else "workspace"
+

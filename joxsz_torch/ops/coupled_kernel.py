@@ -112,17 +112,17 @@ def coupled_half(x_upd, lp_upd, acc_upd, x_fixed, which: int, seed: int,
         lp_upd.copy_(lpn)
         acc_upd.copy_(accn)
         return
-    from ._build import kernel_library, check_launch
+    from ._build import kernel_library, launch_checked
 
     lib = kernel_library("stretch_step")
     with torch.cuda.device(x_upd.device):
-        err = lib.launch_coupled_half(
-            x_upd.data_ptr(), lp_upd.data_ptr(), acc_upd.data_ptr(),
-            x_fixed.data_ptr(), H_loc, H, row_off, which, seed & _M, step,
-            int(partner == "roll"), STRETCH_ZC[0], STRETCH_ZC[1],
-            c.buf.data_ptr(), c.params.iv_ptr, c.params.fv_ptr,
+        launch_checked(
+            "coupled_half", lib.launch_coupled_half, x_upd.data_ptr(),
+            lp_upd.data_ptr(), acc_upd.data_ptr(), x_fixed.data_ptr(), H_loc,
+            H, row_off, which, seed & _M, step, int(partner == "roll"),
+            STRETCH_ZC[0], STRETCH_ZC[1], c.buf.data_ptr(), c.params.iv_ptr,
+            c.params.fv_ptr,
             torch.cuda.current_stream(x_upd.device).cuda_stream)
-    check_launch(err, "coupled_half")
     coupled_half.launches += 1
 
 

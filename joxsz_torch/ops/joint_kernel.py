@@ -57,13 +57,11 @@ import numpy as np
 import torch
 
 from .. import constants as K
-from .consts_layout import (ROLES, LaunchParams, P_KNOTS, T_VIKH, D_DOUBLE,
-                            check_conv_table, detect_family, knot_table,
-                            pack_arrays)
+from .consts_layout import (MAX_D, ROLES, LaunchParams, P_KNOTS, T_VIKH,
+                            D_DOUBLE, check_conv_table, detect_family,
+                            knot_table, pack_arrays)
 from .sz_core import conv_slopes, sz_chain_plain, sz_padded_data
 
-# parameters a kernel row holds (MAX_D in csrc/joint_ll.cuh)
-MAX_D = 32
 LN10 = float(np.log(10.0))
 
 
@@ -549,7 +547,7 @@ def joint_ll(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
     _check_theta(theta, c)
     if theta.device.type == "cpu":
         return joint_ll_plain(theta, c)
-    from ._build import kernel_library, check_launch
+    from ._build import kernel_library, launch_checked
 
     th = theta.to(torch.float32).contiguous()
     B = th.shape[0]
@@ -557,10 +555,10 @@ def joint_ll(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
     if B == 0:
         return out
     lib = kernel_library("joint_ll")
-    err = lib.launch_joint_ll(
-        th.data_ptr(), B, out.data_ptr(), c.buf.data_ptr(), c.params.iv_ptr,
-        c.params.fv_ptr, torch.cuda.current_stream(th.device).cuda_stream)
-    check_launch(err, "joint_ll")
+    launch_checked(
+        "joint_ll", lib.launch_joint_ll, th.data_ptr(), B, out.data_ptr(),
+        c.buf.data_ptr(), c.params.iv_ptr, c.params.fv_ptr,
+        torch.cuda.current_stream(th.device).cuda_stream)
     joint_ll.launches += 1
     return out
 

@@ -248,8 +248,8 @@ def launch_steps(x, lp, acc, sacc, beta, db, seed: int, step0: int,
                  cstride: int, buf, params, what: str, roll: bool = False):
     """One cooperative launch of ``stretch_steps_kernel`` on CUDA
     tensors (raises when the card refuses it); ``roll`` picks the
-    hashed-roll partner law."""
-    from ._build import kernel_library, check_launch
+    hashed-roll partner law.  ``what`` names the launch in an error."""
+    from ._build import kernel_library, launch_checked
 
     G, W, _ = x.shape
     bar = torch.zeros(1, dtype=torch.int32, device=x.device)
@@ -259,15 +259,15 @@ def launch_steps(x, lp, acc, sacc, beta, db, seed: int, step0: int,
 
     lib = kernel_library("stretch_step")
     with torch.cuda.device(x.device):
-        err = lib.launch_stretch_steps(
-            x.data_ptr(), lp.data_ptr(), acc.data_ptr(), ptr(sacc),
-            ptr(beta), ptr(db), G, W, seed & _M, step0, n_steps, thin,
+        launch_checked(
+            "stretch_steps", lib.launch_stretch_steps, x.data_ptr(),
+            lp.data_ptr(), acc.data_ptr(), ptr(sacc), ptr(beta), ptr(db), G,
+            W, seed & _M, step0, n_steps, thin,
             ptr(chain) if chain.numel() else None,
             ptr(chain_lp) if chain_lp.numel() else None, STRETCH_ZC[0],
             STRETCH_ZC[1], per_cluster, int(roll), cstride, bar.data_ptr(),
             buf.data_ptr(), params.iv_ptr, params.fv_ptr,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    check_launch(err, what)
+            torch.cuda.current_stream(x.device).cuda_stream, what=what)
 
 
 def step_kernel_config(c, G: int, W: int) -> tuple[int, int, bool, int]:

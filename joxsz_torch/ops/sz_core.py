@@ -39,7 +39,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .consts_layout import LaunchParams, check_conv_table, pack_arrays
+from .consts_layout import (KSPLIT, LaunchParams, check_conv_table,
+                            pack_arrays)
 
 
 def sz_padded_data(flux, flux_err):
@@ -65,10 +66,6 @@ def conv_slopes(conv_T, conv_V):
         return np.append(np.diff(conv_V) / np.diff(conv_T), 0.0)
 
 
-# k chunks of pp @ L^T in the kernel (KSPLIT in csrc/joint_ll.cuh)
-KSPLIT = 8
-
-
 def ksplit_matmul(pp, LT):
     """pp @ L^T summed as the kernel sums it: the k axis in KSPLIT chunks
     of ceil(n / KSPLIT), each chunk a product of its own, then the chunk
@@ -84,9 +81,20 @@ def ksplit_matmul(pp, LT):
     return s[0]
 
 
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """(B, n) -> (B,): the values added in order, as one thread does."""
+    s = x[:, 0]
+    for i in range(1, x.shape[1]):
+        s = s + x[:, i]
+    return s
+
+
 def sz_chain_plain(pp, t_all, cal, A: dict):
     """-chi^2/2 (B,) of the SZ chain on arrays ``A`` (LT, GT, flux, wres,
-    convT, convV, convS) in the dtype of ``pp``; ``cal`` (B, 1)."""
+    convT, convV, convS) in the dtype of ``pp``; ``cal`` (B, 1).  The
+    squared residuals are added in order, as the tile adds them: summed
+    in another order, a blown-up chi^2 (1.8e5 on a hot row of a 24-annuli
+    corner) lands 0.055 from kernel 1, past the kernels' 0.05 bar."""
     raw = ksplit_matmul(pp, A["LT"])                        # (B, n_pix)
     cidx = torch.zeros_like(t_all, dtype=torch.long)
     for k in range(1, A["convT"].shape[0] - 1):
@@ -95,7 +103,7 @@ def sz_chain_plain(pp, t_all, cal, A: dict):
     prof = raw * conv * cal
     model = prof @ A["GT"]
     resid = (A["flux"] - model) * A["wres"]
-    return -0.5 * (resid * resid).sum(dim=1)
+    return -0.5 * seq_sum(resid * resid)
 
 
 @dataclasses.dataclass
@@ -161,7 +169,7 @@ def sz_core(pp, t_all, calibration, c: SZCoreConsts) -> torch.Tensor:
         raise ValueError(f"pp on {pp.device}, constants on {c.device}")
     if pp.device.type == "cpu":
         return sz_core_plain(pp, t_all, calibration, c)
-    from ._build import kernel_library, check_launch
+    from ._build import kernel_library, launch_checked
 
     pp32, t32, cal32 = (t.to(torch.float32).contiguous()
                         for t in (pp, t_all, calibration))
@@ -169,11 +177,11 @@ def sz_core(pp, t_all, calibration, c: SZCoreConsts) -> torch.Tensor:
     if B == 0:
         return out
     lib = kernel_library("sz_core")
-    err = lib.launch_sz_core(
-        pp32.data_ptr(), t32.data_ptr(), cal32.data_ptr(), B, out.data_ptr(),
-        c.buf.data_ptr(), c.params.iv_ptr, c.params.fv_ptr,
+    launch_checked(
+        "sz_core", lib.launch_sz_core, pp32.data_ptr(), t32.data_ptr(),
+        cal32.data_ptr(), B, out.data_ptr(), c.buf.data_ptr(),
+        c.params.iv_ptr, c.params.fv_ptr,
         torch.cuda.current_stream(pp.device).cuda_stream)
-    check_launch(err, "sz_core")
     sz_core.launches += 1
     return out
 

@@ -37,6 +37,7 @@ import torch
 
 from .config import (JoXSZConfig, SZConfig, XrayConfig, MCMCConfig,
                      CL1226_BANDS_EV)
+from .tablegen.generate import DEFAULT_NT
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 TABLE_PATH = REPO / "data" / "tables" / "cl1226_ctrate.npz"
@@ -230,48 +231,79 @@ def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
                             extent_kpc: float = 5000.0,
                             redshift: float = 0.888,
                             bands=CL1226_BANDS_EV,
-                            response: bool = False) -> JoXSZConfig:
+                            response: bool = False,
+                            nT: int = DEFAULT_NT,
+                            step_arcsec: float = JoXSZConfig.step_arcsec,
+                            fwhm_arcsec: float = FWHM_ARCSEC,
+                            nh_1022: float = XrayConfig.NH_1022pcm2,
+                            pressure_model: str = "gnfw",
+                            n_pressure_knots: int = 7,
+                            temperature_model: str = "upp",
+                            density_mode: str = "single",
+                            line_systematic: bool = False,
+                            keep_table: bool = False) -> JoXSZConfig:
     """Write the dataset under ``out_dir`` and return its config (the
     default sizes are the CL J1226 shapes).  Deterministic in ``seed``.
-    ``response``: write the synthetic RMF/ARF and leave ``table_path``
-    unset (see the module's docstring); the table the data are drawn
-    through is generated on the CPU here and not kept."""
+
+    Another cluster and instrument: ``step_arcsec`` (the map's pixel),
+    ``fwhm_arcsec`` (the Gaussian beam), ``redshift``, ``extent_kpc``,
+    ``n_annuli`` x ``bands`` and ``n_sz``; ``nT`` (the count-rate table's
+    temperatures) and ``nh_1022`` (the column) other than the bundled
+    table's need ``response``.  The model family (``pressure_model``,
+    ``n_pressure_knots``, ``temperature_model``, ``density_mode``,
+    ``line_systematic``) goes into the config, and the data are drawn
+    from that family's model at ``truth_theta``.
+    ``response``: write the synthetic RMF/ARF; the table the data are
+    drawn through is generated on the CPU here and, unless
+    ``keep_table``, not kept (``table_path`` unset: see the module's
+    docstring); with ``keep_table`` it stays as ``X/synthetic_ctrate.npz``
+    and ``table_path`` names it, so that every reader loads that file."""
     from .build import build_session
     from .models.xray import predicted_counts
     from .models.sz import sz_brightness
 
+    if not response and (nT != DEFAULT_NT
+                         or nh_1022 != XrayConfig.NH_1022pcm2):
+        raise ValueError("nT and nh_1022 other than the bundled table's "
+                         "need response=True (a generated table)")
+    if keep_table and not response:
+        raise ValueError("keep_table needs response=True")
     root = pathlib.Path(out_dir).resolve()
     rng = np.random.default_rng(seed)
     table = rmf = arf = None
+    bands = tuple(tuple(int(e) for e in b) for b in bands)
     if response:
         from .tablegen import TableSpec, generate_table, save_table
 
         rmf, arf = write_synthetic_response(root)
         table = root / "X" / "synthetic_ctrate.npz"
         save_table(str(table), generate_table(TableSpec(
-            rmf=rmf, arf=arf, bands_eV=tuple(tuple(b) for b in bands),
-            z=redshift, NH_1022pcm2=XrayConfig.NH_1022pcm2), device="cpu"))
+            rmf=rmf, arf=arf, bands_eV=bands, z=redshift,
+            NH_1022pcm2=nh_1022, nT=nT), device="cpu"))
     cfg = JoXSZConfig(
+        step_arcsec=step_arcsec,
         cluster_extent_kpc=extent_kpc,
         redshift=redshift,
         sz=SZConfig(tf_file=str(root / "SZ" / "tf.dat"),
                     flux_file=str(root / "SZ" / "flux.dat"),
                     conversion_file=str(root / "SZ" / "conv.dat"),
-                    beam_approx=True, fwhm_beam_arcsec=FWHM_ARCSEC),
+                    beam_approx=True, fwhm_beam_arcsec=fwhm_arcsec),
         xray=XrayConfig(fg_template=str(root / "X" / "fg_%04i_%04i.dat"),
                         bg_template=str(root / "X" / "bg_%04i_%04i.dat"),
-                        bands_eV=tuple(tuple(b) for b in bands),
+                        bands_eV=bands, NH_1022pcm2=nh_1022,
+                        line_systematic=line_systematic,
                         table_path=(str(table) if response
                                     else _table_at(root, redshift)),
                         **({"rmf": rmf, "arf": arf} if response else {})),
         mcmc=MCMCConfig(seed=seed),
+        pressure_model=pressure_model, n_pressure_knots=n_pressure_knots,
+        temperature_model=temperature_model, density_mode=density_mode,
     )
-    # pass 1: placeholder data, to evaluate the model at TRUTH
+    # pass 1: placeholder data, to evaluate the model at truth_theta
     err = _write_files(root, n_annuli, n_sz, max_radius_arcsec, bands)
     sess = build_session(cfg, device="cpu")
-    p = sess.params
-    theta = torch.tensor([[TRUTH[n] for n in p.thawed]], dtype=torch.float64)
-    pars = p.unpack(theta)
+    theta = torch.tensor(truth_theta(sess)[None], dtype=torch.float64)
+    pars = sess.params.unpack(theta)
     m = sess.model
     with torch.no_grad():
         pred = predicted_counts(pars, m.xray_data, m.density,
@@ -283,7 +315,7 @@ def write_synthetic_dataset(out_dir, seed: int, *, n_annuli: int = 15,
     flux = model_flux + err * rng.standard_normal(n_sz)
     _write_files(root, n_annuli, n_sz, max_radius_arcsec, bands,
                  counts=counts, flux=flux)
-    if response:
+    if response and not keep_table:
         table.unlink()
         cfg.xray.table_path = None
     return cfg
@@ -334,19 +366,153 @@ def config_json(cfg: JoXSZConfig, path) -> str:
     return str(path)
 
 
+def bands_between(n: int, lo_ev: int = 700, hi_ev: int = 7000) -> tuple:
+    """``n`` contiguous bands (eV) from ``lo_ev`` to ``hi_ev``, their edges
+    spaced geometrically and rounded to 100 eV."""
+    edges = np.round(np.geomspace(lo_ev, hi_ev, n + 1) / 100.0) * 100
+    if np.any(np.diff(edges) <= 0):
+        raise ValueError(f"{n} bands of at least 100 eV do not fit in "
+                         f"{lo_ev}-{hi_ev} eV")
+    return tuple((int(a), int(b)) for a, b in zip(edges[:-1], edges[1:]))
+
+
+# Clusters and instruments other than CL J1226: the six corners of the JAX
+# package's geometry sweep (tests/test_geometry_sweep.py:101-143, one axis
+# stressed each: table nT, annuli and bands, a large map, knots, double
+# density, SZ-only), then line_scale and config #4 (knots + Vikhlinin T) at
+# band and annulus counts other than CL J1226's; what a corner leaves
+# unset is CORNER_DEFAULTS, the JAX sweep's builder's defaults
+CORNER_DEFAULTS = dict(max_radius_arcsec=300.0, n_sz=40, fwhm_arcsec=15.0,
+                       nh_1022=0.03, n_bands=5, nT=64)
+CORNERS = {
+    "nT32": dict(nT=32, n_annuli=8, n_bands=3, step_arcsec=6.0,
+                 max_radius_arcsec=200.0, extent_kpc=1800.0, redshift=0.35),
+    "nT96_many_annuli": dict(nT=96, n_annuli=24, n_bands=12,
+                             step_arcsec=3.0, max_radius_arcsec=250.0,
+                             extent_kpc=2200.0, redshift=0.8),
+    "large_map": dict(step_arcsec=2.5, max_radius_arcsec=420.0,
+                      fwhm_arcsec=22.0, extent_kpc=4200.0, n_annuli=15,
+                      n_bands=6, nT=64, redshift=1.1),
+    "knots": dict(nT=32, n_annuli=10, n_bands=4, step_arcsec=5.0,
+                  extent_kpc=2000.0, redshift=0.25, pressure_model="knots",
+                  n_pressure_knots=5),
+    "double_density": dict(nT=64, n_annuli=9, n_bands=5, step_arcsec=4.5,
+                           extent_kpc=2600.0, redshift=0.6,
+                           density_mode="double"),
+    "sz_only": dict(step_arcsec=3.5, max_radius_arcsec=350.0,
+                    extent_kpc=3000.0, redshift=0.45, sz_only=True),
+    "line_scale": dict(nT=48, n_annuli=13, n_bands=7, step_arcsec=4.0,
+                       extent_kpc=2400.0, redshift=0.7, n_sz=23,
+                       line_systematic=True),
+    "config4": dict(nT=64, n_annuli=11, n_bands=8, step_arcsec=3.0,
+                    extent_kpc=2500.0, redshift=0.5, n_sz=31,
+                    pressure_model="knots", n_pressure_knots=6,
+                    temperature_model="vikhlinin"),
+}
+
+
+def corner_kwargs(dims: dict) -> tuple[dict, bool]:
+    """``write_synthetic_dataset``'s arguments for a corner's ``dims`` (the
+    keys of ``CORNERS``' entries, ``n_bands`` and ``sz_only`` included):
+    CORNER_DEFAULTS filled in, ``n_bands`` bands (``bands_between``), the
+    synthetic response with its table kept, and the extent raised, as the
+    JAX sweep's builder raises it, to six map pixels past the map's
+    half-axis (SZ radius + 3 FWHM).  Returns (arguments, SZ-only)."""
+    from .cosmology import Cosmology
+
+    kw = dict(CORNER_DEFAULTS, response=True, keep_table=True, **dims)
+    sz_only = kw.pop("sz_only", False)
+    kw["bands"] = bands_between(kw.pop("n_bands"))
+    step = kw.get("step_arcsec", JoXSZConfig.step_arcsec)
+    sep = int((kw["max_radius_arcsec"] + 3.0 * kw["fwhm_arcsec"]) // step)
+    kpc_as = Cosmology(z=kw["redshift"]).kpc_per_arcsec
+    kw["extent_kpc"] = max(kw.get("extent_kpc", 0.0),
+                           (sep + 6) * step * kpc_as)
+    return kw, sz_only
+
+
+def write_corner(out_dir, seed: int, dims: dict):
+    """The dataset of a corner (``corner_kwargs``) under ``out_dir``;
+    returns (config, SZ-only: build its session with ``sz_only``)."""
+    kw, sz_only = corner_kwargs(dims)
+    return write_synthetic_dataset(out_dir, seed, **kw), sz_only
+
+
+def _parse_bands(text: str) -> tuple:
+    try:
+        return tuple(tuple(int(e) for e in b.split("-"))
+                     for b in text.split(","))
+    except ValueError:
+        raise SystemExit(f"--bands takes LO-HI,LO-HI,... in eV, got "
+                         f"{text!r}") from None
+
+
 def main(argv=None):
-    """``python -m joxsz_torch.synth OUT_DIR [--seed N]``: write the CL
-    J1226-shaped dataset and ``OUT_DIR/cfg.json`` with the card's
-    production schedule (``MCMCConfig.converged_gpu``), the config a
-    flagless ``python -m joxsz_torch.run --config OUT_DIR/cfg.json``
-    fits."""
+    """``python -m joxsz_torch.synth OUT_DIR [--seed N] [geometry and
+    model flags]``: write a synthetic dataset (by default the CL J1226
+    shapes; the flags give another cluster and instrument, as
+    ``write_synthetic_dataset``'s arguments do) and ``OUT_DIR/cfg.json``
+    with the card's production schedule (``MCMCConfig.converged_gpu``),
+    the config a flagless ``python -m joxsz_torch.run --config
+    OUT_DIR/cfg.json`` fits."""
     import argparse
 
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
     ap.add_argument("out_dir")
     ap.add_argument("--seed", type=int, default=11)
+    ap.add_argument("--redshift", type=float, default=0.888)
+    ap.add_argument("--extent-kpc", type=float, default=5000.0)
+    ap.add_argument("--step", type=float, default=JoXSZConfig.step_arcsec,
+                    help="map pixel (arcsec)")
+    ap.add_argument("--fwhm", type=float, default=FWHM_ARCSEC,
+                    help="beam FWHM (arcsec)")
+    ap.add_argument("--n-sz", type=int, default=19,
+                    help="SZ flux points")
+    ap.add_argument("--max-radius", type=float, default=118.0,
+                    help="outermost SZ flux point (arcsec)")
+    ap.add_argument("--n-annuli", type=int, default=15)
+    bands = ap.add_mutually_exclusive_group()
+    bands.add_argument("--bands", type=_parse_bands,
+                       help="X-ray bands LO-HI,LO-HI,... in eV (default: "
+                            "CL J1226's ten)")
+    bands.add_argument("--n-bands", type=int,
+                       help="N bands over 0.7-7 keV (bands_between)")
+    ap.add_argument("--response", action="store_true",
+                    help="write a synthetic RMF/ARF and generate the "
+                         "count-rate table from it (needed for --nT and "
+                         "--nh)")
+    ap.add_argument("--keep-table", action="store_true",
+                    help="with --response: keep the generated table and "
+                         "name it in the config")
+    ap.add_argument("--nT", type=int, default=DEFAULT_NT,
+                    help="temperatures of the count-rate table")
+    ap.add_argument("--nh", type=float, default=XrayConfig.NH_1022pcm2,
+                    help="absorbing column (1e22 cm^-2)")
+    ap.add_argument("--pressure", choices=("gnfw", "knots"), default="gnfw")
+    ap.add_argument("--n-knots", type=int, default=7,
+                    help="pressure knots (--pressure knots)")
+    ap.add_argument("--temperature", choices=("upp", "vikhlinin"),
+                    default="upp")
+    ap.add_argument("--density", choices=("single", "double"),
+                    default="single")
+    ap.add_argument("--line-systematic", action="store_true")
     args = ap.parse_args(argv)
-    cfg = write_synthetic_dataset(args.out_dir, args.seed)
+    band_list = (args.bands if args.bands else
+                 bands_between(args.n_bands) if args.n_bands else
+                 CL1226_BANDS_EV)
+    try:
+        cfg = write_synthetic_dataset(
+            args.out_dir, args.seed, n_annuli=args.n_annuli, n_sz=args.n_sz,
+            max_radius_arcsec=args.max_radius, extent_kpc=args.extent_kpc,
+            redshift=args.redshift, bands=band_list, response=args.response,
+            nT=args.nT, step_arcsec=args.step, fwhm_arcsec=args.fwhm,
+            nh_1022=args.nh, pressure_model=args.pressure,
+            n_pressure_knots=args.n_knots,
+            temperature_model=args.temperature, density_mode=args.density,
+            line_systematic=args.line_systematic,
+            keep_table=args.keep_table)
+    except ValueError as e:
+        raise SystemExit(f"synth: {e}") from None
     cfg.mcmc = MCMCConfig.converged_gpu()
     cfg.mcmc.seed = args.seed
     cfg.save_dir = str(pathlib.Path(args.out_dir).resolve())

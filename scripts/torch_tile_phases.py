@@ -59,6 +59,7 @@ def main() -> int:
     c = pack_consts(sess)
     th0 = np.array([TRUTH[k] for k in sess.params.thawed])
     rng = np.random.default_rng(5)
+    picked = ctypes.c_int(-1)        # the instance each launch reports
     for B in (16, 4096):
         rows = torch.tensor(th0[None] * (1 + 0.03 * rng.standard_normal(
             (B, th0.size))), dtype=torch.float32, device="cuda")
@@ -67,7 +68,7 @@ def main() -> int:
             err = lib.launch_joint_ll(
                 rows.data_ptr(), B, res.data_ptr(), c.buf.data_ptr(),
                 c.params.iv_ptr, c.params.fv_ptr,
-                torch.cuda.current_stream().cuda_stream)
+                torch.cuda.current_stream().cuda_stream, ctypes.byref(picked))
             if err:
                 raise RuntimeError(f"launch failed: cudaError {err}")
         torch.cuda.synchronize()
@@ -96,7 +97,8 @@ def main() -> int:
     lp = torch.empty((K, W), dtype=torch.float32, device="cuda")
     lib.launch_joint_ll(x.data_ptr(), K * W, lp.data_ptr(),
                         c.buf.data_ptr(), c.params.iv_ptr, c.params.fv_ptr,
-                        torch.cuda.current_stream().cuda_stream)
+                        torch.cuda.current_stream().cuda_stream,
+                        ctypes.byref(picked))
     acc = torch.zeros_like(lp)
     sacc = torch.zeros(K - 1, dtype=torch.int32, device="cuda")
     beta = torch.tensor([1.0, 0.6, 0.36, 0.216], device="cuda")
@@ -108,7 +110,7 @@ def main() -> int:
             beta.data_ptr(), db.data_ptr(), K, W, 7, 0, 1, 0, None, None,
             0.70710677, 0.70710677, 0, 0, bar.data_ptr(), c.buf.data_ptr(),
             c.params.iv_ptr, c.params.fv_ptr,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(picked))
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
     torch.cuda.synchronize()

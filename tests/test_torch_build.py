@@ -44,11 +44,11 @@ def single_thread():
     torch.set_num_threads(n)
 
 
-def jax_session(cfg, dtype: str = "float64"):
+def jax_session(cfg, dtype: str = "float64", sz_only: bool = False):
     """The JAX package's session of the same config (no operator cache)."""
     jc = JaxConfig.from_json(cfg.to_json())
     jc.dtype = dtype
-    return jax_build_session(jc, use_cache=False)
+    return jax_build_session(jc, use_cache=False, sz_only=sz_only)
 
 
 def jax_arrays(js) -> dict:

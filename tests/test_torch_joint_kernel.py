@@ -164,13 +164,16 @@ def test_consts_layout(sessions):
     assert sorted(c.cix) == list(range(13))
 
 
-def _header_defines() -> dict:
-    """The integer #defines of csrc/joint_ll.cuh, evaluated in order."""
+def _header_defines(name: str = "joint_ll.cuh") -> dict:
+    """The integer #defines of csrc/<name> (after joint_ll.cuh's, which
+    it includes), evaluated in order."""
     import pathlib
     import re
 
-    src = (pathlib.Path(consts_layout.__file__).resolve().parents[1]
-           / "csrc" / "joint_ll.cuh").read_text()
+    csrc = pathlib.Path(consts_layout.__file__).resolve().parents[1] / "csrc"
+    src = (csrc / "joint_ll.cuh").read_text()
+    if name != "joint_ll.cuh":
+        src += (csrc / name).read_text()
     env: dict = {}
     for name, expr in re.findall(r"^#define (\w+) (.+?)\s*(?://.*)?$", src,
                                  re.M):
@@ -188,11 +191,22 @@ def _header_defines() -> dict:
     ("N_ARRAYS", len(consts_layout.ARRAYS)),
     ("MAX_D", MAX_D),
     ("KSPLIT", KSPLIT),
+    ("TILE_WALKERS", consts_layout.TILE_WALKERS),
+    ("PIX_PASS", consts_layout.PIX_PASS),
+    ("SC_STRIDE", consts_layout.SC_STRIDE),
+    ("XS_N", consts_layout.XS_N),
 ])
 def test_header_matches_the_packers(name, value):
-    """The launch vectors and the plain mirror's sum order have the sizes
-    the CUDA header reads them with."""
+    """The launch vectors, the plain mirror's sum order and the host's
+    launch-plan mirror have the sizes the CUDA header reads them with."""
     assert _header_defines()[name] == value
+
+
+def test_half_extra_matches_the_plan_mirror():
+    """The step kernels' own shared memory (csrc/stretch_step.cu), which
+    consts_layout.launch_plan adds to the tile's scratch."""
+    assert (_header_defines("stretch_step.cu")["HALF_EXTRA"]
+            == consts_layout.HALF_EXTRA)
 
 
 @pytest.mark.gpu
@@ -208,3 +222,40 @@ def test_kernel_matches_plain_on_card(sessions):
     fin = np.isfinite(b)
     assert np.array_equal(np.isfinite(a), fin)
     np.testing.assert_allclose(a[fin], b[fin], rtol=RTOL, atol=ATOL)
+
+
+
+def test_chi2_terms_added_in_order():
+    """The plain version adds the squared SZ residuals in order, as one
+    thread of the tile does, bit for bit."""
+    from joxsz_torch.ops.sz_core import seq_sum
+
+    rng = np.random.default_rng(2)
+    x = (rng.standard_normal((3, 40)) ** 2 * 10.0 ** rng.uniform(
+        -2, 4, (3, 40))).astype(np.float32)
+    want = np.zeros(3, np.float32)
+    for i in range(x.shape[1]):
+        want = (want + x[:, i]).astype(np.float32)
+    assert np.array_equal(seq_sum(torch.tensor(x)).numpy(), want)
+
+
+def test_bright_corner_row_within_the_kernels_value(tmp_path):
+    """The nT96 corner (24 annuli x 12 bands, 40 SZ points, seed 52): on
+    its hot row, an SZ chi^2 of 1.8e5, kernel 1 on an H100 80GB HBM3 gave
+    -62150.328125 and the plain version 0.0547 from it while its chi^2
+    terms were summed in torch's order; added in order, as the tile adds
+    them, it stays within the card's 0.05 bar of the kernel."""
+    from joxsz_torch.synth import CORNERS, write_corner
+
+    cfg, _ = write_corner(str(tmp_path), 52, CORNERS["nT96_many_annuli"])
+    sess = build_session(cfg, device="cpu")
+    row = torch.tensor([[-1.8599205017089844, 0.7741472721099854,
+                         1.9451695680618286, 2.990454912185669,
+                         2.9178848266601562, 0.9800000190734863,
+                         0.30642983317375183, 1.5, 1.324729323387146,
+                         4.2608256340026855, 429.7474365234375,
+                         1.0206856727600098, 1.0087056159973145]])
+    plain = float(joint_ll_plain(row, pack_consts(sess))[0])
+    f64 = float(sess.model.log_like_batch(row.double())[0])
+    assert abs(plain - -62150.328125) < 0.05
+    assert abs(plain - f64) < RTOL * abs(f64)
