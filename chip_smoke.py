@@ -161,10 +161,16 @@ the emcee shim — and checks their output.  Phases:
      acceptance statistic in [0.5, 0.98], a finite step size, gradients
      per second;
  22. ``run_sbc`` on the card through kernel 4 (16 replications x W=256,
-     500 + 500 steps, thin 50; its launches join kernel 4's entry): no
-     StackMismatch and no warning, ranks in [0, L], thetas_true bit for
-     bit the host CPU's, the p-values; then ``EnsembleSampler(vectorize=
-     True)`` on the model's ``log_like_batch`` for 200 steps on the card.
+     500 + 500 steps, thin 50, on the JAX SBC test's box; its launches
+     join kernel 4's entry): no StackMismatch and no warning, ranks in
+     [0, L], thetas_true bit for bit the host CPU's, the p-values; kernel
+     4 against its plain step for 5 steps on run_sbc's stack and kernel 1
+     against its plain version at its init state; run_sbc's two float32
+     checks on both boxes (``float32_vetoed``: no draw lost on either;
+     ``float32_misfits`` on 64 replications' mock data), and run_sbc on
+     the production box refused on its mock data; then
+     ``EnsembleSampler(vectorize=True)`` on the model's ``log_like_batch``
+     for 200 steps on the card.
  23. (its kernels right after phase 17's kernels, its CLI run after
      phase 22) the hashed-roll partner law
      ('auto' above 4096 walkers per rung): the step kernel at K=1, W=8192 and K=4 x W=8192 against its plain
@@ -203,11 +209,17 @@ the emcee shim — and checks their output.  Phases:
      where lp passes TIGHT_BELOW), the launch plan the card takes checked
      against the host's mirror (``consts_layout.launch_plan``); the veto
      clouds of ``tests/test_torch_precision.py`` through kernel 1 against
-     the plain float32 version, no flip (a flip printed with its float64
-     verdict); the knots corner written by ``python -m joxsz_torch.synth``
-     and fitted by ``run --config <it> --quick --no-plots`` in a child
-     process (W=1024 x K=4: finite medians, fit.dat, the family instances
-     launched); and each of the 14 compiled instances (``ops._build.
+     the plain float32 version (no flip; a flip printed with its float64
+     verdict) and the float64 model (a flip only at a mass-veto margin
+     below 1e-4, a near-tie float32 cannot resolve); 4096 draws of the
+     production prior box (1024 for knots; a dataset out to 5008 kpc)
+     through kernel 1's flagship and family instances for four families
+     against the float64 model, no row lost (the lost rows printed by
+     cause); the knots corner
+     written by ``python -m joxsz_torch.synth`` and fitted by ``run
+     --config <it> --quick --no-plots`` in a child process (W=1024 x
+     K=4: finite medians, fit.dat, the family instances launched); and
+     each of the 14 compiled instances (``ops._build.
      INSTANCES``) launched at least once over the run.
 
 Prints the kernel JSON line (the six kernels on the flagship's paths,
@@ -218,7 +230,7 @@ line, and as the last line
 when a phase fails or no GPU is visible.  The MLE cache entries the run
 writes (``data/cache/mle_torch_*.json``) are removed at its end.
 
-    python3 chip_smoke.py [--seed N] [--only 13,14,17,23,24,25,26]
+    python3 chip_smoke.py [--seed N] [--only 13,14,17,22,23,24,25,26]
 """
 
 from __future__ import annotations
@@ -315,15 +327,18 @@ ACCEPT_BAND = (0.5, 0.98)
 # defaults: 64 walkers, 2000 + 500, thin 50); the emcee shim's run
 SBC_CUT = (16, 256, 500, 500, 50)
 # phase 22: the box of the JAX package's SBC smoke test on the joint model
-# (tests/test_sbc.py), around the CL J1226 posterior: at the corners of
-# the production box the float32 likelihood of kernels 1 and 4 (and of
-# the JAX package's interpret-mode kernel) overflows where float64 stays
-# finite, so their walkers cannot start there
+# (tests/test_sbc.py), around the CL J1226 posterior.  The float32
+# kernels' mass veto covers the production box too (it forms n_e from ln
+# n_e^2 and compares a scaled mass; the JAX package's interpret-mode
+# kernel does not), but the mock data of its corners pass float32's
+# precision, so run_sbc refuses it (SBC_PROD_REPS replications)
 SBC_BOX = {"log(n_0)": (-1.55, -1.25), r"\beta": (0.58, 0.72),
            "log(r_c)": (1.85, 2.2), "log(r_s)": (2.2, 3.4),
            r"\epsilon": (0.0, 2.0), "log(T_X/T_{SZ})": (-0.2, 0.3),
            "Z": (0.0, 0.6), "P_0": (0.1, 0.4), "a": (0.8, 5.0),
            "b": (2.0, 4.0), "r_p": (110.0, 350.0)}
+SBC_PROD_REPS = 2
+SBC_MOCKS = 64                  # replications float32_misfits checks
 EMCEE_W, EMCEE_STEPS = 64, 200
 # phase 23: walkers per rung where 'auto' takes the roll law, the JAX
 # package's headline width (bench.py), and the steps held against plain
@@ -1525,6 +1540,15 @@ GEOMETRY_FAMILIES = tuple((t, f) for t, f, _, _ in FAMILIES if t != "widest")
 VETO_FAMILIES = (("flagship", ()), ("double", ("--density", "double")),
                  ("knots", ("--pressure", "knots")))
 VETO_SPREADS, VETO_ROWS = (0.1, 0.2), 512
+# phase 26: production-box prior draws through kernel 1 (tests/test_torch_
+# veto_box.py's dataset and families at its seed): (family, run flags,
+# draws); the knots' prior keeps ~0.1% of their box, so they take fewer
+# draws, from larger batches
+VETO_BOX_FAMILIES = (
+    ("flagship", (), 4096), ("double", ("--density", "double"), 4096),
+    ("vikhlinin", ("--temperature", "vikhlinin"), 4096),
+    ("knots", ("--pressure", "knots"), 1024))
+VETO_BOX_MARGIN = 1e-4
 CORNER_FIT = "knots"            # phase 26: the corner fitted through run
 CORNER_FIT_TIMEOUT = 600
 
@@ -1575,13 +1599,16 @@ def phase_veto_clouds(cfg, seed: int) -> int:
     (VETO_ROWS rows at spreads VETO_SPREADS around the synthetic truth,
     ``np.random.default_rng(7)``) for the flagship, double density and
     knots on phase 2's dataset, through kernel 1 against the plain float32
-    version: no flip.  A flip is printed with its float64 verdict (the
-    session's own model) before the check fails.  Returns the rows where
-    both float32 versions veto what float64 keeps."""
+    version (no flip; a flip is printed with its float64 verdict before
+    the check fails) and the float64 model (the session's own): a flip
+    only at a float64 mass-veto margin below VETO_BOX_MARGIN, two masses
+    within float32's rounding of each other.  Returns the rows where both
+    float32 versions veto what float64 keeps."""
     import numpy as np
     import torch
     from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_plain,
                                               pack_consts)
+    from joxsz_torch.sampling.sbc import veto_margins
     from joxsz_torch.synth import truth_theta
 
     n_f64 = 0
@@ -1615,8 +1642,83 @@ def phase_veto_clouds(cfg, seed: int) -> int:
                   f"rows, {p.mean():.3f} finite, 0 flips between kernel 1 "
                   f"and plain f32; rows float64 keeps and both float32 "
                   f"versions veto: {gap.tolist()}")
+            flips64 = np.flatnonzero(k != f)
+            near = np.abs(veto_margins(sess.model, rows[flips64].double()
+                                       .cpu().numpy())) < VETO_BOX_MARGIN
+            check(near.all(), f"[26] {tag} spread {spread}: kernel 1 and "
+                  f"the float64 model differ on rows "
+                  f"{flips64[~near].tolist()} away from the veto's edge")
         del sess, c
     return n_f64
+
+
+def phase_veto_box(tmp: str) -> dict:
+    """Phase 26c: prior draws of the production box (``sample_prior``,
+    ``np.random.default_rng(2)``) on the dataset of ``tests/test_torch_
+    veto_box.py`` (pressure radii 16 to 5008 kpc) through kernel 1, the
+    flagship instance and the family instance, for VETO_BOX_FAMILIES,
+    against the float64 model on the card: no row the float64 model
+    keeps above NEGLIGIBLE_LP is -inf beyond the rows of float64 margin
+    below VETO_BOX_MARGIN.  Lost rows are printed by cause: the mass veto
+    (kernel 1 with the veto off keeps them) or the rest of the
+    likelihood.  Returns {family: (lost, live)}."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from joxsz_torch.ops import _build
+    from joxsz_torch.ops.joint_kernel import joint_ll, pack_consts
+    from joxsz_torch.sampling.priors import model_log_prior, sample_prior
+    from joxsz_torch.sampling.sbc import NEGLIGIBLE_LP, veto_margins
+    from joxsz_torch.synth import write_synthetic_dataset
+
+    base = write_synthetic_dataset(f"{tmp}/veto_box", 3, n_annuli=6,
+                                   n_sz=6, max_radius_arcsec=30.0)
+    out = {}
+    for tag, flags, n in VETO_BOX_FAMILIES:
+        t0 = time.time()
+        sess = family_session(base, flags)
+        m = sess.model
+        knots = "knots" in flags
+        th = sample_prior(model_log_prior(m), m.params, n,
+                          np.random.default_rng(2),
+                          batch=65536 if knots else None,
+                          max_tries=400 if knots else 64)
+        c = pack_consts(sess)
+        rows = torch.as_tensor(th, dtype=torch.float32, device=c.device)
+        before = dict(_build.instance_launches)
+        l32 = joint_ll(rows, c)
+        inst = [k for k, v in _build.instance_launches.items()
+                if v > before[k]]
+        ms = cuda_ms(lambda: joint_ll(rows, c), reps=5)
+        with torch.no_grad():
+            l64 = m.log_like_batch(torch.as_tensor(
+                th, device=c.device)).cpu().numpy()
+        l32 = l32.cpu().numpy()
+        live = l64 > NEGLIGIBLE_LP
+        lost = np.flatnonzero(live & ~np.isfinite(l32))
+        by_veto = small = 0
+        margins = np.zeros(0)
+        if lost.size:
+            off = dataclasses.replace(c, ints={**c.ints, "mass_veto": 0},
+                                      params=None)
+            by_veto = int(np.isfinite(joint_ll(rows[lost], off)
+                                      .cpu().numpy()).sum())
+            margins = veto_margins(sess.model, th[lost])
+            small = int((margins < VETO_BOX_MARGIN).sum())
+        print(f"[26] production box, {tag} ({inst}): {len(th)} draws, "
+              f"{int(live.sum())} kept by float64, {lost.size} of them "
+              f"-inf in kernel 1 ({by_veto} by the mass veto, "
+              f"{lost.size - by_veto} by the rest of the likelihood; "
+              f"{small} at a float64 margin below {VETO_BOX_MARGIN:g}: "
+              f"rows {lost[:8].tolist()}, margins "
+              f"{[float(f'{x:.3g}') for x in margins[:8]]}); "
+              f"kernel 1 on these rows {ms:.4f} ms; {time.time() - t0:.1f} "
+              "s")
+        check(lost.size == small, f"[26] production box, {tag}: kernel 1 "
+              f"loses rows {lost.tolist()} that float64 keeps")
+        out[tag] = (int(lost.size), int(live.sum()))
+        del sess, c
+    return out
 
 
 def corner_cli(kw: dict) -> list:
@@ -1663,7 +1765,7 @@ def corner_fit(path: str):
 
 
 def phase_corner_fit(tmp: str, seed: int) -> dict:
-    """Phase 26c: another cluster fitted end to end: the CORNER_FIT corner
+    """Phase 26d: another cluster fitted end to end: the CORNER_FIT corner
     written by the ``synth`` CLI, then fitted by ``run --config <it>
     --quick --no-plots`` (W=1024 x K=4, the config's production widths)
     in a child process: a posterior table (fit.dat, the summary's finite
@@ -1710,15 +1812,18 @@ def phase_corner_fit(tmp: str, seed: int) -> dict:
 
 def phase_other_clusters(cfg, tmp: str, seed: int, card: str):
     """Phase 26: other clusters' geometries (26a), the veto clouds (26b),
-    a corner fitted end to end (26c), and every compiled instance
-    launched over the run."""
+    the production prior box through kernel 1 (26c), a corner fitted end
+    to end (26d), and every compiled instance launched over the run."""
     t0 = time.time()
     phase_geometries(seed)
     n_f64 = phase_veto_clouds(cfg, seed)
+    box = phase_veto_box(tmp)
     phase_corner_fit(tmp, seed)
     check_instances(card)
     print(f"[26] phase 26 in {time.time() - t0:.1f} s ({n_f64} cloud rows "
-          f"vetoed by both float32 versions and kept by float64) on {card}")
+          f"vetoed by both float32 versions and kept by float64; "
+          f"production-box rows lost of those float64 keeps: {box}) on "
+          f"{card}")
 
 
 def check_instances(card: str):
@@ -2753,72 +2858,22 @@ def phase_gradient_samplers(cfg, res5, seed: int):
               f"|median - phase 5's| {pull.max():.2f} sd")
 
 
-def phase_sbc(cfg, seed: int, err8: float) -> tuple[int, float, float]:
-    """Phase 22: ``run_sbc`` on the card (SBC_CUT replications, walkers,
-    burn + steps, thin; the prior box SBC_BOX) through kernel 4, its
-    launch counter set to 0 just before: launches > 0, no StackMismatch
-    and no warning, ranks in [0, L], thetas_true bit for bit the host
-    CPU's for the same seed;
-    then kernel 4 against its plain step for STEPS_CMP_MC steps on the
-    constants stack ``run_sbc`` packs (C=16, W=256) from its init state,
-    the stored lp against a fresh kernel-1 evaluation, and kernel 1
-    against its plain version at that init state; the float32 check
-    of ``run_sbc`` on kernel 1: SBC_BOX passes, the production box is
-    refused;
-    then ``EnsembleSampler(vectorize=True)`` on the card on the model's
-    ``log_like_batch``, 200 steps.  Returns kernel 4's launches, its
-    largest lp error against the plain step here and kernel 1's against
-    its plain version."""
-    import warnings
+def sbc_stack_check(sess, res, C: int, W: int, seed: int, err8: float,
+                    box: str) -> tuple[float, float]:
+    """Kernel 4 against its plain step for STEPS_CMP_MC steps on the
+    constants stack ``run_sbc`` packed for ``res`` (C clusters, W walkers)
+    from its init state, the stored lp against a fresh kernel-1
+    evaluation, and kernel 1 against its plain version at that init
+    state.  Returns kernel 4's largest lp error against the plain step
+    and kernel 1's against its plain version."""
     import numpy as np
     import torch
-    from joxsz_torch.build import build_session
-    from joxsz_torch.emcee_compat import EnsembleSampler
     from joxsz_torch.ops.joint_kernel import pack_consts_stack
     from joxsz_torch.ops.multicluster_kernel import (multicluster_ll,
                                                      multicluster_ll_plain)
     from joxsz_torch.sampling.batched import batched_init
-    from joxsz_torch.sampling.priors import model_log_prior, sample_prior
-    from joxsz_torch.sampling.sbc import (F32_CHECK_DRAWS, float32_vetoed,
-                                          prior_truths, run_sbc, sbc_mocks)
-    from joxsz_torch.synth import truth_theta
+    from joxsz_torch.sampling.sbc import sbc_mocks
 
-    def boxed(dev):
-        sess = build_session(cfg, device=dev)
-        p = sess.params
-        for name, (lo, hi) in SBC_BOX.items():
-            p[name].minval, p[name].maxval = lo, hi
-        p._refresh()
-        return sess
-
-    C, W, n_burn, n_steps, thin = SBC_CUT
-    sess = boxed("cuda")
-    on_card(sess.model.sz_data.L, "the SBC session")
-    zero_launches()
-    t0 = time.time()
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")
-        res = run_sbc(sess, C, n_walkers=W, n_burn=n_burn, n_steps=n_steps,
-                      thin=thin, seed=seed)
-    secs = time.time() - t0
-    launches = read_launches()
-    k4 = launches["stretch_steps_multicluster"]
-    check(k4 > 0 and launches["joint_ll"] > 0,
-          f"run_sbc did not run on kernel 4: {launches}")
-    L = (n_steps // thin) * W
-    check(res.n_draws == L and res.ranks.min() >= 0
-          and res.ranks.max() <= L, f"ranks outside [0, {L}]")
-    truths = prior_truths(boxed("cpu").model, C, np.random.default_rng(seed))
-    check(np.array_equal(truths, res.thetas_true),
-          "thetas_true on the card differ from the host CPU's")
-    print(f"[22] run_sbc (cut: C={C} replications x W={W}, {n_burn} burn + "
-          f"{n_steps} steps, thin {thin}, the prior box of SBC_BOX; L={L}) "
-          f"in {secs:.1f} s: launches "
-          f"{launches}, acceptance {res.acceptance.mean():.3f}, "
-          f"thetas_true == the CPU's; p-values "
-          f"{dict(zip(res.names, np.round(res.p_values, 3).tolist()))}")
-
-    # kernel 4 against its plain step on run_sbc's own stack and init
     thetas, survey = sbc_mocks(sess.model, C, seed)
     check(np.array_equal(thetas, res.thetas_true),
           "sbc_mocks draws other truths than run_sbc")
@@ -2834,14 +2889,15 @@ def phase_sbc(cfg, seed: int, err8: float) -> tuple[int, float, float]:
     # within TIGHT_ATOL below TIGHT_BELOW, within TIGHT_RTOL above
     plain = multicluster_ll_plain(x, stack)
     check(torch.equal(torch.isfinite(lp), torch.isfinite(plain))
-          and bool(torch.isfinite(lp).all()), "SBC init: kernel 1's -inf "
-          "mask differs from the plain version's, or a walker is vetoed")
+          and bool(torch.isfinite(lp).all()), f"SBC init ({box}): kernel "
+          "1's -inf mask differs from the plain version's, or a walker is "
+          "vetoed")
     gap = (lp - plain).abs()
     err1 = float(gap.max())
     lim = torch.clamp(TIGHT_RTOL * plain.abs(), min=TIGHT_ATOL)
     worst = int(torch.argmax(gap / lim))
-    check(bool((gap <= lim).all()), f"SBC init: kernel 1 vs plain f32: "
-          f"|err| {float(gap.flatten()[worst])} at lp "
+    check(bool((gap <= lim).all()), f"SBC init ({box}): kernel 1 vs plain "
+          f"f32: |err| {float(gap.flatten()[worst])} at lp "
           f"{float(plain.flatten()[worst])} over max({TIGHT_ATOL}, "
           f"{TIGHT_RTOL:.1e} |lp|)")
     # a threshold holds two log-posteriors, each up to the cluster's peak
@@ -2853,11 +2909,11 @@ def phase_sbc(cfg, seed: int, err8: float) -> tuple[int, float, float]:
     acc = torch.zeros((C, W), dtype=torch.float32, device=x.device)
     x, lp, acc, n_dec, n_near, err = compare_cluster_grid(
         x, lp, acc, stack, 2 * seed + 1, STEPS_CMP_MC, tol)
-    check(torch.equal(multicluster_ll(x, stack), lp), "SBC stack: stored lp "
-          "differs from a fresh kernel-1 evaluation on each cluster's "
-          "constants")
-    print(f"[22] kernel 4 on run_sbc's stack (C={C}, W={W}, its init "
-          f"state, the burn's seed): {STEPS_CMP_MC} steps, {n_dec} "
+    check(torch.equal(multicluster_ll(x, stack), lp), f"SBC stack ({box}): "
+          "stored lp differs from a fresh kernel-1 evaluation on each "
+          "cluster's constants")
+    print(f"[22] kernel 4 on run_sbc's stack ({box}; C={C}, W={W}, its "
+          f"init state, the burn's seed): {STEPS_CMP_MC} steps, {n_dec} "
           f"half-step decisions, {n_near} steps where a decision within "
           f"{MARGIN} of its threshold went the other way; max |lp err| "
           f"{err:.4g} (phase 8, C={C_SURVEY}, W={W_SMOKE}: {err8:.4g}); "
@@ -2865,24 +2921,107 @@ def phase_sbc(cfg, seed: int, err8: float) -> tuple[int, float, float]:
           f"{float(tol.min()):.3g}-{float(tol.max()):.3g}; kernel 1 at the "
           f"init state ({C} x {W} rows, lp {float(plain.min()):.6g} to "
           f"{float(plain.max()):.6g}) vs plain f32: max |err| {err1:.4g}")
+    return err, err1
 
-    # run_sbc's float32 check on kernel 1
-    check_draws = sample_prior(model_log_prior(sess.model), sess.params,
-                               F32_CHECK_DRAWS,
-                               np.random.default_rng(seed + 2))
-    lost, live = float32_vetoed(sess, check_draws)
-    prod = build_session(cfg, device="cuda")
+
+def phase_sbc(cfg, seed: int, err8: float) -> tuple[int, float, float]:
+    """Phase 22: ``run_sbc`` on the card (SBC_CUT replications, walkers,
+    burn + steps, thin; the prior box SBC_BOX) through kernel 4, its
+    launch counter set to 0 just before: launches > 0, no StackMismatch
+    and no warning, ranks in [0, L], thetas_true bit for bit the host
+    CPU's for the same seed; then ``sbc_stack_check`` on its stack; the
+    float32 checks of ``run_sbc`` on kernel 1 for SBC_BOX and the
+    production box: ``float32_vetoed`` within F32_VETO_TOLERANCE on both,
+    and ``float32_misfits`` on SBC_MOCKS replications, none for SBC_BOX
+    and printed for both; run_sbc
+    on the production box (SBC_PROD_REPS replications) refused on its
+    mock data, not on the veto;
+    then ``EnsembleSampler(vectorize=True)`` on the card on the model's
+    ``log_like_batch``, 200 steps.  Returns kernel 4's launches, its
+    largest lp error against the plain step here and kernel 1's against
+    its plain version."""
+    import warnings
+    import numpy as np
+    import torch
+    from joxsz_torch.build import build_session
+    from joxsz_torch.emcee_compat import EnsembleSampler
+    from joxsz_torch.sampling.priors import model_log_prior, sample_prior
+    from joxsz_torch.sampling.sbc import (F32_CHECK_DRAWS, F32_MOCK_ATOL,
+                                          F32_MOCK_RTOL, F32_VETO_TOLERANCE,
+                                          float32_misfits, float32_vetoed,
+                                          prior_truths, run_sbc, sbc_mocks)
+    from joxsz_torch.synth import truth_theta
+
+    def session(dev, box):
+        sess = build_session(cfg, device=dev)
+        p = sess.params
+        for name, (lo, hi) in box.items():
+            p[name].minval, p[name].maxval = lo, hi
+        p._refresh()
+        return sess
+
+    C, W, n_burn, n_steps, thin = SBC_CUT
+    sess = session("cuda", SBC_BOX)
+    on_card(sess.model.sz_data.L, "the SBC session")
+    zero_launches()
+    t0 = time.time()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        res = run_sbc(sess, C, n_walkers=W, n_burn=n_burn, n_steps=n_steps,
+                      thin=thin, seed=seed)
+    secs = time.time() - t0
+    launches = read_launches()
+    k4 = launches["stretch_steps_multicluster"]
+    check(k4 > 0 and launches["joint_ll"] > 0,
+          f"run_sbc did not run on kernel 4: {launches}")
+    L = (n_steps // thin) * W
+    check(res.n_draws == L and res.ranks.min() >= 0
+          and res.ranks.max() <= L, f"ranks outside [0, {L}]")
+    truths = prior_truths(session("cpu", SBC_BOX).model, C,
+                          np.random.default_rng(seed))
+    check(np.array_equal(truths, res.thetas_true),
+          "thetas_true on the card differ from the host CPU's")
+    print(f"[22] run_sbc (cut: C={C} replications x W={W}, {n_burn} burn + "
+          f"{n_steps} steps, thin {thin}, the prior box of SBC_BOX; L={L}) "
+          f"in {secs:.1f} s: launches "
+          f"{launches}, acceptance {res.acceptance.mean():.3f}, "
+          f"thetas_true == the CPU's; p-values "
+          f"{dict(zip(res.names, np.round(res.p_values, 3).tolist()))}")
+    err, err1 = sbc_stack_check(sess, res, C, W, seed, err8, "SBC_BOX")
+
+    # run_sbc's float32 checks on kernel 1, on both boxes: the mass veto
+    # keeps every draw of either box that float64 keeps; the production
+    # box's mock data pass float32's range, and run_sbc refuses it there
+    prod = session("cuda", {})
+    for tag, s_ in (("SBC_BOX", sess), ("the production box", prod)):
+        draws = sample_prior(model_log_prior(s_.model), s_.params,
+                             F32_CHECK_DRAWS, np.random.default_rng(seed + 2))
+        lost, live = float32_vetoed(s_, draws)
+        thetas, survey = sbc_mocks(s_.model, SBC_MOCKS, seed)
+        bad, n = float32_misfits(s_, thetas, survey)
+        print(f"[22] float32 checks on kernel 1 ({tag}): {lost} of {live} "
+              f"prior draws float64 keeps are -inf; the mock data of {bad} "
+              f"of {n} replications misfit (-inf, or off float64 at the "
+              f"truth by more than {F32_MOCK_RTOL:g} |lp| + "
+              f"{F32_MOCK_ATOL:g})")
+        check(lost <= F32_VETO_TOLERANCE * live, f"kernel 1 loses {lost} "
+              f"of {live} draws of {tag} that float64 keeps")
+        check(tag != "SBC_BOX" or bad == 0, f"the mock data of {bad} of {n} "
+              f"replications of SBC_BOX misfit in float32")
+    check(bad > F32_VETO_TOLERANCE * n, "the production box's mock data "
+          "fit in float32")
     try:
-        run_sbc(prod, 2, n_walkers=W, n_burn=0, n_steps=thin, thin=thin,
-                seed=seed)
+        run_sbc(prod, SBC_PROD_REPS, n_walkers=W, n_burn=0, n_steps=thin,
+                thin=thin, seed=seed)
     except ValueError as e:
         refused = str(e)
     else:
         refused = None
-    check(refused is not None and "float32" in refused,
-          "run_sbc on the card took the production prior box")
-    print(f"[22] float32 check on kernel 1: SBC_BOX {lost} of {live} draws "
-          f"lost; the production box refused: {refused}")
+    check(refused is not None and "mock data" in refused,
+          f"run_sbc on the card took the production prior box: {refused}")
+    print(f"[22] run_sbc on the production box ({SBC_PROD_REPS} "
+          f"replications) passes the veto check and is refused on its mock "
+          f"data: {refused}")
 
     W_e = EMCEE_W
     seen = set()
@@ -3730,8 +3869,8 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches",
 
 
 def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
-    """``--only``: phases 13, 14, 17 (its kernel checks), 23, 24, 25 and /
-    or 26 on phase 2's dataset, written as phase 5 writes its config; the
+    """``--only``: phases 13, 14, 17 (its kernel checks), 22, 23, 24, 25
+    and / or 26 on phase 2's dataset, written as phase 5 writes its config; the
     kernels line holds phase 23's rows only."""
     import torch
     from joxsz_torch.config import JoXSZConfig, MCMCConfig
@@ -3750,6 +3889,8 @@ def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
         phase_families(cfg5, seed)
     if 17 in phases:
         phase_cluster_grid_families(cfg5, seed)
+    if 22 in phases:
+        phase_sbc(cfg5, seed, float("nan"))
     if 23 in phases:
         rows += list(phase_roll_cli(path, phase_roll_kernels(cfg5, seed))
                      [:2])
@@ -3771,11 +3912,11 @@ def only_phases(which: str, cfg, tmp: str, seed: int, card: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=11)
-    ap.add_argument("--only", metavar="13,14,17,23,24,25,26",
+    ap.add_argument("--only", metavar="13,14,17,22,23,24,25,26",
                     help="run phases 1-2, then only these of phases 13, "
-                         "14, 17 (its kernel checks), 23, 24, 25 and 26 (a "
-                         "quick check of a change; the full run is the "
-                         "check)")
+                         "14, 17 (its kernel checks), 22, 23, 24, 25 and "
+                         "26 (a quick check of a change; the full run is "
+                         "the check)")
     ap.add_argument("--family-fit", help=argparse.SUPPRESS)
     ap.add_argument("--coupled-worker", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--corner-fit", help=argparse.SUPPRESS)

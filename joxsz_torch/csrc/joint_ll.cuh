@@ -20,7 +20,20 @@
 // FP32 products, never a tensor-core product (a reduced-precision product
 // there feeds exp and chi^2); its mass veto reads one point per segment.
 // Arithmetic follows ll_body step for step in float32 (the plain torch
-// mirror is ops/joint_kernel.py::joint_ll_plain).
+// mirror is ops/joint_kernel.py::joint_ll_plain), except where ll_body's
+// float32 form leaves float32's range at the corners of the prior box:
+//   * n_e: ln n_e^2 is formed beside n_e^2; where a factor of n_e^2 is not
+//     a normal float (n_e < ~1e-19 cm^-3 at the outer radii), 1/n_e and
+//     P/n_e come from ln n_e^2 (dens_of, over_ne);
+//   * the mass veto compares the HSE mass scaled by n_0 / |P_0| (by n_0
+//     for knot pressure) and rid of its constant factor, which keeps the
+//     order of the masses: (P / P_0) r g n_0 / n_e as a product; for a
+//     walker one of whose radii has n_e^2 not normal (knots: one of whose
+//     masses the product takes past float32's range) as sgn ln(1 + |M|)
+//     from ln |M| (signed_log_mass), which stays finite where ll_body's
+//     mass passes 3.4e38.  Such a walker's radii run a second pass.  Two
+//     masses within float32's rounding of each other are still compared
+//     in float32, as ll_body compares them.
 //
 // Layout: one block of JT_THREADS threads evaluates TILE_WALKERS walkers.
 // The whole packed constants buffer (~128 KB at the CL J1226 shapes, L^T
@@ -73,7 +86,7 @@
 #define N_ROLES 24
 #define N_ARRAYS 28
 #define N_INTS 17
-#define N_FLOATS 7
+#define N_FLOATS 6
 #define PPW 8                          // walkers of one warp's register tile
 #define KSPLIT (JT_WARPS * PPW / TILE_WALKERS)   // k chunks of pp @ L^T
 #define PIX_LANE 3                     // map radii per lane: lane + 32 j
@@ -82,6 +95,8 @@
 #define XS_N 6                         // X-ray tap slots per (walker, shell)
 #define GT_CHUNK 10                    // data points per pass of prof @ G^T
 #define PROJ_CHUNK 8                   // annuli per pass of the projection
+// exp(x) is a normal float above this (ln FLT_MIN = -87.34)
+#define LN_NORMAL (-87.0f)
 
 
 // Phase clocks of the tile (scripts/torch_tile_phases.py builds with
@@ -132,7 +147,7 @@ struct LLConsts {
   int n_press, sep, n_pix, n_data, n_sh, n_ann, n_band, nT, n_conv, D,
       mass_veto, p_fam, t_fam, d_fam, n_knots, has_xray, has_ls;
   int cix[N_ROLES];
-  float c_gnfw, alpha, gamma, mass_C, t0g, inv_dtg, pos_hi;
+  float c_gnfw, alpha, gamma, t0g, inv_dtg, pos_hi;
 };
 
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
@@ -156,8 +171,8 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
   for (int i = 0; i < N_INTS; ++i) *ints[i] = iv[i];
   for (int i = 0; i < N_ROLES; ++i) c.cix[i] = iv[N_INTS + i];
   for (int i = 0; i < N_ARRAYS; ++i) c.off[i] = iv[N_INTS + N_ROLES + i];
-  float* fl[N_FLOATS] = {&c.c_gnfw, &c.alpha, &c.gamma, &c.mass_C, &c.t0g,
-                         &c.inv_dtg, &c.pos_hi};
+  float* fl[N_FLOATS] = {&c.c_gnfw, &c.alpha, &c.gamma, &c.t0g, &c.inv_dtg,
+                         &c.pos_hi};
   for (int i = 0; i < N_FLOATS; ++i) *fl[i] = fv[i];
   c.buf = buf;
   c.ws = nullptr;
@@ -307,30 +322,69 @@ enum Scal { S_P0, S_A, S_BCA, S_LNRP, S_BMC, S_N0SQ, S_RCI, S_RSI, S_EC,
             S_N02SQ, S_RC2I, S_E2, N_SCAL };
 static_assert(N_SCAL <= SC_STRIDE, "scalar slots");
 
-// The profile scalars of one walker, in registers.
+// The profile scalars of one walker, in registers: lnn0sq = ln n_0^2.
 struct Prof {
-  float p0, a, bca, lnrp, bmc, n0sq, rci, rsi, ec, es;
+  float p0, a, bca, lnrp, bmc, n0sq, rci, rsi, ec, es, lnn0sq;
 };
 __device__ __forceinline__ Prof load_prof(const float* s) {
   return Prof{s[S_P0], s[S_A], s[S_BCA], s[S_LNRP], s[S_BMC], s[S_N0SQ],
-              s[S_RCI], s[S_RSI], s[S_EC], s[S_ES]};
+              s[S_RCI], s[S_RSI], s[S_EC], s[S_ES], logf(s[S_N0SQ])};
 }
 
-// ne^2 at r; scw: the walker's scalar slots (the double mode's term)
+// The density at one radius: ne2 = n_e^2 as a product of exponentials (as
+// ll_body forms it), q = ln(n_e^2 / n_0^2) and lnne2 = ln n_e^2 beside
+// it, normal: every factor of the product is a normal float, and inv =
+// rsqrt(ne2), which is 1/n_e where normal (else exp(-lnne2 / 2) is:
+// over_ne).
+struct Dens { float ne2, q, lnne2, inv; bool normal; };
+
+// The density at r; scw: the walker's scalar slots (the double mode's
+// term)
 template <bool FAM>
-__device__ __forceinline__ float ne2_of(const LLConsts& c, const Prof& s,
+__device__ __forceinline__ Dens dens_of(const LLConsts& c, const Prof& s,
                                         const float* scw, float r) {
   float xc = r * s.rci;
   float xs = r * s.rsi;
   float xs_g = (c.gamma == 3.0f) ? xs * xs * xs : powf(xs, c.gamma);
-  float ne2 = s.n0sq * expf(-s.ec * log1pf(xc * xc) - s.es * log1pf(xs_g));
-  if (c.alpha != 0.0f) ne2 = ne2 * powf(xc, -c.alpha);
-  if (FAM && c.d_fam == D_DOUBLE) {
-    // the beta-model term n02^2 (1 + (r/rc2)^2)^(-3 beta2)
-    const float x2 = r * scw[S_RC2I];
-    ne2 = ne2 + scw[S_N02SQ] * expf(scw[S_E2] * log1pf(x2 * x2));
+  Dens d;
+  d.q = -s.ec * log1pf(xc * xc) - s.es * log1pf(xs_g);
+  d.ne2 = s.n0sq * expf(d.q);
+  d.normal = d.q > LN_NORMAL && s.lnn0sq + d.q > LN_NORMAL;
+  if (c.alpha != 0.0f) {
+    d.ne2 = d.ne2 * powf(xc, -c.alpha);
+    d.q = d.q - c.alpha * logf(xc);
   }
-  return ne2;
+  if (FAM && c.d_fam == D_DOUBLE) {
+    // the beta-model term n02^2 (1 + (r/rc2)^2)^(-3 beta2), and q by a
+    // log-add-exp
+    const float x2 = r * scw[S_RC2I];
+    const float q2 = scw[S_E2] * log1pf(x2 * x2);
+    d.ne2 = d.ne2 + scw[S_N02SQ] * expf(q2);
+    const float ln02 = logf(scw[S_N02SQ]);
+    const float d2 = (ln02 - s.lnn0sq) + q2;
+    const float hi = fmaxf(d.q, d2), lo = fminf(d.q, d2);
+    d.q = hi + log1pf(expf(lo - hi));
+    d.normal = d.normal && q2 > LN_NORMAL && ln02 + q2 > LN_NORMAL;
+  }
+  d.lnne2 = s.lnn0sq + d.q;
+  d.normal = d.normal && d.lnne2 > LN_NORMAL;
+  d.inv = rsqrtf(d.ne2);
+  return d;
+}
+
+template <bool B> struct BoolC { static constexpr bool value = B; };
+
+// A mass m = sgn exp(lm) as sgn softplus(lm) = sgn ln(1 + |m|): strictly
+// increasing in m, so it orders the masses as m does, and finite where
+// exp(lm) would pass float32's range.
+__device__ __forceinline__ float signed_log_mass(float lm, float sgn) {
+  return sgn * (fmaxf(lm, 0.0f) + log1pf(expf(-fabsf(lm))));
+}
+
+// p / n_e: p x 1/n_e where n_e^2 is normal, else exp(ln p - ln n_e^2 / 2),
+// which stays finite where 1/n_e alone would pass float32's range
+__device__ __forceinline__ float over_ne(float p, const Dens& d) {
+  return d.normal ? p * d.inv : expf(logf(p) - 0.5f * d.lnne2);
 }
 
 // The Vikhlinin temperature at r (b_t = 2): T0 (x^ac + Tmin/T0) / (x^ac +
@@ -361,13 +415,19 @@ __device__ __forceinline__ float knot_log10(const float* kt, const float* v,
   return __fmaf_rn(v[i + 1], kt[w1], __fmul_rn(v[i], kt[w0]));
 }
 
+// The gNFW pressure at ln r, with ln(1 + x^a), lnp = ln(P / P_0) and
+// rel = P / P_0.
 __device__ __forceinline__ float gnfw_press(const LLConsts& c, const Prof& s,
-                                            float lnr, float* ln1xa_out) {
+                                            float lnr, float* ln1xa_out,
+                                            float* lnp_out, float* rel_out) {
   float lnx = lnr - s.lnrp;
   float za = s.a * lnx;
   float ln1xa = fmaxf(za, 0.0f) + log1pf(expf(-fabsf(za)));
   *ln1xa_out = ln1xa;
-  return s.p0 * expf(-c.c_gnfw * lnx - s.bca * ln1xa);
+  const float lnp = -c.c_gnfw * lnx - s.bca * ln1xa;
+  *lnp_out = lnp;
+  *rel_out = expf(lnp);
+  return s.p0 * *rel_out;
 }
 
 // The SZ chain of a tile: raw = pp @ L^T, the temperature-dependent y->mJy
@@ -664,28 +724,54 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
     const float* scw = sc + w * SC_STRIDE;
     const float* kv = th + w * MAX_D + c.cix[R_KC0];
     const Prof s = load_prof(scw);
-    float t0s = 0.f, is = 0.f;
-    for (int k = tid / WT; k < NP; k += kstep) {
-      const float rk = r[k];
-      float P;
-      const float ne = rsqrtf(ne2_of<FAM>(c, s, scw, rk));
-      if (FAM && c.p_fam == P_KNOTS) {
-        P = expf(LN10F * knot_log10(KG + 3 * k, kv));
-      } else {
-        float x;
-        P = gnfw_press(c, s, lnr[k], &x);
-        const float f = 1.0f - expf(-x);
-        mm[w * NP + k] = P * rk * (c.c_gnfw + s.bmc * f) * ne * c.mass_C;
+    const float sgn = (float)((s.p0 > 0.0f) - (s.p0 < 0.0f));
+    const float sn0 = sgn * sqrtf(s.n0sq);
+    float t0s, is;
+    // the thread's radii on the product forms (ll_body's); then, for a
+    // walker one of whose radii has n_e^2 not normal, its radii again on
+    // the log forms: the mass as signed_log_mass, P / n_e by over_ne (a
+    // rare branch, where a select would have the log forms evaluated
+    // always)
+    auto radii = [&](auto logs_t) {
+      constexpr bool LOGS = decltype(logs_t)::value;
+      bool slow = false;
+      t0s = 0.f;
+      is = 0.f;
+      for (int k = tid / WT; k < NP; k += kstep) {
+        const float rk = r[k];
+        float P;
+        const Dens dn = dens_of<FAM>(c, s, scw, rk);
+        slow = slow | !dn.normal;
+        if (FAM && c.p_fam == P_KNOTS) {
+          P = expf(LN10F * knot_log10(KG + 3 * k, kv));
+        } else {
+          float x, lnp, rel;
+          P = gnfw_press(c, s, lnr[k], &x, &lnp, &rel);
+          const float f = 1.0f - expf(-x);
+          const float g = c.c_gnfw + s.bmc * f;
+          // (P / P_0) r g (1 / n_e) n_0 sign(P_0)
+          mm[w * NP + k] =
+              LOGS ? signed_log_mass(lnr[k] + logf(fabsf(g)) + lnp
+                                         - 0.5f * dn.q,
+                                     sgn * (float)((g > 0.0f) - (g < 0.0f)))
+                   : rel * rk * g * dn.inv * sn0;
+        }
+        pressT[k * WT + w] = P;
+        is = __fmaf_rn(P, wint[k], is);
+        if (k < c.sep) {
+          const float tz = (FAM && c.t_fam == T_VIKH) ? vikh_T(scw, rk)
+                           : LOGS                     ? over_ne(P, dn)
+                                                      : P * dn.inv;
+          tsz[w * TS + k] = tz;
+          t0s = __fmaf_rn(tz, wT0[k], t0s);
+        }
       }
-      pressT[k * WT + w] = P;
-      is = __fmaf_rn(P, wint[k], is);
-      if (k < c.sep) {
-        const float tz = (FAM && c.t_fam == T_VIKH) ? vikh_T(scw, rk)
-                                                    : P * ne;
-        tsz[w * TS + k] = tz;
-        t0s = __fmaf_rn(tz, wT0[k], t0s);
-      }
-    }
+      return slow;
+    };
+    // flags[2 w] bit 2: walker w's masses on the log form
+    const bool slow = radii(BoolC<false>{});
+    if (slow) atomicOr(flags + 2 * w, 2);
+    if (__syncthreads_or(slow) && (flags[2 * w] & 2)) radii(BoolC<true>{});
     // the 32 threads of walker w: lanes w and w + 16 of every warp
     t0s += __shfl_xor_sync(0xffffffffu, t0s, 16);
     is += __shfl_xor_sync(0xffffffffu, is, 16);
@@ -699,8 +785,8 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
 
   // ---- mass veto; T(0) and integrated Y summed over the warps in order ---
   if (FAM && c.mass_veto && c.p_fam == P_KNOTS) {
-    // the segment-averaged mass at one log-midpoint per segment: M = -P
-    // slope r / ne C, strictly increasing and ending positive
+    // the segment-averaged mass at one log-midpoint per segment, M = -P
+    // slope r / ne C scaled by n_0 C: strictly increasing, ending positive
     const int NM = c.n_knots - 1;
     const float* KV = st + c.off[A_KV];
     for (int idx = tid; idx < WT * NM; idx += nth) {
@@ -708,18 +794,28 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       const float* scw = sc + w * SC_STRIDE;
       const float* kv = th + w * MAX_D + c.cix[R_KC0];
       const float* row = KV + 6 * j;
-      const float pm = expf(LN10F * knot_log10(row, kv));
+      const float lnpm = LN10F * knot_log10(row, kv);
       const float sl = knot_log10(row, kv, 3, 4);
       const float rm = row[5];
-      mm[idx] = -pm * sl * rm
-                * rsqrtf(ne2_of<FAM>(c, load_prof(scw), scw, rm)) * c.mass_C;
+      const Prof s = load_prof(scw);
+      const float lpn = lnpm - 0.5f * dens_of<FAM>(c, s, scw, rm).q;
+      mm[idx] = -sl * rm * expf(lpn);
+      const float sgn = (float)((sl < 0.0f) - (sl > 0.0f));
+      mm[WT * NM + idx] =
+          signed_log_mass(logf(fabsf(sl)) + logf(rm) + lpn, sgn);
     }
     __syncthreads();
     if (tid < WT) {
+      // the product form, or the signed log form for a walker one of
+      // whose masses the product form takes past float32's range
       const float* m = mm + tid * NM;
+      bool wide = false;
+      for (int j = 0; j < NM; ++j)
+        wide = wide | !(isfinite(m[j]) && m[j] != 0.0f);
+      if (wide) m = mm + WT * NM + tid * NM;
       bool bad = !(m[NM - 1] > 0.0f);
       for (int j = 0; j + 1 < NM; ++j) bad = bad | !(m[j + 1] > m[j]);
-      if (bad) flags[2 * tid] = 1;
+      if (bad) atomicOr(flags + 2 * tid, 1);
     }
   } else if (c.mass_veto) {
     // np.gradient(m) > 0: central differences inside, one-sided at the
@@ -732,7 +828,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       const int lo = k == 0 ? 0 : k - 1, hi = k == NP - 1 ? NP - 1 : k + 1;
       bad = bad | !(m[hi] > m[lo]);
     }
-    if (bad) flags[2 * w] = 1;
+    if (bad) atomicOr(flags + 2 * w, 1);
   }
   if (tid < WT) {
     float t0s = 0.f, is = 0.f;
@@ -767,7 +863,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       const Prof s = load_prof(scw);
       float Tm, n2;
       if (FAM && c.t_fam == T_VIKH) {
-        n2 = ne2_of<FAM>(c, s, scw, midr[j]);
+        n2 = dens_of<FAM>(c, s, scw, midr[j]).ne2;
         Tm = vikh_T(scw, midr[j]);
       } else {
         float pm;
@@ -775,11 +871,12 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
           pm = expf(LN10F * knot_log10(KM + 3 * j,
                                        th + w * MAX_D + c.cix[R_KC0]));
         } else {
-          float x1;
-          pm = gnfw_press(c, s, lnmid[j], &x1);
+          float x1, l1, e1;
+          pm = gnfw_press(c, s, lnmid[j], &x1, &l1, &e1);
         }
-        n2 = ne2_of<FAM>(c, s, scw, midr[j]);
-        Tm = pm * rsqrtf(n2) * scw[S_TTX];
+        const Dens dn = dens_of<FAM>(c, s, scw, midr[j]);
+        n2 = dn.ne2;
+        Tm = over_ne(pm, dn) * scw[S_TTX];
       }
       float tl = logf(nanmax_f(Tm, 1e-30f));
       float pos = (tl - c.t0g) * c.inv_dtg;
@@ -886,7 +983,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   if (tid < WT) {
     const float* s = sc + tid * SC_STRIDE;
     float total = s[S_TOTAL];
-    if (flags[2 * tid]) total = -INF;
+    if (flags[2 * tid] & 1) total = -INF;
     total = total - 0.5f * s[S_CHI2];
     float di = s[S_INTEG] - st[c.off[A_MUI]];
     total = total - 0.5f * di * di;

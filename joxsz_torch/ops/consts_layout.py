@@ -41,7 +41,7 @@ ARRAYS = ("r", "lnr", "LT", "GT", "flux", "wres", "wT0", "wint", "midr",
 INTS = ("n_press", "sep", "n_pix", "n_data", "n_sh", "n_ann", "n_band",
         "nT", "n_conv", "D", "mass_veto", "p_fam", "t_fam", "d_fam",
         "n_knots", "has_xray", "has_ls")
-FLOATS = ("c_gnfw", "alpha", "gamma", "mass_C", "t0g", "inv_dtg", "pos_hi")
+FLOATS = ("c_gnfw", "alpha", "gamma", "t0g", "inv_dtg", "pos_hi")
 
 # the tile's sizes (the #defines of csrc/joint_ll.cuh; HALF_EXTRA of
 # csrc/stretch_step.cu): walkers a tile, parameters a row, k chunks of

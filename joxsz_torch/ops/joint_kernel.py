@@ -46,7 +46,12 @@ FMAs.  What bounds it on the card: operations (~84 k a walker against
 
 ``joint_ll_plain`` is the same arithmetic in plain torch float32 (the
 mirror of ``ll_body``); the wrapper ``joint_ll`` runs it only for a CPU
-tensor and launches the kernel for a CUDA tensor.
+tensor and launches the kernel for a CUDA tensor.  Where ``ll_body``'s
+float32 form leaves float32's range at the corners of the prior box, both
+take 1/n_e and P/n_e from ln n_e^2 where n_e^2 is not a normal float, and
+the mass veto compares the mass scaled by n_0 / |P_0| and rid of its
+constant factor: a product, or a signed logarithm for a row one of whose
+radii has n_e^2 not normal.
 """
 
 from __future__ import annotations
@@ -56,13 +61,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import constants as K
 from .consts_layout import (MAX_D, ROLES, LaunchParams, P_KNOTS, T_VIKH,
                             D_DOUBLE, check_conv_table, detect_family,
                             knot_table, pack_arrays)
 from .sz_core import conv_slopes, sz_chain_plain, sz_padded_data
 
 LN10 = float(np.log(10.0))
+# exp(x) is a normal float32 above this (ln FLT_MIN = -87.34)
+LN_NORMAL = -87.0
 
 
 class StackMismatch(ValueError):
@@ -200,9 +206,6 @@ def _session_spec(sess) -> dict:
     floats = dict(c_gnfw=float(p["c"].val) if "c" in p else 0.0,
                   alpha=float(p[r"\alpha"].val),
                   gamma=float(p[r"\gamma"].val),
-                  mass_C=float(K.keV_erg * K.kpc_cm
-                               / (K.mu_gas * K.mu_g * K.G_cgs)
-                               / K.solar_mass_g),
                   t0g=0.0, inv_dtg=0.0, pos_hi=0.0)
     Tlog = np.zeros(0)
     if has_xray:
@@ -361,6 +364,23 @@ def _knot_lerp(th: torch.Tensor, kc0: int, table: torch.Tensor,
     return th[:, i] * table[:, cols[0]] + th[:, i + 1] * table[:, cols[1]]
 
 
+def _signed_log_mass(lm, sgn):
+    """A mass sgn exp(lm) as sgn ln(1 + exp(lm)): strictly increasing in
+    the mass, and finite where exp(lm) passes float32's range
+    (csrc/joint_ll.cuh::signed_log_mass)."""
+    return sgn * (torch.clamp(lm, min=0.0) + torch.log1p(torch.exp(
+        -lm.abs())))
+
+
+def _over_ne(p, dens):
+    """p / n_e from ``dens``'s (1/n_e, n_e^2, ln n_e^2, normal): p x 1/n_e
+    where n_e^2 is normal, else exp(ln p - ln n_e^2 / 2), which stays
+    finite where 1/n_e alone would pass float32's range."""
+    ne_inv, _, ln_ne2, normal, _ = dens
+    return torch.where(normal, p * ne_inv,
+                       torch.exp(torch.log(p) - 0.5 * ln_ne2))
+
+
 def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
     """(B, D) float32 -> (B,) float32 log-posterior: the kernel's
     arithmetic in plain torch (the mirror of ``ll_body``), every family
@@ -400,39 +420,60 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
         bca = (b_ - cg) / a_
 
         def press_of(lnr_row):
+            """(P, ln(1 + x^a), ln(P / P_0)) at ln r."""
             lnx = lnr_row - lnrp
             za = a_ * lnx
             ln1xa = torch.clamp(za, min=0.0) + torch.log1p(
                 torch.exp(-za.abs()))
-            return P0 * torch.exp(-cg * lnx - bca * ln1xa), ln1xa
+            lnp = -cg * lnx - bca * ln1xa
+            return P0 * torch.exp(lnp), ln1xa, lnp
 
-        press, ln1xa = press_of(A["lnr"])
+        press, ln1xa, lnp = press_of(A["lnr"])
+        p_rel = torch.exp(lnp)                              # P / P_0
         sfrac = 1.0 - torch.exp(-ln1xa)
 
     # Vikhlinin density (+ the double mode's beta-model term)
     rci = 10.0 ** (-log_rc)
     rsi = 10.0 ** (-log_rs)
     n0 = 10.0 ** log_n0
+    n0sq = n0 * n0
+    lnn0sq = torch.log(n0sq)
     e_c = 3.0 * beta - alpha / 2.0
     e_s = eps / gamma
     if I["d_fam"] == D_DOUBLE:
         n02 = 10.0 ** col("log(n_{02})")
         n02sq = n02 * n02
+        lnn02sq = torch.log(n02sq)
         rc2i = 10.0 ** (-col("log(r_{c2})"))
         e2 = -3.0 * col(r"\beta_2")
 
-    def ne2_of(rr):
+    def dens(rr):
+        """(1/n_e, n_e^2, ln n_e^2, normal, q) at rr: n_e^2 as a product
+        of exponentials, q = ln(n_e^2 / n_0^2) and ln n_e^2 beside it;
+        where every factor of the product is a normal float (normal)
+        1/n_e is rsqrt(n_e^2), else exp(-ln n_e^2 / 2)."""
         xc = rr * rci
         xs = rr * rsi
         xs_g = xs * xs * xs if gamma == 3.0 else xs ** gamma
-        ne2 = n0 * n0 * torch.exp(-e_c * torch.log1p(xc * xc)
-                                  - e_s * torch.log1p(xs_g))
+        q = -e_c * torch.log1p(xc * xc) - e_s * torch.log1p(xs_g)
+        ne2 = n0sq * torch.exp(q)
+        normal = (q > LN_NORMAL) & (lnn0sq + q > LN_NORMAL)
         if alpha != 0.0:
             ne2 = ne2 * xc ** (-alpha)
+            q = q - alpha * torch.log(xc)
         if I["d_fam"] == D_DOUBLE:
             x2 = rr * rc2i
-            ne2 = ne2 + n02sq * torch.exp(e2 * torch.log1p(x2 * x2))
-        return ne2
+            q2 = e2 * torch.log1p(x2 * x2)
+            ne2 = ne2 + n02sq * torch.exp(q2)
+            d2 = (lnn02sq - lnn0sq) + q2
+            hi_, lo_ = torch.maximum(q, d2), torch.minimum(q, d2)
+            q = hi_ + torch.log1p(torch.exp(lo_ - hi_))
+            normal = normal & (q2 > LN_NORMAL) & (lnn02sq + q2 > LN_NORMAL)
+        ln_ne2 = lnn0sq + q
+        normal = normal & (ln_ne2 > LN_NORMAL)
+        ne_inv = torch.where(normal, torch.rsqrt(ne2),
+                             torch.exp(-0.5 * ln_ne2))
+        return ne_inv, ne2, ln_ne2, normal, q
 
     if vikh:
         T0v, tminr = col("T_0"), col("T_{min}/T_0")
@@ -445,30 +486,50 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
             cool = (xcl + tminr) / (xcl + 1.0)
             return T0v * cool * torch.exp(cth * torch.log1p(xt * xt))
 
-    ne_inv = torch.rsqrt(ne2_of(r))
+    dens_r = dens(r)
 
-    # HSE-mass veto
+    # HSE-mass veto on the mass scaled by n_0 / |P_0| (by n_0 for knot
+    # pressure), its constant factor dropped, which keeps its order
     if I["mass_veto"] and knots:
         # the segment-averaged mass at one log-midpoint per segment,
         # strictly increasing and ending positive
         KV = A["KV"]
         rm = KV[:, 5]
-        pm = torch.exp(LN10 * _knot_lerp(th, kc0, KV))
+        lnpm = LN10 * _knot_lerp(th, kc0, KV)
         slope = _knot_lerp(th, kc0, KV, cols=(3, 4))
-        m = -pm * slope * rm * torch.rsqrt(ne2_of(rm)) * F["mass_C"]
+        lpn = lnpm - 0.5 * dens(rm)[4]
+        m = -slope * rm * torch.exp(lpn)
+        # the signed log form for a row one of whose masses the product
+        # takes past float32's range
+        wide = ~(torch.isfinite(m) & (m != 0.0)).all(dim=1, keepdim=True)
+        if wide.any():
+            m = torch.where(wide, _signed_log_mass(
+                torch.log(slope.abs()) + torch.log(rm) + lpn,
+                -torch.sign(slope)), m)
         mono = ((m[:, 1:] > m[:, :-1]).all(dim=1, keepdim=True)
                 & (m[:, -1:] > 0.0))
         total = torch.where(mono, total, NEG)
     elif I["mass_veto"]:
-        # central differences inside, one-sided at the edges
-        m = press * r * (cg + (b_ - cg) * sfrac) * ne_inv * F["mass_C"]
+        # (P / P_0) r g (1 / n_e) n_0 sign(P_0) as a product, as ll_body
+        # forms it, and in the signed log form for a row one of whose
+        # radii has n_e^2 not normal; central differences inside,
+        # one-sided at the edges
+        ne_inv, _, _, normal, q = dens_r
+        g = cg + (b_ - cg) * sfrac
+        m = p_rel * r * g * ne_inv * (torch.sign(P0) * torch.sqrt(n0sq))
+        wide = (~normal).any(dim=1, keepdim=True)
+        if wide.any():
+            m = torch.where(wide, _signed_log_mass(
+                A["lnr"] + torch.log(g.abs()) + lnp - 0.5 * q,
+                torch.sign(P0) * torch.sign(g)), m)
         mono = ((m[:, 2:] > m[:, :-2]).all(dim=1, keepdim=True)
                 & (m[:, 1:2] > m[:, 0:1]) & (m[:, -1:] > m[:, -2:-1]))
         total = torch.where(mono, total, NEG)
 
     # SZ
     sep = I["sep"]
-    t_sz = vikh_T(r[:sep]) if vikh else press[:, :sep] * ne_inv[:, :sep]
+    t_sz = (vikh_T(r[:sep]) if vikh else
+            _over_ne(press, dens_r)[:, :sep])
     t0 = (t_sz * A["wT0"]).sum(dim=1, keepdim=True)
     t_all = torch.cat([t0, t_sz], dim=1)                    # (B, sep+1)
     total = total + sz_chain_plain(press, t_all, cal, A)[:, None]
@@ -477,16 +538,17 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
 
     if I["has_xray"]:
         total = total + _xray_plain(
-            th, c, ne2_of, vikh_T if vikh else None,
+            th, c, dens, vikh_T if vikh else None,
             press_knots(A["KM"]) if knots else press_of(A["lnmid"])[0])
     total = torch.where(torch.isnan(total), NEG, total)
     return total[:, 0]
 
 
-def _xray_plain(th, c: JointConsts, ne2_of, vikh_T, press_m):
+def _xray_plain(th, c: JointConsts, dens, vikh_T, press_m):
     """(B, 1) X-ray Cash term with its positivity veto: temperatures at
     the shell midpoints (``vikh_T``, else ``press_m`` / ne x 10^ratio), a
-    two-tap count-rate lookup, projection, Cash."""
+    two-tap count-rate lookup, projection, Cash; ``dens`` gives (1/n_e,
+    n_e^2)."""
     A, I, F = c.arrays, c.ints, c.floats
     NEG = torch.tensor(-float("inf"), dtype=torch.float32, device=th.device)
 
@@ -497,11 +559,12 @@ def _xray_plain(th, c: JointConsts, ne2_of, vikh_T, press_m):
     if I["has_ls"]:
         Z = Z * col("line_scale")
     midr = A["midr"]
-    ne2m = ne2_of(midr)
+    dens_m = dens(midr)
+    ne2m = dens_m[1]
     if vikh_T is not None:
         Tm = vikh_T(midr)
     else:
-        Tm = press_m * torch.rsqrt(ne2m) * 10.0 ** col("log(T_X/T_{SZ})")
+        Tm = _over_ne(press_m, dens_m) * 10.0 ** col("log(T_X/T_{SZ})")
     tl = torch.log(_nanmax(Tm, 1e-30))
     pos = _nanclip((tl - F["t0g"]) * F["inv_dtg"], 0.0, F["pos_hi"])
     bad = torch.isnan(pos)

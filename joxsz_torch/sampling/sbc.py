@@ -19,16 +19,24 @@ through the joint-likelihood kernel; a stack outside the kernel's
 specialisation raises ``StackMismatch`` there, with no fallback.  On the
 CPU they run the plain batched ensembles (``sampling/batched.py``).
 
-The kernels compute in float32, and at the corners of a wide prior box
-their mass veto rejects draws the float64 model accepts: n_e^2 underflows
-float32 at the outer radii (n_e ~ 1e-25 cm^-3 at log(n_0) near -7), or
-the hydrostatic mass passes 3.4e38.  Ranks there would be biased, so on
-the card ``run_sbc`` first checks F32_CHECK_DRAWS prior draws
-(``float32_vetoed``) and refuses a prior the float32 kernels do not
-cover.  Inside a narrow box a draw or two in 4096 still flips where the
-mass is flat to float32's precision at the outer radius (a relative
-slope of ~3e-6 between grid points): rounding at the veto's edge, not a
-region, which F32_VETO_TOLERANCE lets pass.
+The kernels compute in float32.  At the corners of the production prior
+box n_e^2 underflows float32 at the outer radii (n_e ~ 1e-25 cm^-3 at
+log(n_0) near -7) and the hydrostatic mass passes 3.4e38; the kernels'
+mass veto forms n_e from ln n_e^2 there and compares a scaled mass, as
+a signed logarithm where the product leaves float32's range
+(``csrc/joint_ll.cuh``), so it keeps every draw of the production box
+the float64 model keeps, apart from near-ties float32 cannot resolve
+(``tests/test_torch_veto_box.py``: none at its seed).  A prior that reaches another
+float32 limit would bias the ranks, so on the card ``run_sbc`` first
+checks F32_CHECK_DRAWS prior draws (``float32_vetoed``) and refuses a
+prior of which kernel 1 loses more than F32_VETO_TOLERANCE.  It then
+checks its replications' mock data (``float32_misfits``): at the
+production box's corners the forward models predict SZ fluxes up to
+~1e17 mJy and beyond (a median of 1.6e17 over 256 replications on the
+synthetic CL J1226), whose residuals against ~1 mJy errors no float32
+arithmetic resolves, and kernel 1's log-posterior at the truth misses
+the float64 model's by more than 1e6 in most replications; a prior
+whose replications kernel 1 cannot evaluate is refused too.
 
 Differences from the JAX function: ``run_sbc`` takes the ``FitSession``
 (the kernel route packs its constants from it), and it has no
@@ -56,7 +64,11 @@ F32_CHECK_DRAWS = 4096
 NEGLIGIBLE_LP = -1e30
 # the share of those draws the float32 kernels may veto: far below what
 # SBC's rank histograms resolve at any affordable number of replications
+# (and the share of replications whose mock data they may misfit)
 F32_VETO_TOLERANCE = 0.01
+# kernel 1's log-posterior at a replication's truth against the float64
+# model's: kernel 1's bar against float64 (chip_smoke.py phase 3)
+F32_MOCK_RTOL, F32_MOCK_ATOL = 2e-4, 0.5
 
 
 @dataclasses.dataclass
@@ -144,6 +156,55 @@ def float32_vetoed(session, thetas: np.ndarray) -> tuple[int, int]:
     return int((live & ~torch.isfinite(l32)).sum()), int(live.sum())
 
 
+def veto_margins(model, thetas: np.ndarray) -> np.ndarray:
+    """(n,) float64 mass-veto margins of the rows ``thetas`` (n, D), on the
+    host CPU: the least of the veto's differences (np.gradient of M on the
+    pressure grid; for knot pressure each segment mass's rise and the last
+    mass) over their largest magnitude.  A float32 verdict that differs
+    from float64's at a margin near 0 sits on the veto's boundary."""
+    m = model.to("cpu", torch.float64)
+    pars = m.params.unpack(torch.as_tensor(np.asarray(thetas,
+                                                      dtype=np.float64)))
+    rv = getattr(m.pressure, "mass_veto_radii", None)
+    with torch.no_grad():
+        if rv is not None:
+            M = m.mass(pars, torch.as_tensor(rv(), dtype=torch.float64))
+            g = torch.cat([M[:, 1:] - M[:, :-1], M[:, -1:]], dim=1).numpy()
+        else:
+            g = np.gradient(m.mass(pars, m.sz_data.r_press_kpc).numpy(),
+                            axis=1)
+    return g.min(axis=1) / np.abs(g).max(axis=1)
+
+
+def float32_misfits(session, thetas: np.ndarray, survey) -> tuple[int, int]:
+    """(replications whose mock data kernel 1 cannot evaluate,
+    replications): kernel 1's float32 log-posterior at a replication's
+    truth ``thetas`` (n, D) on its mock data (``survey``, as
+    ``sbc_mocks`` makes it) is -inf or further than F32_MOCK_RTOL |lp| +
+    F32_MOCK_ATOL from the float64 model's.  On a CPU session kernel 1
+    is its plain float32 version."""
+    from ..models.multicluster import make_multicluster_log_like
+    from ..ops.joint_kernel import pack_consts_stack
+    from ..ops.multicluster_kernel import multicluster_ll
+
+    dev = session.device
+    th = torch.as_tensor(np.asarray(thetas, dtype=np.float64),
+                         device=dev)[:, None]
+    # mock fluxes past float32's range become inf in the constants, and
+    # then a misfit
+    with torch.no_grad(), np.errstate(over="ignore"):
+        l64 = make_multicluster_log_like(
+            session.model.to(dev, torch.float64), survey.sz_stack,
+            survey.xray_stack)(th)[:, 0]
+        stack = pack_consts_stack(session, survey.sz_stack,
+                                  survey.xray_stack)
+        l32 = multicluster_ll(th.to(torch.float32).contiguous(),
+                              stack)[:, 0].to(torch.float64)
+    ok = torch.isfinite(l32) & ((l32 - l64).abs()
+                                <= F32_MOCK_ATOL + F32_MOCK_RTOL * l64.abs())
+    return int((~ok).sum()), th.shape[0]
+
+
 def sbc_mocks(model, n_reps: int, seed: int, *, sz_noise: bool = True,
               xray_noise: bool = True):
     """``(thetas_true (n_reps, D), survey)``: SBC's prior draws and their
@@ -175,7 +236,8 @@ def run_sbc(session, n_reps: int, *, n_walkers: int = 64,
     On the card the fits run in float32 on kernel 4; a prior of which
     kernel 1 vetoes more than F32_VETO_TOLERANCE of F32_CHECK_DRAWS draws
     (on ``seed + 2``) that the float64 model accepts raises
-    ``ValueError`` first."""
+    ``ValueError`` first, and so do replications more than that share of
+    whose mock data kernel 1 cannot evaluate (``float32_misfits``)."""
     from ..models.multicluster import make_multicluster_log_like
     from .kernel import fit_multicluster_kernel
 
@@ -188,14 +250,24 @@ def run_sbc(session, n_reps: int, *, n_walkers: int = 64,
         lost, live = float32_vetoed(session, check)
         if lost > F32_VETO_TOLERANCE * live:
             raise ValueError(
-                f"kernel 1 (float32) vetoes {lost} of {live} prior draws "
-                "that the float64 model accepts (n_e^2 underflows or the "
-                "hydrostatic mass overflows float32 in the mass veto): SBC "
-                "on the kernels would not calibrate this prior; narrow the "
-                "prior box or run on the CPU")
+                f"kernel 1 (float32) makes {lost} of {live} prior draws "
+                "-inf that the float64 model accepts: this prior reaches "
+                "past float32's range in the likelihood, and SBC on the "
+                "kernels would not calibrate it; narrow the prior box or "
+                "run on the CPU")
     thetas_true, survey = sbc_mocks(model, n_reps, seed, sz_noise=sz_noise,
                                     xray_noise=xray_noise)
     if dev.type == "cuda":
+        bad, n = float32_misfits(session, thetas_true, survey)
+        if bad > F32_VETO_TOLERANCE * n:
+            raise ValueError(
+                f"kernel 1 (float32) cannot evaluate the mock data of {bad} "
+                f"of {n} replications: its log-posterior at the truth is "
+                f"-inf or misses the float64 model's by more than "
+                f"{F32_MOCK_RTOL:g} |lp| + {F32_MOCK_ATOL:g} (model fluxes "
+                "past float32's precision against their errors); SBC on "
+                "the kernels would not calibrate this prior; narrow the "
+                "prior box or run on the CPU")
         chain, _, acc, _ = fit_multicluster_kernel(
             session, survey.sz_stack, survey.xray_stack, thetas_true,
             n_walkers=n_walkers, n_burn=n_burn, n_steps=n_steps, thin=thin,

@@ -9,11 +9,14 @@ stretch_steps``) is driven through it; an older tree through its
 per-half-step and per-boundary launches (``stretch_half`` / ``swap`` /
 ``stretch_half_multicluster``).  Each process records:
 
-* kernel 1 on 4096 parameter rows;
+* kernel 1 on 4096 parameter rows (3% around the truth), and on the
+  same share around the truth of the double density and of knot
+  pressure, which take the family instance;
 * one tempered step (W=1024, K=4, Philox seed 1234) from each of 20 start
   states, with the kernel's decisions and the margins of the same step run
   in plain torch on that tree's kernel-1 likelihood;
-* times on the card: kernel 1 (CUDA events); device time per half-step at
+* times on the card: kernel 1 (CUDA events; the flagship, and the family
+  instance on the double density and on knots); device time per half-step at
   2048 rows (the cluster grid, C=4), 512 rows (K=1, W=1024) and 16 rows
   (K=1, W=32) and per tempered step at K=4, W=1024 (torch.profiler, over
   100 steps); the survey fit (``fit_survey``, C=4, W=1024, 1000 + 1000
@@ -21,8 +24,10 @@ per-half-step and per-boundary launches (``stretch_half`` / ``swap`` /
   on this card, 40 windows of 101 steps) in evals/s.
 
 The two trees' outputs must agree as ``chip_smoke.py`` phases 3-4 hold a
-kernel to its plain version: kernel 1 with identical -inf masks and
-finite values within rtol=2e-4, atol=0.5; a step decision may differ
+kernel to its plain version: kernel 1 (each of the three families) with
+identical -inf masks, apart from rows where this checkout's verdict is
+the float64 model's, and finite values within rtol=2e-4, atol=0.5; a
+step decision may differ
 only where the decision lies within MARGIN (1e-3) plus the two trees'
 threshold difference of its threshold (a change of summation order moves
 a log-posterior by float32 rounding, and so a threshold, and nothing
@@ -41,12 +46,12 @@ import sys
 import numpy as np
 
 CHILD = r'''
-import sys, time, numpy as np, torch
+import copy, sys, time, numpy as np, torch
 tree, out = sys.argv[1], sys.argv[2]
 sys.path.insert(0, tree)
 from torch.profiler import ProfilerActivity, profile
 from joxsz_torch.build import build_session
-from joxsz_torch.synth import write_synthetic_dataset, TRUTH
+from joxsz_torch.synth import write_synthetic_dataset, truth_theta, TRUTH
 from joxsz_torch.ops import step_kernel as sk, multicluster_kernel as mk
 from joxsz_torch.ops.joint_kernel import pack_consts, pack_consts_stack, joint_ll
 from joxsz_torch.models.multicluster import stack_sz_data, stack_xray_data
@@ -63,6 +68,8 @@ th0 = np.array([TRUTH[k] for k in sess.params.thawed])
 rng = np.random.default_rng(5)
 rows = torch.tensor(th0[None] * (1 + 0.03 * rng.standard_normal((4096, D))), dtype=torch.float32, device="cuda")
 ll = joint_ll(rows, c)
+with torch.no_grad():
+    f64 = {"ll": torch.isfinite(sess.model.log_like_batch(rows.double())).cpu().numpy()}
 K, W, H = 4, 1024, 512
 betas = np.array([1.0, 0.6, 0.36, 0.216])
 beta = torch.tensor(betas, dtype=torch.float32, device="cuda")
@@ -133,6 +140,18 @@ def device_us(fn):
 
 n = 100
 t = {"k1_ms": ev_ms(lambda: joint_ll(rows, c), 50)}
+fam_ll = {}
+for tag, field, value in (("double", "density_mode", "double"), ("knots", "pressure_model", "knots")):
+    fcfg = copy.deepcopy(cfg)
+    setattr(fcfg, field, value)
+    fs = build_session(fcfg, device="cuda")
+    fc = pack_consts(fs)
+    tf = truth_theta(fs)
+    frows = torch.tensor(tf[None] * (1 + 0.03 * np.random.default_rng(5).standard_normal((4096, tf.size))), dtype=torch.float32, device="cuda")
+    fam_ll[tag] = joint_ll(frows, fc).cpu().numpy()
+    with torch.no_grad():
+        f64["ll_" + tag] = torch.isfinite(fs.model.log_like_batch(frows.double())).cpu().numpy()
+    t[f"k1_ms {tag}"] = ev_ms(lambda: joint_ll(frows, fc), 50)
 for label, k, w in (("512 rows", 1, 1024), ("16 rows", 1, 32)):
     x, lp, acc = state(k, w, 7)
     us, _ = device_us(lambda: steps(x, lp, acc, beta[:1], 99, n))
@@ -172,7 +191,7 @@ run_hybrid_coupled_ensemble(c, p0, 40, 101, 5, mesh, thin=5, allow_small=True)
 torch.cuda.synchronize()
 t["hybrid evals/s"] = 128 * 40 * 101 / (time.perf_counter() - t0)
 print(tree, "fused" if fused else "per-launch", {k: round(v, 4) for k, v in t.items()}, flush=True)
-np.savez(out, ll=ll.cpu().numpy(), dec=np.stack(dec), m0=np.stack(m0), m1=np.stack(m1), msw=np.stack(msw), nsw=np.stack(nsw))
+np.savez(out, ll=ll.cpu().numpy(), ll_double=fam_ll["double"], ll_knots=fam_ll["knots"], **{"f64_" + k: v for k, v in f64.items()}, dec=np.stack(dec), m0=np.stack(m0), m1=np.stack(m1), msw=np.stack(msw), nsw=np.stack(nsw))
 '''
 MARGIN, RTOL, ATOL, TIGHT = 1e-3, 2e-4, 0.5, 0.05
 BETAS = np.array([1.0, 0.6, 0.36, 0.216])
@@ -181,15 +200,24 @@ BETAS = np.array([1.0, 0.6, 0.36, 0.216])
 def compare(a, b) -> bool:
     """The rule of chip_smoke.py phases 3-4 between two trees."""
     ok = True
-    fa, fb = np.isfinite(a["ll"]), np.isfinite(b["ll"])
-    same_mask = np.array_equal(fa, fb)
-    close = same_mask and np.allclose(a["ll"][fa], b["ll"][fa], rtol=RTOL,
-                                      atol=ATOL)
-    err = float(np.max(np.abs(a["ll"][fa] - b["ll"][fa]))) if same_mask \
-        else float("nan")
-    print(f"kernel 1: -inf masks {'equal' if same_mask else 'DIFFER'}, "
-          f"finite rows within rtol/atol: {close}, max |diff| {err:.4g}")
-    ok &= bool(close)
+    for key in ("ll", "ll_double", "ll_knots"):
+        if key not in a.files or key not in b.files:
+            continue
+        fa, fb = np.isfinite(a[key]), np.isfinite(b[key])
+        # a -inf mask may differ only where the first tree's verdict is
+        # the float64 model's (a veto decided in float64 by one tree)
+        f = a["f64_" + key] if "f64_" + key in a.files else fa
+        moved = np.flatnonzero(fa != fb)
+        same_mask = bool(np.all(fa[moved] == f[moved]))
+        both = fa & fb
+        close = same_mask and np.allclose(a[key][both], b[key][both],
+                                          rtol=RTOL, atol=ATOL)
+        err = float(np.max(np.abs(a[key][both] - b[key][both])))
+        print(f"kernel 1 ({key}): -inf masks differ on rows "
+              f"{moved.tolist()}, each with the float64 verdict on the "
+              f"first tree's side: {same_mask}; rows finite in both within "
+              f"rtol/atol: {close}, max |diff| {err:.4g}")
+        ok &= bool(close)
     H = a["m0"].shape[-1]
     n_dec = n_flip = n_bad = 0
     shift_max = 0.0

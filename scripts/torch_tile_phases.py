@@ -108,7 +108,7 @@ def main() -> int:
         err = slib.launch_stretch_steps(
             x.data_ptr(), lp.data_ptr(), acc.data_ptr(), sacc.data_ptr(),
             beta.data_ptr(), db.data_ptr(), K, W, 7, 0, 1, 0, None, None,
-            0.70710677, 0.70710677, 0, 0, bar.data_ptr(), c.buf.data_ptr(),
+            0.70710677, 0.70710677, 0, 0, 0, bar.data_ptr(), c.buf.data_ptr(),
             c.params.iv_ptr, c.params.fv_ptr,
             torch.cuda.current_stream().cuda_stream, ctypes.byref(picked))
         if err:
@@ -120,6 +120,10 @@ def main() -> int:
     print(f"step kernel at K={K}, W={W}: block 0's tile {clk[13] - clk[0]} "
           f"SM cycles, the swap sweep (3 boundaries) {clk[15] - clk[14]} "
           f"SM cycles; {card}")
+    t = [clk[i] for i in ORDER]
+    for name, a, b in zip(PHASES, t[:-1], t[1:]):
+        print(f"  {name:32s} {b - a:8d} cycles  "
+              f"{100 * (b - a) / (t[-1] - t[0]):5.1f}%")
     return 0
 
 

@@ -8,9 +8,12 @@ seed), and runs on the joint session (the plain batched ensembles on the
 CPU; kernel 4 on the card, ``chip_smoke.py`` phase 22); the conjugate
 Gaussian pipeline on the port's batched ensembles gives uniform ranks,
 and a deliberately overconfident one is detected.  The float32 check
-that guards SBC on the card refuses the production prior box (kernel 1's
-plain version vetoes a third of its draws that float64 accepts) and
-passes the JAX SBC test's narrow box.
+that guards SBC on the card passes the production prior box (kernel 1's
+plain version vetoes none of the draws float64 keeps, where the JAX
+kernels' float32 form vetoed a third) and the JAX SBC test's narrow box;
+its check of the replications' mock data passes the narrow box and
+fails the production box, whose corners' mock fluxes pass float32's
+precision.
 """
 
 import copy
@@ -22,8 +25,9 @@ import torch
 from joxsz_torch.build import build_session
 from joxsz_torch.sampling.priors import model_log_prior, sample_prior
 from joxsz_torch.sampling.sbc import (F32_CHECK_DRAWS, F32_VETO_TOLERANCE,
-                                      float32_vetoed, run_batched_ensembles,
-                                      run_sbc, sbc_uniformity)
+                                      float32_misfits, float32_vetoed,
+                                      run_batched_ensembles, run_sbc,
+                                      sbc_mocks, sbc_uniformity)
 from joxsz_torch.synth import write_synthetic_dataset
 from joxsz_tpu.build import build_session as jax_build_session
 from joxsz_tpu.sampling.sbc import run_sbc as jax_run_sbc
@@ -97,8 +101,9 @@ TIGHT_BOX = {"log(n_0)": (-1.55, -1.25), r"\beta": (0.58, 0.72),
 @pytest.mark.parametrize("box", ["production", "tight"])
 def test_float32_check_covers_only_the_narrow_box(tmp_path, box):
     """Out to 5000 kpc, as the production grid: at the production box's
-    low-density corners n_e^2 underflows float32 and kernel 1's mass veto
-    rejects draws float64 accepts; inside the narrow box it does not."""
+    low-density corners n_e^2 underflows float32, and kernel 1's mass
+    veto still keeps what float64 keeps (n_e from ln n_e^2, the mass
+    scaled and as a signed logarithm); inside the narrow box too."""
     cfg = write_synthetic_dataset(str(tmp_path), 3, n_annuli=6, n_sz=6,
                                   max_radius_arcsec=30.0)
     sess = build_session(cfg, device="cpu")
@@ -111,9 +116,30 @@ def test_float32_check_covers_only_the_narrow_box(tmp_path, box):
                       np.random.default_rng(2))
     lost, live = float32_vetoed(sess, th)
     if box == "tight":
-        assert live == F32_CHECK_DRAWS and lost <= F32_VETO_TOLERANCE * live
+        assert live == F32_CHECK_DRAWS
+    assert live > 0 and lost <= F32_VETO_TOLERANCE * live, (lost, live)
+
+
+@pytest.mark.parametrize("box", ["production", "tight"])
+def test_float32_mock_check(tmp_path, box):
+    """The second float32 check of ``run_sbc`` on the card: at the
+    production box's corners the mock data's SZ fluxes pass float32's
+    precision against their errors, and kernel 1's log-posterior at most
+    replications' truths misses the float64 model's; inside the narrow
+    box it matches at every truth."""
+    cfg = write_synthetic_dataset(str(tmp_path), 3, n_annuli=6, n_sz=6,
+                                  max_radius_arcsec=30.0)
+    sess = build_session(cfg, device="cpu")
+    if box == "tight":
+        for name, (lo, hi) in TIGHT_BOX.items():
+            sess.params[name].minval, sess.params[name].maxval = lo, hi
+        sess.params._refresh()
+    thetas, survey = sbc_mocks(sess.model, 32, 3)
+    bad, n = float32_misfits(sess, thetas, survey)
+    if box == "tight":
+        assert (bad, n) == (0, 32)
     else:
-        assert lost > 0.2 * live > 0, (lost, live)
+        assert bad > n // 2, (bad, n)
 
 
 def _conjugate_ranks(fit_sigma_scale=1.0, n_reps=256, seed=0):
