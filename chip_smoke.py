@@ -41,7 +41,8 @@ the emcee shim — and checks their output.  Phases:
      step-kernel launch per chunk of steps; the fit's outputs written
      (the chain — HDF5, or its .npz twin without h5py — fit.dat, the
      summary, the state, the figures where matplotlib exists, else
-     ``--no-plots`` with a printed line) and the MLE cache entry;
+     ``--no-plots`` with a printed line) and the MLE cache entry; the
+     mass veto's float64-tier pairs over the fit printed;
  16. (run after phase 5, on its output directory) the same command
      again: the MLE cache hits, theta bit for bit phase 5's, ``mle_s``
      and the wall time cold and warm; ``--resume`` of phase 5's state
@@ -129,7 +130,8 @@ the emcee shim — and checks their output.  Phases:
      must reach split-R-hat <= 1.01), config #4 over a mesh of one card
      at 32 walkers (below 2 D + 2: the coupled sampler, kernel 6), the
      other families --quick at W=1024 x K=4; finite chains, acceptance in
-     (0.02, 0.6), exactly one step-kernel launch per chunk;
+     (0.02, 0.6), exactly one step-kernel launch per chunk; each fit's
+     mass-veto float64-tier pairs printed;
  17. the families on the survey's cluster grid (its kernel checks run
      after phase 14, the survey after phase 15): for every family of
      phase 14 but the widest, kernel 4's family
@@ -209,13 +211,18 @@ the emcee shim — and checks their output.  Phases:
      where lp passes TIGHT_BELOW), the launch plan the card takes checked
      against the host's mirror (``consts_layout.launch_plan``); the veto
      clouds of ``tests/test_torch_precision.py`` through kernel 1 against
-     the plain float32 version (no flip; a flip printed with its float64
-     verdict) and the float64 model (a flip only at a mass-veto margin
-     below 1e-4, a near-tie float32 cannot resolve); 4096 draws of the
+     the plain float32 version and the float64 model (no flip against
+     either; row 200 of the flagship's 0.2 cloud kept); 4096 draws of the
      production prior box (1024 for knots; a dataset out to 5008 kpc)
      through kernel 1's flagship and family instances for four families
-     against the float64 model, no row lost (the lost rows printed by
-     cause); the knots corner
+     against the float64 model, no row lost, near-ties included (the
+     lost rows printed by cause; Vikhlinin row 2993 printed); near-tie
+     rows (``ops.mass_veto.near_tie_rows``, float64 margins 1e-4 down to
+     ~1e-9, four families, and two at phase 13's first shape) through
+     kernel 1 and the tile of the step kernel (K=1, and K=4 with every
+     rung holding the rows), kernel 4 and kernel 6 in each of their
+     instances, every verdict the float64 model's, with the
+     float64-tier pairs counted; the knots corner
      written by ``python -m joxsz_torch.synth`` and fitted by ``run
      --config <it> --quick --no-plots`` in a child process (W=1024 x
      K=4: finite medians, fit.dat, the family instances launched); and
@@ -1548,7 +1555,17 @@ VETO_BOX_FAMILIES = (
     ("flagship", (), 4096), ("double", ("--density", "double"), 4096),
     ("vikhlinin", ("--temperature", "vikhlinin"), 4096),
     ("knots", ("--pressure", "knots"), 1024))
-VETO_BOX_MARGIN = 1e-4
+# phase 26e: near-tie rows (ops/mass_veto.py::near_tie_rows) between the
+# first TIE_PAIRS kept and vetoed rows of each family's veto cloud, through
+# kernel 1 and the tile of the step kernel (K=1; K=4, every rung), kernel
+# 4 and kernel 6 (each walker of a W=TIE_W ensemble holds the row, so that its proposal is the
+# row, from the start lp TIE_LP0, which any finite proposal beats); the
+# families and, on phase 13's first shape (the _large_ instances), two
+TIE_FAMILIES = (("flagship", ()), ("double", ("--density", "double")),
+                ("knots", ("--pressure", "knots")),
+                ("vikhlinin", ("--temperature", "vikhlinin")))
+TIE_LARGE = ("flagship", "vikhlinin")
+TIE_PAIRS, TIE_W, TIE_LP0 = 2, 32, -3e38
 CORNER_FIT = "knots"            # phase 26: the corner fitted through run
 CORNER_FIT_TIMEOUT = 600
 
@@ -1600,15 +1617,14 @@ def phase_veto_clouds(cfg, seed: int) -> int:
     ``np.random.default_rng(7)``) for the flagship, double density and
     knots on phase 2's dataset, through kernel 1 against the plain float32
     version (no flip; a flip is printed with its float64 verdict before
-    the check fails) and the float64 model (the session's own): a flip
-    only at a float64 mass-veto margin below VETO_BOX_MARGIN, two masses
-    within float32's rounding of each other.  Returns the rows where both
-    float32 versions veto what float64 keeps."""
+    the check fails) and the float64 model (the session's own): no flip
+    either, near-ties included (row 200 of the flagship's 0.2 cloud, which
+    the JAX float32 kernel vetoes, kept).  Returns the rows where kernel
+    1 vetoes what float64 keeps (0)."""
     import numpy as np
     import torch
     from joxsz_torch.ops.joint_kernel import (joint_ll, joint_ll_plain,
                                               pack_consts)
-    from joxsz_torch.sampling.sbc import veto_margins
     from joxsz_torch.synth import truth_theta
 
     n_f64 = 0
@@ -1636,18 +1652,18 @@ def phase_veto_clouds(cfg, seed: int) -> int:
             check(flips.size == 0, f"[26] {tag} spread {spread}: "
                   f"{flips.size} veto flips between kernel 1 and the plain "
                   "float32 version")
-            gap = np.flatnonzero(f & ~p)
-            n_f64 += gap.size
+            flips64 = np.flatnonzero(k != f)
+            n_f64 += int((f & ~k).sum())
             print(f"[26] {tag} veto cloud at spread {spread}: {VETO_ROWS} "
                   f"rows, {p.mean():.3f} finite, 0 flips between kernel 1 "
-                  f"and plain f32; rows float64 keeps and both float32 "
-                  f"versions veto: {gap.tolist()}")
-            flips64 = np.flatnonzero(k != f)
-            near = np.abs(veto_margins(sess.model, rows[flips64].double()
-                                       .cpu().numpy())) < VETO_BOX_MARGIN
-            check(near.all(), f"[26] {tag} spread {spread}: kernel 1 and "
-                  f"the float64 model differ on rows "
-                  f"{flips64[~near].tolist()} away from the veto's edge")
+                  f"and plain f32; flips against float64: "
+                  f"{flips64.tolist()}")
+            check(flips64.size == 0, f"[26] {tag} spread {spread}: kernel "
+                  f"1 and the float64 model differ on rows "
+                  f"{flips64.tolist()}")
+            if (tag, spread) == ("flagship", 0.2):
+                check(bool(k[200]), "[26] row 200 of the flagship's 0.2 "
+                      "cloud (float64 keeps it) vetoed by kernel 1")
         del sess, c
     return n_f64
 
@@ -1658,10 +1674,11 @@ def phase_veto_box(tmp: str) -> dict:
     veto_box.py`` (pressure radii 16 to 5008 kpc) through kernel 1, the
     flagship instance and the family instance, for VETO_BOX_FAMILIES,
     against the float64 model on the card: no row the float64 model
-    keeps above NEGLIGIBLE_LP is -inf beyond the rows of float64 margin
-    below VETO_BOX_MARGIN.  Lost rows are printed by cause: the mass veto
-    (kernel 1 with the veto off keeps them) or the rest of the
-    likelihood.  Returns {family: (lost, live)}."""
+    keeps above NEGLIGIBLE_LP is -inf, near-ties included (row 2993 of
+    the Vikhlinin-T draws, a rise of 1.3e-5 a grid step at ln M ~ 130,
+    kept).  Lost rows are printed by cause: the mass veto (kernel 1 with
+    the veto off keeps them) or the rest of the likelihood.  Returns
+    {family: (lost, live)}."""
     import dataclasses
     import numpy as np
     import torch
@@ -1696,7 +1713,7 @@ def phase_veto_box(tmp: str) -> dict:
         l32 = l32.cpu().numpy()
         live = l64 > NEGLIGIBLE_LP
         lost = np.flatnonzero(live & ~np.isfinite(l32))
-        by_veto = small = 0
+        by_veto = 0
         margins = np.zeros(0)
         if lost.size:
             off = dataclasses.replace(c, ints={**c.ints, "mass_veto": 0},
@@ -1704,21 +1721,197 @@ def phase_veto_box(tmp: str) -> dict:
             by_veto = int(np.isfinite(joint_ll(rows[lost], off)
                                       .cpu().numpy()).sum())
             margins = veto_margins(sess.model, th[lost])
-            small = int((margins < VETO_BOX_MARGIN).sum())
+        row_2993 = ""
+        if tag == "vikhlinin" and len(th) > 2993:
+            row_2993 = (f"; row 2993 (float64 margin "
+                        f"{veto_margins(sess.model, th[2993:2994])[0]:.3g})"
+                        f" {'finite' if np.isfinite(l32[2993]) else '-inf'}"
+                        " in kernel 1")
         print(f"[26] production box, {tag} ({inst}): {len(th)} draws, "
               f"{int(live.sum())} kept by float64, {lost.size} of them "
               f"-inf in kernel 1 ({by_veto} by the mass veto, "
-              f"{lost.size - by_veto} by the rest of the likelihood; "
-              f"{small} at a float64 margin below {VETO_BOX_MARGIN:g}: "
-              f"rows {lost[:8].tolist()}, margins "
-              f"{[float(f'{x:.3g}') for x in margins[:8]]}); "
+              f"{lost.size - by_veto} by the rest of the likelihood: "
+              f"rows {lost[:8].tolist()}, float64 margins "
+              f"{[float(f'{x:.3g}') for x in margins[:8]]}){row_2993}; "
               f"kernel 1 on these rows {ms:.4f} ms; {time.time() - t0:.1f} "
               "s")
-        check(lost.size == small, f"[26] production box, {tag}: kernel 1 "
+        check(lost.size == 0, f"[26] production box, {tag}: kernel 1 "
               f"loses rows {lost.tolist()} that float64 keeps")
         out[tag] = (int(lost.size), int(live.sum()))
         del sess, c
     return out
+
+
+def tie_rows(sess):
+    """Float32 near-tie rows of ``sess``'s family (``ops.mass_veto.
+    near_tie_rows``, as ``tests/test_torch_veto_ties.py`` builds them)
+    between the first TIE_PAIRS rows of its veto cloud (spread 0.1, else
+    0.2) that the float64 model keeps and that its mass veto vetoes
+    inside the prior box; returns (rows, float64 verdict: a finite
+    log-posterior, float64 veto margins)."""
+    import numpy as np
+    import torch
+    from joxsz_torch.ops.mass_veto import near_tie_rows
+    from joxsz_torch.sampling.sbc import veto_margins
+    from joxsz_torch.synth import truth_theta
+
+    m = sess.model
+    th0 = truth_theta(sess)
+    for spread in VETO_SPREADS:
+        rng = np.random.default_rng(7)
+        rows = (th0[None] * (1 + spread * rng.standard_normal(
+            (VETO_ROWS, th0.size)))).astype(np.float32)
+        margins = veto_margins(m, rows.astype(np.float64))
+        t = torch.as_tensor(rows, dtype=torch.float64, device=sess.device)
+        with torch.no_grad():
+            keep = torch.isfinite(m.log_like_batch(t)).cpu().numpy()
+            box = torch.isfinite(m.params.log_prior(t)).cpu().numpy()
+        kept = np.flatnonzero(keep & (margins > 0))[:TIE_PAIRS]
+        vetoed = np.flatnonzero(box & (margins < 0))[:TIE_PAIRS]
+        if kept.size and vetoed.size:
+            break
+    check(kept.size > 0 and vetoed.size > 0, "no kept and vetoed cloud "
+          "rows to build near-ties between")
+    ties = [near_tie_rows(m, rows[i], rows[j]) for i, j in zip(kept,
+                                                               vetoed)]
+    out = np.concatenate([t[0] for t in ties])
+    with torch.no_grad():
+        f64 = torch.isfinite(m.log_like_batch(torch.as_tensor(
+            out, dtype=torch.float64, device=sess.device))).cpu().numpy()
+    return out, f64, np.concatenate([t[1] for t in ties])
+
+
+def tile_lps(sess, c, rows) -> dict:
+    """Kernel 1's log-posteriors of ``rows`` (n, D), and the tile's in the
+    step kernel (K=1, and K=4 on the production ladder, every rung holding
+    the row), kernel 4 (n clusters, each the session's data) and kernel 6:
+    every walker of a W=TIE_W ensemble holds one row, so each proposal y =
+    x_p + z (x - x_p) is that row, and the walkers start at lp TIE_LP0, so
+    a proposal is accepted exactly where it is finite, on every rung (beta
+    (lp - TIE_LP0) > 0), and the swaps exchange equal states: (n, TIE_W)
+    lp after one step (half a step for kernel 6; (n, K x TIE_W) at K=4)."""
+    import torch
+    from joxsz_torch.models.multicluster import (stack_sz_data,
+                                                 stack_xray_data)
+    from joxsz_torch.ops import coupled_kernel as ck
+    from joxsz_torch.ops import multicluster_kernel as mk
+    from joxsz_torch.ops import step_kernel as sk
+    from joxsz_torch.ops.joint_kernel import joint_ll, pack_consts_stack
+    from joxsz_torch.sampling.kernel import rung_tensors
+    from joxsz_torch.sampling.tempered import default_betas
+
+    n, D = rows.shape
+    dev = c.device
+    r = torch.as_tensor(rows, dtype=torch.float32, device=dev)
+    out = {"kernel 1": joint_ll(r, c)}
+
+    def start(shape):
+        return (torch.full(shape, TIE_LP0, device=dev),
+                torch.zeros(shape, device=dev))
+
+    lps = []
+    for i in range(n):
+        x = r[i].expand(1, TIE_W, D).contiguous()
+        lp, acc = start((1, TIE_W))
+        sk.stretch_steps(x, lp, acc, torch.zeros(1, dtype=torch.int32,
+                                                 device=dev),
+                         torch.ones(1, device=dev), torch.zeros(0,
+                                                                device=dev),
+                         5, 1, c)
+        lps.append(lp[0])
+    out["step kernel"] = torch.stack(lps)
+    K = 4
+    beta, db = rung_tensors(default_betas(K), dev)
+    lps = []
+    for i in range(n):
+        x = r[i].expand(K, TIE_W, D).contiguous()
+        lp, acc = start((K, TIE_W))
+        sk.stretch_steps(x, lp, acc, torch.zeros(K - 1, dtype=torch.int32,
+                                                 device=dev), beta, db, 5,
+                         1, c)
+        lps.append(lp.reshape(-1))
+    out["step kernel, K=4"] = torch.stack(lps)
+    m = sess.model
+    stack = pack_consts_stack(sess, stack_sz_data([m.sz_data] * n),
+                              stack_xray_data([m.xray_data] * n))
+    x = r[:, None, :].expand(n, TIE_W, D).contiguous()
+    lp, acc = start((n, TIE_W))
+    mk.stretch_steps_multicluster(x, lp, acc, 5, 1, stack)
+    out["kernel 4"] = lp
+    lps = []
+    for i in range(n):
+        xf = r[i].expand(TIE_W // 2, D).contiguous()
+        lp, acc = start((TIE_W // 2,))
+        ck.coupled_half(xf.clone(), lp, acc, xf, 0, 5, 0, 0, c)
+        lps.append(lp)
+    out["kernel 6"] = torch.stack(lps)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_ties(tag: str, sess, c) -> int:
+    """The near-tie rows of ``sess``'s family through ``tile_lps``: each
+    kernel's verdict is the float64 model's, and each tile's finite value
+    kernel 1's, bit for bit.  Returns the float64-tier pairs kernel 1
+    decided on them."""
+    import numpy as np
+    from joxsz_torch.ops import _build
+    from joxsz_torch.ops.joint_kernel import f64_pairs
+
+    rows, f64, margins = tie_rows(sess)
+    f64_pairs(reset=True)
+    before = dict(_build.instance_launches)
+    lps = tile_lps(sess, c, rows)
+    n64 = f64_pairs(reset=True)
+    inst = sorted(k for k, v in _build.instance_launches.items()
+                  if v > before[k])
+    k1 = lps["kernel 1"]
+    check(np.array_equal(np.isfinite(k1), f64), f"[26] {tag} near-ties: "
+          f"kernel 1 differs from float64 on rows "
+          f"{np.flatnonzero(np.isfinite(k1) != f64).tolist()}")
+    for name in ("step kernel", "step kernel, K=4", "kernel 4",
+                 "kernel 6"):
+        v = lps[name]
+        want = np.where(f64[:, None], k1[:, None], np.float32(TIE_LP0))
+        check(np.array_equal(v, np.broadcast_to(want, v.shape)),
+              f"[26] {tag} near-ties: the {name}'s tile differs from "
+              f"kernel 1 / float64 on rows "
+              f"{np.flatnonzero((v != want).any(axis=1)).tolist()}")
+    print(f"[26] {tag} near-ties: {len(rows)} rows at float64 margins "
+          f"{np.abs(margins).min():.2g} to {np.abs(margins).max():.2g} "
+          f"({int(f64.sum())} kept), kernel 1, the step kernel at K=1 "
+          f"and K=4 (every rung), kernel 4 and kernel 6 each the float64 "
+          f"verdict ({inst}); kernel 1's "
+          f"float64-tier pairs {n64}")
+    return n64
+
+
+def phase_near_ties(cfg, tmp: str, seed: int) -> int:
+    """Phase 26e: near-tie rows of every TIE_FAMILIES family on phase 2's
+    dataset, and of TIE_LARGE on phase 13's first shape (z = 0.3, the
+    _large_ instances), through ``check_ties``.  Returns the float64-tier
+    pairs."""
+    from joxsz_torch.ops.joint_kernel import pack_consts
+    from joxsz_torch.synth import write_synthetic_dataset
+
+    n64 = 0
+    for tag, flags in TIE_FAMILIES:
+        sess = family_session(cfg, flags)
+        n64 += check_ties(tag, sess, pack_consts(sess))
+        del sess
+    r_max, extent = LARGE_SHAPES[0]
+    with SharedOperator():
+        big = write_synthetic_dataset(f"{tmp}/ties_large", seed,
+                                      redshift=0.3, max_radius_arcsec=r_max,
+                                      extent_kpc=extent)
+        for tag, flags in TIE_FAMILIES:
+            if tag in TIE_LARGE:
+                sess = family_session(big, flags)
+                c = pack_consts(sess)
+                check(card_plan(c) == "in place", f"{tag} at z = 0.3: "
+                      f"plan {card_plan(c)}")
+                n64 += check_ties(f"{tag}, z = 0.3", sess, c)
+                del sess, c
+    return n64
 
 
 def corner_cli(kw: dict) -> list:
@@ -1818,12 +2011,15 @@ def phase_other_clusters(cfg, tmp: str, seed: int, card: str):
     phase_geometries(seed)
     n_f64 = phase_veto_clouds(cfg, seed)
     box = phase_veto_box(tmp)
+    t_ties = time.time()
+    n_tie64 = phase_near_ties(cfg, tmp, seed)
+    t_ties = time.time() - t_ties
     phase_corner_fit(tmp, seed)
     check_instances(card)
     print(f"[26] phase 26 in {time.time() - t0:.1f} s ({n_f64} cloud rows "
-          f"vetoed by both float32 versions and kept by float64; "
-          f"production-box rows lost of those float64 keeps: {box}) on "
-          f"{card}")
+          f"vetoed by kernel 1 and kept by float64; production-box rows "
+          f"lost of those float64 keeps: {box}; near-ties in {t_ties:.1f} "
+          f"s, {n_tie64} float64-tier pairs) on {card}")
 
 
 def check_instances(card: str):
@@ -2330,6 +2526,7 @@ def family_fit(tag: str, seed: int, base: str):
     res = run.main(["--config", path] + argv + plot_flags())
     wall = time.time() - t0
     launches = read_launches()
+    f64 = f64_tier_pairs()
     t = res.timings
     m = cfg.mcmc
     nburn, nsteps, nthin, prelim = ((200, 400, 5, 100) if "--quick" in argv
@@ -2344,6 +2541,7 @@ def family_fit(tag: str, seed: int, base: str):
         "mle_device": t["mle_device"], "split_rhat": t["split_rhat"],
         "acceptance": float(np.mean(res.acceptance_fraction)),
         "launches": launches, "want": [n1, n4 if how != "mesh" else 0],
+        "f64_pairs": f64,
         "shape": list(res.chain.shape), "D": D,
         "finite": bool(np.all(np.isfinite(res.chain))
                        and np.all(np.isfinite(res.log_prob)))}))
@@ -2401,7 +2599,8 @@ def phase_family_fits(cfg, tmp: str, seed: int) -> dict:
         L = r["launches"]
         print(f"[15] {tag}: {r['wall']:.1f} s, MLE {r['mle_s']:.1f} s on "
               f"the {r['mle_device']}, split-R-hat {r['split_rhat']:.4f}, "
-              f"acceptance {r['acceptance']:.3f}, launches {L}")
+              f"acceptance {r['acceptance']:.3f}, launches {L}, the mass "
+              f"veto's float64-tier pairs {r['f64_pairs']}")
         check(r["finite"] and r["shape"][1:] == [
             FAMILY_MESH_W if tag == "config4_mesh" else W_SMOKE, r["D"]],
             f"{tag}: chain {r['shape']} or non-finite values")
@@ -3526,7 +3725,18 @@ def all_launches() -> dict:
             "sz_core": sz_core, "coupled_half": coupled_half}
 
 
+def f64_tier_pairs(reset: bool = False) -> dict:
+    """The mass veto's float64-tier pairs (``csrc/mass_veto.cuh``'s
+    counters) of kernel 1 and of the step kernels (the step kernel,
+    kernels 4 and 6) in this process."""
+    from joxsz_torch.ops import joint_kernel, step_kernel
+
+    return {"kernel 1": joint_kernel.f64_pairs(reset),
+            "step kernels": step_kernel.f64_pairs(reset)}
+
+
 def zero_launches():
+    f64_tier_pairs(reset=True)
     for fn in all_launches().values():
         fn.launches = 0
     all_launches()["stretch_steps"].launches_tempered = 0
@@ -3698,17 +3908,24 @@ def phase_main_path(cfg, tmp: str, seed: int) -> dict:
         res = run.main(argv)
     wall = time.time() - t0
     launches = read_launches()
+    f64 = f64_tier_pairs()
     acc = float(np.mean(res.acceptance_fraction))
     swaps = res.timings.get("swap_acceptance", [])
     print(f"[5] main path in {wall:.1f} s: acceptance {acc:.3f}, swap rates "
           f"{np.round(swaps, 3).tolist()}, launches {launches}")
+    t = res.timings
+    n_steps = (t["prelim_rounds"] * m.prelim_iterations + m.nburn
+               + (1 + t["auto_extend_rounds"]) * m.nsteps)
+    print(f"[5] the mass veto's float64-tier pairs over the fit: {f64}, "
+          f"{100 * f64['step kernels'] / n_steps:.2f} per 100 of the step "
+          f"kernel's {n_steps} steps (prelim and burn-in at K=1, sampling "
+          f"at K={K_SMOKE}, W={W_SMOKE})")
     check(0.1 < acc < 0.6, f"acceptance {acc} outside (0.1, 0.6)")
     check(len(swaps) == K_SMOKE - 1
           and all(math.isfinite(s) and s > 0 for s in swaps),
           f"swap rates {swaps}")
     # one launch of the step kernel per chunk of a sampling call: the
     # prelim rounds and burn-in at K = 1, the sampling calls at K = 4
-    t = res.timings
     n1 = (t["prelim_rounds"] * len(chain_chunk_schedule(
         m.prelim_iterations, 1)) + len(chain_chunk_schedule(m.nburn, 1)))
     n4 = (1 + t["auto_extend_rounds"]) * len(chain_chunk_schedule(

@@ -31,9 +31,12 @@
 //     walker one of whose radii has n_e^2 not normal (knots: one of whose
 //     masses the product takes past float32's range) as sgn ln(1 + |M|)
 //     from ln |M| (signed_log_mass), which stays finite where ll_body's
-//     mass passes 3.4e38.  Such a walker's radii run a second pass.  Two
-//     masses within float32's rounding of each other are still compared
-//     in float32, as ll_body compares them.
+//     mass passes 3.4e38.  Such a walker's radii run a second pass.  A
+//     pair of masses that float32 cannot order for sure (within an
+//     a-priori bound of its error) is decided by a float32 difference
+//     form of ln M_hi - ln M_lo and, where that cannot either, in float64
+//     as the float64 model forms the masses (mass_veto.cuh), so the veto
+//     is the float64 model's.
 //
 // Layout: one block of JT_THREADS threads evaluates TILE_WALKERS walkers.
 // The whole packed constants buffer (~128 KB at the CL J1226 shapes, L^T
@@ -84,36 +87,103 @@
 #define JT_WARPS (JT_THREADS / 32)
 #define MAX_D 32                       // parameters a tile row holds
 #define N_ROLES 24
-#define N_ARRAYS 28
+#define N_ARRAYS 31
 #define N_INTS 17
-#define N_FLOATS 6
+#define N_FLOATS 9
 #define PPW 8                          // walkers of one warp's register tile
 #define KSPLIT (JT_WARPS * PPW / TILE_WALKERS)   // k chunks of pp @ L^T
 #define PIX_LANE 3                     // map radii per lane: lane + 32 j
 #define PIX_PASS (32 * PIX_LANE)       // map radii per pass of pp @ L^T
-#define SC_STRIDE 29                   // scalar slots per walker (odd: banks)
+#define SC_STRIDE 35                   // scalar slots per walker (odd: banks)
 #define XS_N 6                         // X-ray tap slots per (walker, shell)
 #define GT_CHUNK 10                    // data points per pass of prof @ G^T
 #define PROJ_CHUNK 8                   // annuli per pass of the projection
+#define KX_COLS 5                      // floats of a knot row of KX
+#define PAIR_CAP 64                    // mass-veto pairs a tile lists
 // exp(x) is a normal float above this (ln FLT_MIN = -87.34)
 #define LN_NORMAL (-87.0f)
 
 
 // Phase clocks of the tile (scripts/torch_tile_phases.py builds with
 // -DJT_PHASE_CLOCKS): thread 0 of block 0 records clock64() at each phase
-// boundary of its last tile; read_phase_clocks copies them out.
+// boundary of its last tile (slots 0-15); slots 16-19 add up, over block
+// 0's tiles, the mass veto's deferred pairs (JT_ADD: the last warp's
+// cycles on them, the pairs, the tiles with any, the tiles whose list
+// overflowed), slot 20 the most cycles one tile's took;
+// read_phase_clocks copies them out.
+#define JT_N_CLOCKS 21
 #ifdef JT_PHASE_CLOCKS
-__device__ long long jt_clocks[16];
+__device__ long long jt_clocks[JT_N_CLOCKS];
 #define JT_MARK(i)                                         \
   do {                                                     \
     if (blockIdx.x == 0 && threadIdx.x == 0)               \
       jt_clocks[i] = clock64();                            \
   } while (0)
+#define JT_ADD(i, v)                                                   \
+  do {                                                                 \
+    if (blockIdx.x == 0)                                               \
+      atomicAdd((unsigned long long*)&jt_clocks[i],                    \
+                (unsigned long long)(v));                              \
+  } while (0)
 extern "C" int read_phase_clocks(long long* out) {
   return (int)cudaMemcpyFromSymbol(out, jt_clocks, sizeof(jt_clocks));
 }
+// Every block's tiles, in the order it runs them: the tile's SM cycles,
+// its listed mass-veto pairs and the last warp's cycles on them (0 where
+// none), JT_TILE_SLOTS tiles a block at most; read_tile_clocks copies
+// them out and starts the count again.
+#define JT_MAX_BLOCKS 256
+#define JT_TILE_SLOTS 128
+__device__ long long jt_tile_cyc[JT_MAX_BLOCKS * JT_TILE_SLOTS];
+__device__ long long jt_tile_side[JT_MAX_BLOCKS * JT_TILE_SLOTS];
+__device__ int jt_tile_pairs[JT_MAX_BLOCKS * JT_TILE_SLOTS];
+__device__ int jt_tile_n[JT_MAX_BLOCKS];
+__device__ __forceinline__ long long* jt_tile_slot(long long* a) {
+  const int b = blockIdx.x, n = jt_tile_n[b < JT_MAX_BLOCKS ? b : 0];
+  return b < JT_MAX_BLOCKS && n < JT_TILE_SLOTS ? a + b * JT_TILE_SLOTS + n
+                                               : nullptr;
+}
+#define JT_TILE_BEGIN()                                    \
+  long long jt_t0 = 0;                                     \
+  if (threadIdx.x == 0) {                                  \
+    jt_t0 = clock64();                                     \
+    if (long long* p = jt_tile_slot(jt_tile_side)) *p = 0; \
+  }
+#define JT_TILE_SIDE(dt)                                   \
+  do {                                                     \
+    if (long long* p = jt_tile_slot(jt_tile_side)) *p = (dt); \
+  } while (0)
+#define JT_TILE_END(np)                                              \
+  do {                                                               \
+    if (threadIdx.x == 0 && blockIdx.x < JT_MAX_BLOCKS) {            \
+      if (long long* p = jt_tile_slot(jt_tile_cyc)) {                \
+        *p = clock64() - jt_t0;                                      \
+        jt_tile_pairs[p - jt_tile_cyc] = (np);                       \
+      }                                                              \
+      jt_tile_n[blockIdx.x] += 1;                                    \
+    }                                                                \
+  } while (0)
+extern "C" int read_tile_clocks(long long* cyc, long long* side,
+                                int* pairs, int* n) {
+  cudaError_t e = cudaMemcpyFromSymbol(cyc, jt_tile_cyc,
+                                       sizeof(jt_tile_cyc));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(side, jt_tile_side, sizeof(jt_tile_side));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(pairs, jt_tile_pairs, sizeof(jt_tile_pairs));
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbol(n, jt_tile_n, sizeof(jt_tile_n));
+  static const int zero[JT_MAX_BLOCKS] = {};
+  if (e == cudaSuccess)
+    e = cudaMemcpyToSymbol(jt_tile_n, zero, sizeof(zero));
+  return (int)e;
+}
 #else
 #define JT_MARK(i)
+#define JT_ADD(i, v)
+#define JT_TILE_BEGIN()
+#define JT_TILE_SIDE(dt)
+#define JT_TILE_END(np)
 #endif
 static_assert(PPW % 4 == 0 && TILE_WALKERS % PPW == 0,
               "a register tile holds whole float4s of a tile's walkers");
@@ -127,11 +197,13 @@ enum Role { R_LOGN0, R_BETA, R_LOGRC, R_LOGRS, R_EPS, R_TRATIO, R_Z, R_P0,
             R_RT, R_CT, R_LOGN02, R_BETA2, R_LOGRC2, R_LS, R_KC0 };
 // packed arrays (ops/consts_layout.py::ARRAYS); KG, KM: knot table rows
 // (segment, w0, w1) of the pressure radii and the shell midpoints; KV:
-// rows (segment, w0, w1, s0, s1, r) of the mass-veto radii
+// rows (segment, w0, w1, s0, s1, r) of the mass-veto radii; DLR, RLO,
+// KX: the mass veto's exact tiers (ln(r_hi / r_lo) of np.gradient's
+// pairs, r - float32(r), the knots' rows of veto_knot_rows)
 enum Arr { A_R, A_LNR, A_LT, A_GT, A_FLUX, A_WRES, A_WT0, A_WINT, A_MIDR,
            A_LNMID, A_LR0, A_LR1, A_VOLST, A_SIGF, A_BGF, A_CMF, A_CTF, A_LO,
            A_HI, A_WG, A_MU, A_CONVT, A_CONVV, A_CONVS, A_MUI, A_KG, A_KM,
-           A_KV };
+           A_KV, A_DLR, A_RLO, A_KX };
 // family codes (ops/consts_layout.py)
 enum Fam { P_GNFW = 0, P_KNOTS = 1, T_UPP = 0, T_VIKH = 1, T_NONE = 2,
            D_SINGLE = 0, D_DOUBLE = 1 };
@@ -148,6 +220,7 @@ struct LLConsts {
       mass_veto, p_fam, t_fam, d_fam, n_knots, has_xray, has_ls;
   int cix[N_ROLES];
   float c_gnfw, alpha, gamma, t0g, inv_dtg, pos_hi;
+  float c_lo, alpha_lo, gamma_lo;  // what float32 leaves of c, alpha, gamma
 };
 
 __host__ __device__ inline int r4(int n) { return (n + 3) & ~3; }
@@ -172,7 +245,7 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
   for (int i = 0; i < N_ROLES; ++i) c.cix[i] = iv[N_INTS + i];
   for (int i = 0; i < N_ARRAYS; ++i) c.off[i] = iv[N_INTS + N_ROLES + i];
   float* fl[N_FLOATS] = {&c.c_gnfw, &c.alpha, &c.gamma, &c.t0g, &c.inv_dtg,
-                         &c.pos_hi};
+                         &c.pos_hi, &c.c_lo, &c.alpha_lo, &c.gamma_lo};
   for (int i = 0; i < N_FLOATS; ++i) *fl[i] = fv[i];
   c.buf = buf;
   c.ws = nullptr;
@@ -181,11 +254,14 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
   const int NP = c.n_press, PIX = c.n_pix, ND = c.n_data, NS = c.n_sh,
             NBA = c.n_band * c.n_ann, NBT = c.n_band * c.nT;
   const int NK = c.p_fam == P_KNOTS;
+  const int MV = c.mass_veto;
   const int size[N_ARRAYS] = {NP, NP, NP * PIX, PIX * ND, ND, ND, c.sep, NP,
                               NS, NS, NBT, NBT, NS * c.n_ann, NBA, NBA, NBA,
                               NBA, c.D, c.D, c.D, c.D, c.n_conv, c.n_conv,
                               c.n_conv, 1, NK * 3 * NP, NK * 3 * NS,
-                              NK * c.mass_veto * 6 * (c.n_knots - 1)};
+                              NK * MV * 6 * (c.n_knots - 1),
+                              (1 - NK) * MV * (NP + 2), (1 - NK) * MV * NP,
+                              NK * MV * KX_COLS * (c.n_knots - 1)};
   int end = 0;
   for (int i = 0; i < N_ARRAYS; ++i) end = imax(end, c.off[i] + size[i]);
   c.n_buf = r4(end);
@@ -195,8 +271,9 @@ static inline LLConsts make_consts(const float* buf, const int* iv,
 // The scratch of one tile's profiles (float offsets, multiples of 4).
 // R is scratch that three phases use in turn: the HSE mass (WT x n_press),
 // the partial sums of pp @ L^T (KSPLIT / 2 x WT x PIX_PASS), the X-ray taps
-// and emissivities and the Cash terms.
-struct TileLayout { int press, tsz, prof, res, sc, flags, R, total; };
+// and emissivities and the Cash terms.  pairs: the count and list of the
+// mass-veto pairs float32 is not sure of (PAIR_CAP of mass_veto.cuh).
+struct TileLayout { int press, tsz, prof, res, sc, flags, pairs, R, total; };
 __host__ __device__ inline TileLayout tile_layout(const LLConsts& c) {
   const int WT = TILE_WALKERS;
   TileLayout t;
@@ -207,6 +284,7 @@ __host__ __device__ inline TileLayout tile_layout(const LLConsts& c) {
   t.res = o;   o += WT * r4(c.n_data);         // WT x n_data
   t.sc = o;    o += r4(WT * SC_STRIDE);
   t.flags = o; o += r4(2 * WT);                // ints
+  t.pairs = o; o += r4(1 + PAIR_CAP);          // ints: count, list
   t.R = o;
   int xr = WT * c.n_sh * XS_N + 2 * WT * c.n_band * c.n_sh
            + WT * c.n_band * c.n_ann;
@@ -316,10 +394,14 @@ __device__ inline void block_tiles(int n_tiles, int* t0, int* t1) {
 
 // Per-walker scalars, one slot each in the tile's scalar area (the
 // Vikhlinin T's and the double density's after the flagship's).
+// S_VT0, S_VT0O, S_VTL, S_VTC, S_VSGN, S_VFLAG: the mass veto's tier-1
+// tolerances, the masses' sign and flags (mass_veto.cuh::
+// gnfw_walker_bounds).
 enum Scal { S_P0, S_A, S_BCA, S_LNRP, S_BMC, S_N0SQ, S_RCI, S_RSI, S_EC,
             S_ES, S_TTX, S_Z, S_BSCALE, S_CAL, S_TOTAL, S_T0, S_INTEG,
             S_CHI2, S_CASH, S_T0V, S_TMINR, S_RCLI, S_ACOOL, S_RTI, S_CTH,
-            S_N02SQ, S_RC2I, S_E2, N_SCAL };
+            S_N02SQ, S_RC2I, S_E2, S_VT0, S_VT0O, S_VTL, S_VTC, S_VSGN,
+            S_VFLAG, N_SCAL };
 static_assert(N_SCAL <= SC_STRIDE, "scalar slots");
 
 // The profile scalars of one walker, in registers: lnn0sq = ln n_0^2.
@@ -335,8 +417,10 @@ __device__ __forceinline__ Prof load_prof(const float* s) {
 // ll_body forms it), q = ln(n_e^2 / n_0^2) and lnne2 = ln n_e^2 beside
 // it, normal: every factor of the product is a normal float, and inv =
 // rsqrt(ne2), which is 1/n_e where normal (else exp(-lnne2 / 2) is:
-// over_ne).
-struct Dens { float ne2, q, lnne2, inv; bool normal; };
+// over_ne).  l1 = ln(1 + x_c^2), l2 = ln(1 + x_s^gamma), l3 (the double
+// mode's ln(1 + x_2^2)), q1 (the first term's q), lnxc = ln x_c (where
+// alpha != 0): what the mass veto's error bounds read.
+struct Dens { float ne2, q, lnne2, inv, l1, l2, l3, q1, lnxc; bool normal; };
 
 // The density at r; scw: the walker's scalar slots (the double mode's
 // term)
@@ -347,18 +431,25 @@ __device__ __forceinline__ Dens dens_of(const LLConsts& c, const Prof& s,
   float xs = r * s.rsi;
   float xs_g = (c.gamma == 3.0f) ? xs * xs * xs : powf(xs, c.gamma);
   Dens d;
-  d.q = -s.ec * log1pf(xc * xc) - s.es * log1pf(xs_g);
+  d.l1 = log1pf(xc * xc);
+  d.l2 = log1pf(xs_g);
+  d.l3 = 0.0f;
+  d.lnxc = 0.0f;
+  d.q = -s.ec * d.l1 - s.es * d.l2;
   d.ne2 = s.n0sq * expf(d.q);
   d.normal = d.q > LN_NORMAL && s.lnn0sq + d.q > LN_NORMAL;
   if (c.alpha != 0.0f) {
     d.ne2 = d.ne2 * powf(xc, -c.alpha);
-    d.q = d.q - c.alpha * logf(xc);
+    d.lnxc = logf(xc);
+    d.q = d.q - c.alpha * d.lnxc;
   }
+  d.q1 = d.q;
   if (FAM && c.d_fam == D_DOUBLE) {
     // the beta-model term n02^2 (1 + (r/rc2)^2)^(-3 beta2), and q by a
     // log-add-exp
     const float x2 = r * scw[S_RC2I];
-    const float q2 = scw[S_E2] * log1pf(x2 * x2);
+    d.l3 = log1pf(x2 * x2);
+    const float q2 = scw[S_E2] * d.l3;
     d.ne2 = d.ne2 + scw[S_N02SQ] * expf(q2);
     const float ln02 = logf(scw[S_N02SQ]);
     const float d2 = (ln02 - s.lnn0sq) + q2;
@@ -429,6 +520,9 @@ __device__ __forceinline__ float gnfw_press(const LLConsts& c, const Prof& s,
   *rel_out = expf(lnp);
   return s.p0 * *rel_out;
 }
+
+// the mass veto's tiers (they read the helpers above)
+#include "mass_veto.cuh"
 
 // The SZ chain of a tile: raw = pp @ L^T, the temperature-dependent y->mJy
 // lerp (segment index = number of interior knots <= t, so both end segments
@@ -628,14 +722,18 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   float* res = sm + L.res;
   float* sc = sm + L.sc;
   int* flags = (int*)(sm + L.flags);      // mass veto, x-ray veto
+  int* npairs = (int*)(sm + L.pairs);     // mass-veto pairs to decide
+  int* plist = npairs + 1;
   float* R = sm + L.R;
   const float INF = __int_as_float(0x7f800000);
   wait_staged();
   JT_MARK(0);
+  JT_TILE_BEGIN();
 
   // ---- priors and r_c <= r_s veto: one thread per (walker, parameter),
   // ---- PL lanes a walker; the flagship's scalars by 16 threads beside
-  // ---- them, a family's by lanes 1-4 of the walker's warp
+  // ---- them, a family's by lanes 1-4 of the walker's warp and the mass
+  // ---- veto's bounds by lane 5 (the flagship's: in the pressure grid)
   constexpr int PL = FAM ? MAX_D : 16;
   if (tid < WT * PL) {
     const int w = tid / PL, d = tid - w * PL;
@@ -661,6 +759,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       s[S_TOTAL] = total;
       flags[2 * w] = 0;
       flags[2 * w + 1] = 0;
+      if (w == 0) *npairs = 0;
     } else if (FAM && d == 1) {
       float n0 = powf(10.0f, t[c.cix[R_LOGN0]]);
       s[S_N0SQ] = n0 * n0;
@@ -689,6 +788,8 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       s[S_N02SQ] = n02 * n02;
       s[S_RC2I] = powf(10.0f, -t[c.cix[R_LOGRC2]]);
       s[S_E2] = -3.0f * t[c.cix[R_BETA2]];
+    } else if (FAM && d == 5 && c.p_fam == P_GNFW && c.mass_veto) {
+      gnfw_walker_bounds(c, st, t, s);
     }
   } else if (!FAM && tid - WT * PL < WT) {
     const int w = tid - WT * PL;
@@ -771,6 +872,12 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
     // flags[2 w] bit 2: walker w's masses on the log form
     const bool slow = radii(BoolC<false>{});
     if (slow) atomicOr(flags + 2 * w, 2);
+    // the mass veto's bounds of walker w, on its last thread, which has a
+    // radius fewer where 32 does not divide n_press (313 radii: 9 of 10),
+    // while the other warps take their last radius: off the priors
+    // phase's critical path
+    if (!FAM && c.mass_veto && tid >= nth - WT)
+      gnfw_walker_bounds(c, st, th + w * MAX_D, sc + w * SC_STRIDE);
     if (__syncthreads_or(slow) && (flags[2 * w] & 2)) radii(BoolC<true>{});
     // the 32 threads of walker w: lanes w and w + 16 of every warp
     t0s += __shfl_xor_sync(0xffffffffu, t0s, 16);
@@ -784,6 +891,16 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   JT_MARK(2);
 
   // ---- mass veto; T(0) and integrated Y summed over the warps in order ---
+  // (float32 where it is sure; the pairs it is not sure of, of a walker
+  // inside the prior box that no sure pair vetoes, listed for mass_veto.
+  // cuh's tiers 2-3 (decide_pair): each thread keeps its own in pend, bit
+  // j for its j-th pair, until a barrier has every sure veto in flags)
+  auto list_pair = [&](int w, int k) {
+    const int i = atomicAdd(npairs, 1);
+    if (i < PAIR_CAP) plist[i] = (w << 16) | k;
+    else atomicOr(flags + 2 * w, 32);      // every pair of w decided
+  };
+  unsigned long long pend = 0ull;
   if (FAM && c.mass_veto && c.p_fam == P_KNOTS) {
     // the segment-averaged mass at one log-midpoint per segment, M = -P
     // slope r / ne C scaled by n_0 C: strictly increasing, ending positive
@@ -798,36 +915,55 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       const float sl = knot_log10(row, kv, 3, 4);
       const float rm = row[5];
       const Prof s = load_prof(scw);
-      const float lpn = lnpm - 0.5f * dens_of<FAM>(c, s, scw, rm).q;
+      const Dens dn = dens_of<FAM>(c, s, scw, rm);
+      const float lpn = lnpm - 0.5f * dn.q;
       mm[idx] = -sl * rm * expf(lpn);
       const float sgn = (float)((sl < 0.0f) - (sl > 0.0f));
       mm[WT * NM + idx] =
           signed_log_mass(logf(fabsf(sl)) + logf(rm) + lpn, sgn);
+      knot_mass_bounds<FAM>(c, s, scw, row, kv, sl, lnpm, lpn, dn,
+                            mm + 2 * WT * NM + idx, mm + 3 * WT * NM + idx);
     }
     __syncthreads();
     if (tid < WT) {
       // the product form, or the signed log form for a walker one of
-      // whose masses the product form takes past float32's range
+      // whose masses the product form takes past float32's range; the
+      // masses' signs exact from the knot values
       const float* m = mm + tid * NM;
       bool wide = false;
       for (int j = 0; j < NM; ++j)
         wide = wide | !(isfinite(m[j]) && m[j] != 0.0f);
       if (wide) m = mm + WT * NM + tid * NM;
-      bool bad = !(m[NM - 1] > 0.0f);
-      for (int j = 0; j + 1 < NM; ++j) bad = bad | !(m[j + 1] > m[j]);
+      const float* kv = th + tid * MAX_D + c.cix[R_KC0];
+      const float* scw = sc + tid * SC_STRIDE;
+      const float cq = knot_cq<FAM>(c, load_prof(scw), scw);
+      const float* KX = st + c.off[A_KX];
+      bool bad = !(kv[NM] < kv[NM - 1]);
+      for (int j = 0; j + 1 < NM; ++j)
+        if (knot_tier1(m, mm + 2 * WT * NM + tid * NM,
+                       mm + 3 * WT * NM + tid * NM, kv, KX[KX_COLS * j + 3],
+                       cq, wide, j, &bad)) {
+          if (j < 64) pend |= 1ull << j;
+          else list_pair(tid, j);
+        }
       if (bad) atomicOr(flags + 2 * tid, 1);
+      else if (scw[S_TOTAL] > -INF)
+        for (int j = 0; pend >> j; ++j)
+          if ((pend >> j) & 1ull) list_pair(tid, j);
+      pend = 0ull;
     }
   } else if (c.mass_veto) {
     // np.gradient(m) > 0: central differences inside, one-sided at the
     // edges; a NaN comparison is false and vetoes
     const int w = tid % WT;
-    const float* m = mm + w * NP;
     bool bad = false;
-#pragma unroll 4
-    for (int k = tid / WT; k < NP; k += nth / WT) {
-      const int lo = k == 0 ? 0 : k - 1, hi = k == NP - 1 ? NP - 1 : k + 1;
-      bad = bad | !(m[hi] > m[lo]);
-    }
+    if (sc[w * SC_STRIDE + S_TOTAL] > -INF)
+      gnfw_tier1(mm + w * NP, sc + w * SC_STRIDE, flags[2 * w], tid / WT,
+                 nth / WT, NP, &bad, [&](int k) {
+                   const int j = (k - tid / WT) / (nth / WT);
+                   if (j < 64) pend |= 1ull << j;
+                   else list_pair(w, k);
+                 });
     if (bad) atomicOr(flags + 2 * w, 1);
   }
   if (tid < WT) {
@@ -839,25 +975,90 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
     sc[tid * SC_STRIDE + S_T0] = t0s;
     sc[tid * SC_STRIDE + S_INTEG] = is;
   }
-  __syncthreads();
+  if (__syncthreads_or(pend != 0ull)) {
+    // the kept pairs of walkers no sure pair vetoed
+    const int w = tid % WT;
+    if (pend && !(flags[2 * w] & 1))
+      for (int j = 0; pend >> j; ++j)
+        if ((pend >> j) & 1ull) list_pair(w, tid / WT + j * (nth / WT));
+    __syncthreads();
+  }
   JT_MARK(3);
 
   // ---- SZ: raw = pp @ L^T, lerp x calibration, model = prof @ G^T, chi^2 --
   sz_chain_tile(c, st, pressT, sc + S_T0, SC_STRIDE, tsz, TS, sc + S_CAL,
                 SC_STRIDE, prof, R, res, sc + S_CHI2, SC_STRIDE);
 
-  // ---- X-ray (none in an SZ-only session) ---------------------------------
-  if (!FAM || c.has_xray) {
-  // ---- X-ray: midpoint profiles, two-tap count-rate lookup ---------------
+  // the listed mass-veto pairs (tiers 2-3), by the last warp: beside the
+  // X-ray phases, which the other warps then take alone, or before the
+  // combine; where the list overflowed, every pair of a walker flagged 32
+  // as well
+  auto decide_listed = [&]() {
+    const int n = *npairs < PAIR_CAP ? *npairs : PAIR_CAP;
+    const int per = (FAM && c.p_fam == P_KNOTS) ? c.n_knots - 2 : NP;
+    const int all = *npairs > PAIR_CAP ? WT * per : 0;
+#ifdef JT_PHASE_CLOCKS
+    const long long t_side = clock64();
+#endif
+    for (int i = lane; i < n + all; i += 32) {
+      int w, k;
+      if (i < n) {
+        w = plist[i] >> 16;
+        k = plist[i] & 0xffff;
+      } else {
+        w = (i - n) / per;
+        k = i - n - w * per;
+        if (!(flags[2 * w] & 32)) continue;
+      }
+      decide_pair<FAM>(c, st, th, sc, flags, w, k);
+    }
+#ifdef JT_PHASE_CLOCKS
+    __syncwarp();
+    if (lane == 0 && n) {
+      const long long dt = clock64() - t_side;
+      JT_ADD(16, dt);
+      JT_ADD(17, n);
+      JT_ADD(18, 1);
+      if (all) JT_ADD(19, 1);
+      if (blockIdx.x == 0)
+        atomicMax((unsigned long long*)&jt_clocks[20],
+                  (unsigned long long)dt);
+      JT_TILE_SIDE(dt);
+    }
+#endif
+  };
+
+  // ---- X-ray (none in an SZ-only session): midpoint profiles, two-tap
+  // ---- count-rate lookup, projection, prediction, positivity veto, Cash
+  const bool xray = !FAM || c.has_xray;
   float* xs = R;                                    // WT x NS x XS_N
   float* e0 = xs + WT * NS * XS_N;                  // WT x NB x NS
   float* e1 = e0 + WT * NB * NS;
   float* cash = e1 + WT * NB * NS;                  // WT x NB x NA
+  const float* V = st + c.off[A_VOLST];
+  const float* sigf = st + c.off[A_SIGF];
+  const float* bgf = st + c.off[A_BGF];
+  const float* cmf = st + c.off[A_CMF];
+  const float* ctf = st + c.off[A_CTF];
+  const int cells = NB * NA;
+  // a tile with listed pairs runs the taps, the emissivities and the
+  // projection on all warps but the last (nx threads, a named barrier
+  // between the phases), and the last warp decides the pairs beside all
+  // three: a float64 pair takes several thousand cycles, more than the
+  // projection alone leaves idle.  Every element is computed as by nth
+  // threads, so the values do not depend on the split.
+  const bool split = xray && *npairs > 0;
+  const int nx = split ? nth - 32 : nth;
+  auto xbar = [&]() {
+    if (split) asm volatile("barrier.sync 1, %0;" ::"r"(nx) : "memory");
+    else __syncthreads();
+  };
+  if (xray && tid < nx) {
   {
     const float* midr = st + c.off[A_MIDR];
     const float* lnmid = st + c.off[A_LNMID];
     const float* KM = st + c.off[A_KM];
-    for (int idx = tid; idx < WT * NS; idx += nth) {
+    for (int idx = tid; idx < WT * NS; idx += nx) {
       const int w = idx / NS, j = idx - w * NS;
       const float* scw = sc + w * SC_STRIDE;
       const Prof s = load_prof(scw);
@@ -902,13 +1103,13 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       x[5] = bad ? 1.0f : 0.0f;
     }
   }
-  __syncthreads();
+  xbar();
   JT_MARK(9);
   {
     const float* LR0 = st + c.off[A_LR0];
     const float* LR1 = st + c.off[A_LR1];
     const float NaN = __int_as_float(0x7fc00000);
-    for (int idx = tid; idx < WT * NB * NS; idx += nth) {
+    for (int idx = tid; idx < WT * NB * NS; idx += nx) {
       const int w = idx / (NB * NS), rem = idx - w * NB * NS;
       const int b = rem / NS, j = rem - b * NS;
       const float* x = xs + (w * NS + j) * XS_N;
@@ -923,20 +1124,11 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       e1[idx] = expf(l1) * z * n2;
     }
   }
-  __syncthreads();
+  xbar();
   JT_MARK(10);
-
-  // ---- X-ray: projection, prediction, positivity veto, Cash -------------
-  {
-    const float* V = st + c.off[A_VOLST];
-    const float* sigf = st + c.off[A_SIGF];
-    const float* bgf = st + c.off[A_BGF];
-    const float* cmf = st + c.off[A_CMF];
-    const float* ctf = st + c.off[A_CTF];
-    const int cells = NB * NA;
     // the projection: one thread per (walker, band), PROJ_CHUNK annuli at
     // a time, each sum over the shells in order; p0 + p1 into cash
-    for (int row = tid; row < WT * NB; row += nth) {
+    for (int row = tid; row < WT * NB; row += nx) {
       const float* E0 = e0 + row * NS;
       const float* E1 = e1 + row * NS;
       for (int i0 = 0; i0 < NA; i0 += PROJ_CHUNK) {
@@ -957,7 +1149,12 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
           if (i0 + q < NA) cash[row * NA + i0 + q] = p0[q] + p1[q];
       }
     }
-    __syncthreads();
+  }
+  // the listed mass-veto pairs: the last warp (alone before the combine
+  // in an SZ-only session)
+  if (warp == JT_WARPS - 1) decide_listed();
+  __syncthreads();
+  if (xray) {
     for (int idx = tid; idx < WT * cells; idx += nth) {
       const int w = idx / cells, bi = idx - w * cells;
       const float pred = cash[idx] * sigf[bi]
@@ -974,8 +1171,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
       s = warp_sum(s);
       if (lane == 0) sc[w * SC_STRIDE + S_CASH] = s;
     }
-  }
-  __syncthreads();
+    __syncthreads();
   }
   JT_MARK(12);
 
@@ -983,7 +1179,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   if (tid < WT) {
     const float* s = sc + tid * SC_STRIDE;
     float total = s[S_TOTAL];
-    if (flags[2 * tid] & 1) total = -INF;
+    if (flags[2 * tid] & 9) total = -INF;
     total = total - 0.5f * s[S_CHI2];
     float di = s[S_INTEG] - st[c.off[A_MUI]];
     total = total - 0.5f * di * di;
@@ -993,6 +1189,7 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   }
   __syncthreads();
   JT_MARK(13);
+  JT_TILE_END(*npairs);
 }
 
 // ---- host side ------------------------------------------------------------

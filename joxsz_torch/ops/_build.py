@@ -126,8 +126,24 @@ def kernel_library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
+        lib.read_f64_pairs.argtypes = [_P, _I]
+        lib.read_f64_pairs.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def f64_pairs(name: str, reset: bool = False) -> int:
+    """The mass-veto pairs the float64 tier decided (``csrc/mass_veto.cuh::
+    jt_f64_pairs``) over every launch of ``csrc/<name>.cu``'s kernels in
+    this process since the last reset: 0 when the library is not loaded.
+    Synchronises with the card (a copy from the device)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        return 0
+    out = ctypes.c_ulonglong(0)
+    check_launch(lib.read_f64_pairs(ctypes.byref(out), int(reset)),
+                 f"read_f64_pairs of {name}")
+    return int(out.value)
 
 
 def launch_checked(kind: str, fn, *args, what: str | None = None):

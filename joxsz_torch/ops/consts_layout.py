@@ -32,21 +32,30 @@ ROLES = ("log(n_0)", r"\beta", "log(r_c)", "log(r_s)", r"\epsilon",
 
 # float-buffer arrays, in buffer order (enum Arr in csrc/joint_ll.cuh);
 # KG / KM / KV: the knot tables of the pressure grid, the X-ray shell
-# midpoints and the mass-veto radii (knot_table)
+# midpoints and the mass-veto radii (knot_table); the mass veto's exact
+# tiers (csrc/mass_veto.cuh): DLR ln(r_hi / r_lo) of each np.gradient
+# pair and RLO r - float32(r) on the pressure grid, KX the knots' rows
+# (veto_knot_rows)
 ARRAYS = ("r", "lnr", "LT", "GT", "flux", "wres", "wT0", "wint", "midr",
           "lnmid", "LR0", "LR1", "volsT", "sigf", "bgf", "cmf", "ctf", "lo",
           "hi", "wg", "mu", "convT", "convV", "convS", "mui", "KG", "KM",
-          "KV")
+          "KV", "DLR", "RLO", "KX")
 # scalar ints / floats handed to the launch, in the C struct's order
 INTS = ("n_press", "sep", "n_pix", "n_data", "n_sh", "n_ann", "n_band",
         "nT", "n_conv", "D", "mass_veto", "p_fam", "t_fam", "d_fam",
         "n_knots", "has_xray", "has_ls")
-FLOATS = ("c_gnfw", "alpha", "gamma", "t0g", "inv_dtg", "pos_hi")
+# (c_lo, alpha_lo, gamma_lo: what float32 leaves of the frozen c, alpha
+# and gamma, which the veto's float64 tier adds back)
+FLOATS = ("c_gnfw", "alpha", "gamma", "t0g", "inv_dtg", "pos_hi", "c_lo",
+          "alpha_lo", "gamma_lo")
 
 # the tile's sizes (the #defines of csrc/joint_ll.cuh; HALF_EXTRA of
 # csrc/stretch_step.cu): walkers a tile, parameters a row, k chunks of
 # pp @ L^T, map radii a pass, scalar and X-ray tap slots a walker
-TILE_WALKERS, MAX_D, KSPLIT, PIX_PASS, SC_STRIDE, XS_N = 16, 32, 8, 96, 29, 6
+TILE_WALKERS, MAX_D, KSPLIT, PIX_PASS, SC_STRIDE, XS_N = 16, 32, 8, 96, 35, 6
+# the tile's list of mass-veto pairs its float32 product form is not sure
+# of (csrc/mass_veto.cuh::PAIR_CAP), and the floats of the knots' KX rows
+PAIR_CAP, KX_COLS = 64, 5
 HALF_EXTRA = TILE_WALKERS * MAX_D + 6 * TILE_WALKERS + 4
 # the dynamic shared memory a block of an H100 may opt in to (bytes), the
 # limit the plan meets on the card (cudaDevAttrMaxSharedMemoryPerBlockOptin)
@@ -152,6 +161,54 @@ def knot_table(knots_logr, logq, slopes: bool = False) -> np.ndarray:
                                                     6 if slopes else 3)
 
 
+def gradient_pairs(n: int):
+    """(lo, hi) index arrays of ``np.gradient``'s pairs on n points: k - 1
+    and k + 1 inside, one-sided (0, 1) and (n - 2, n - 1) at the edges;
+    the sign of gradient k is that of m[hi] - m[lo]."""
+    k = np.arange(n)
+    return np.maximum(k - 1, 0), np.minimum(k + 1, n - 1)
+
+
+def veto_grid_rows(r_kpc) -> dict:
+    """The mass veto's exact tiers' constants of the pressure grid
+    (float64): DLR, ln(r_hi / r_lo) of each ``gradient_pairs`` pair, then
+    its largest value on the grid's inner and outer half (the pairs
+    before and from ``n // 2``), and RLO, what float32 leaves of r (r =
+    float32(r) + RLO to ~1e-15)."""
+    r = np.asarray(r_kpc, np.float64)
+    lo, hi = gradient_pairs(r.size)
+    dlr = np.log(r[hi] / r[lo])
+    k = r.size // 2
+    return {"DLR": np.r_[dlr, dlr[:k].max() if k else 0.0, dlr[k:].max()],
+            "RLO": r - r.astype(np.float32).astype(np.float64)}
+
+
+def split_f64(x):
+    """(hi, lo) float32 parts of x: hi = float32(x), lo = float32(x - hi),
+    so hi + lo holds x to ~1e-15 relative."""
+    x = np.asarray(x, np.float64)
+    hi = x.astype(np.float32).astype(np.float64)
+    return hi, x - hi
+
+
+def veto_knot_rows(knots_logr) -> np.ndarray:
+    """The knot veto's exact tiers' rows, one per segment midpoint j (the
+    mass-veto radii of ``knot_table(..., slopes=True)``): (what float32
+    leaves of rm_j, 1 / d_j in two float32 parts, ln(rm_j+1 / rm_j) and
+    ln(d_j / d_j+1) of the pair (j, j + 1) (0 for the last midpoint)),
+    d_j = k_j+1 - k_j in log10 r."""
+    k = np.asarray(knots_logr, np.float64)
+    lq = (k[:-1] + k[1:]) / 2.0
+    rm_lo = split_f64(10.0 ** lq)[1]
+    d = np.diff(k)
+    inv_hi, inv_lo = split_f64(1.0 / d)
+    nm = lq.size
+    lnrho, lndr = np.zeros(nm), np.zeros(nm)
+    lnrho[:-1] = np.log(10.0) * np.diff(lq)
+    lndr[:-1] = np.log(d[:-1] / d[1:])
+    return np.stack([rm_lo, inv_hi, inv_lo, lnrho, lndr], axis=1)
+
+
 def check_conv_table(conv_T):
     """Raise ``ValueError`` unless the y->mJy table's temperatures never
     decrease: the kernels find the lerp's segment (the number of interior
@@ -233,7 +290,10 @@ def launch_plan(params: LaunchParams, kernel: str,
     size = (NP, NP, NP * PIX, PIX * ND, ND, ND, I["sep"], NP, NS, NS, NBT,
             NBT, NS * NA, NBA, NBA, NBA, NBA, I["D"], I["D"], I["D"], I["D"],
             I["n_conv"], I["n_conv"], I["n_conv"], 1, NK * 3 * NP,
-            NK * 3 * NS, NK * I["mass_veto"] * 6 * (I["n_knots"] - 1))
+            NK * 3 * NS, NK * I["mass_veto"] * 6 * (I["n_knots"] - 1),
+            (1 - NK) * I["mass_veto"] * (NP + 2),
+            (1 - NK) * I["mass_veto"] * NP,
+            NK * I["mass_veto"] * KX_COLS * (I["n_knots"] - 1))
     n_buf = _r4(max(o + n for o, n in zip(off, size)))
     WT = TILE_WALKERS
     if kernel == "sz_core":
@@ -245,6 +305,7 @@ def launch_plan(params: LaunchParams, kernel: str,
         xr = WT * NS * XS_N + 2 * WT * NB * NS + WT * NB * NA
         scratch = (_r4(WT * NP) + _r4(WT * I["sep"]) + WT * _pix_stride(PIX)
                    + WT * _r4(ND) + _r4(WT * SC_STRIDE) + _r4(2 * WT)
+                   + _r4(1 + PAIR_CAP)
                    + _r4(max(WT * NP, KSPLIT // 2 * WT * PIX_PASS, xr)))
     limit = smem_optin // 4
     if own + scratch + n_buf <= limit:

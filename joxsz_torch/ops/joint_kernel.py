@@ -51,7 +51,9 @@ float32 form leaves float32's range at the corners of the prior box, both
 take 1/n_e and P/n_e from ln n_e^2 where n_e^2 is not a normal float, and
 the mass veto compares the mass scaled by n_0 / |P_0| and rid of its
 constant factor: a product, or a signed logarithm for a row one of whose
-radii has n_e^2 not normal.
+radii has n_e^2 not normal; a pair of masses that comparison cannot
+order for sure is decided as the float64 model decides it
+(``ops/mass_veto.py``, ``csrc/mass_veto.cuh``).
 """
 
 from __future__ import annotations
@@ -63,7 +65,9 @@ import torch
 
 from .consts_layout import (MAX_D, ROLES, LaunchParams, P_KNOTS, T_VIKH,
                             D_DOUBLE, check_conv_table, detect_family,
-                            knot_table, pack_arrays)
+                            knot_table, pack_arrays, split_f64,
+                            veto_grid_rows, veto_knot_rows)
+from . import mass_veto
 from .sz_core import conv_slopes, sz_chain_plain, sz_padded_data
 
 LN10 = float(np.log(10.0))
@@ -207,6 +211,10 @@ def _session_spec(sess) -> dict:
                   alpha=float(p[r"\alpha"].val),
                   gamma=float(p[r"\gamma"].val),
                   t0g=0.0, inv_dtg=0.0, pos_hi=0.0)
+    # the float64 tier of the mass veto reads the frozen shape parameters
+    # as float32 pairs
+    for k in ("c_gnfw", "alpha", "gamma"):
+        floats[k.split("_")[0] + "_lo"] = float(split_f64(floats[k])[1])
     Tlog = np.zeros(0)
     if has_xray:
         Tlog = _np(xr.table.Tlog)
@@ -298,6 +306,9 @@ def _cluster_arrays(spec: dict, sz, xr) -> dict:
             arrs["KM"] = knot_table(k, np.log10(arrs["midr"]))
         if I["mass_veto"]:
             arrs["KV"] = knot_table(k, (k[:-1] + k[1:]) / 2.0, slopes=True)
+            arrs["KX"] = veto_knot_rows(k)
+    elif I["mass_veto"]:
+        arrs.update(veto_grid_rows(r_pp))
     for k, shape in want.items():
         if arrs[k].shape != shape:
             raise StackMismatch(f"{k} has shape {arrs[k].shape}, the "
@@ -376,15 +387,18 @@ def _over_ne(p, dens):
     """p / n_e from ``dens``'s (1/n_e, n_e^2, ln n_e^2, normal): p x 1/n_e
     where n_e^2 is normal, else exp(ln p - ln n_e^2 / 2), which stays
     finite where 1/n_e alone would pass float32's range."""
-    ne_inv, _, ln_ne2, normal, _ = dens
+    ne_inv, _, ln_ne2, normal = dens[:4]
     return torch.where(normal, p * ne_inv,
                        torch.exp(torch.log(p) - 0.5 * ln_ne2))
 
 
-def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
+def joint_ll_plain(theta: torch.Tensor, c: JointConsts,
+                   veto_details: dict | None = None) -> torch.Tensor:
     """(B, D) float32 -> (B,) float32 log-posterior: the kernel's
     arithmetic in plain torch (the mirror of ``ll_body``), every family
-    branch included."""
+    branch included.  ``veto_details``, if given, receives the mass
+    veto's tiers on every pair (``mass_veto.gnfw_veto`` / ``knot_veto``)
+    and the masses (``m``, ``wide``)."""
     A, I, F = c.arrays, c.ints, c.floats
     th = theta.to(torch.float32)
     NEG = torch.tensor(-float("inf"), dtype=torch.float32, device=th.device)
@@ -448,32 +462,41 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
         e2 = -3.0 * col(r"\beta_2")
 
     def dens(rr):
-        """(1/n_e, n_e^2, ln n_e^2, normal, q) at rr: n_e^2 as a product
-        of exponentials, q = ln(n_e^2 / n_0^2) and ln n_e^2 beside it;
-        where every factor of the product is a normal float (normal)
-        1/n_e is rsqrt(n_e^2), else exp(-ln n_e^2 / 2)."""
+        """(1/n_e, n_e^2, ln n_e^2, normal, q, parts) at rr: n_e^2 as a
+        product of exponentials, q = ln(n_e^2 / n_0^2) and ln n_e^2
+        beside it; where every factor of the product is a normal float
+        (normal) 1/n_e is rsqrt(n_e^2), else exp(-ln n_e^2 / 2).  parts:
+        the log1p terms l1 = ln(1 + x_c^2), l2 = ln(1 + x_s^gamma) (and
+        l3, the double mode's), q1 the first term's q, ln x_c (the mass
+        veto's error bounds)."""
         xc = rr * rci
         xs = rr * rsi
         xs_g = xs * xs * xs if gamma == 3.0 else xs ** gamma
-        q = -e_c * torch.log1p(xc * xc) - e_s * torch.log1p(xs_g)
+        l1, l2 = torch.log1p(xc * xc), torch.log1p(xs_g)
+        q = -e_c * l1 - e_s * l2
         ne2 = n0sq * torch.exp(q)
         normal = (q > LN_NORMAL) & (lnn0sq + q > LN_NORMAL)
+        parts = dict(l1=l1, l2=l2)
         if alpha != 0.0:
             ne2 = ne2 * xc ** (-alpha)
-            q = q - alpha * torch.log(xc)
+            parts["lnxc"] = torch.log(xc)
+            q = q - alpha * parts["lnxc"]
+        parts["q1"] = q
         if I["d_fam"] == D_DOUBLE:
             x2 = rr * rc2i
-            q2 = e2 * torch.log1p(x2 * x2)
+            parts["l3"] = torch.log1p(x2 * x2)
+            q2 = e2 * parts["l3"]
             ne2 = ne2 + n02sq * torch.exp(q2)
             d2 = (lnn02sq - lnn0sq) + q2
             hi_, lo_ = torch.maximum(q, d2), torch.minimum(q, d2)
             q = hi_ + torch.log1p(torch.exp(lo_ - hi_))
             normal = normal & (q2 > LN_NORMAL) & (lnn02sq + q2 > LN_NORMAL)
+        parts["q"] = q
         ln_ne2 = lnn0sq + q
         normal = normal & (ln_ne2 > LN_NORMAL)
         ne_inv = torch.where(normal, torch.rsqrt(ne2),
                              torch.exp(-0.5 * ln_ne2))
-        return ne_inv, ne2, ln_ne2, normal, q
+        return ne_inv, ne2, ln_ne2, normal, q, parts
 
     if vikh:
         T0v, tminr = col("T_0"), col("T_{min}/T_0")
@@ -489,7 +512,13 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
     dens_r = dens(r)
 
     # HSE-mass veto on the mass scaled by n_0 / |P_0| (by n_0 for knot
-    # pressure), its constant factor dropped, which keeps its order
+    # pressure), its constant factor dropped, which keeps its order; the
+    # float32 comparison where it is sure, else the exact tiers of
+    # ops.mass_veto (the float64 model's verdict)
+    if I["mass_veto"]:
+        sc = dict(ec=e_c, es=e_s, rci=rci, rsi=rsi, lnn0sq=lnn0sq)
+        if I["d_fam"] == D_DOUBLE:
+            sc.update(e2=e2, ln02=lnn02sq, rc2i=rc2i)
     if I["mass_veto"] and knots:
         # the segment-averaged mass at one log-midpoint per segment,
         # strictly increasing and ending positive
@@ -497,7 +526,8 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
         rm = KV[:, 5]
         lnpm = LN10 * _knot_lerp(th, kc0, KV)
         slope = _knot_lerp(th, kc0, KV, cols=(3, 4))
-        lpn = lnpm - 0.5 * dens(rm)[4]
+        dens_m = dens(rm)
+        lpn = lnpm - 0.5 * dens_m[4]
         m = -slope * rm * torch.exp(lpn)
         # the signed log form for a row one of whose masses the product
         # takes past float32's range
@@ -506,15 +536,21 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
             m = torch.where(wide, _signed_log_mass(
                 torch.log(slope.abs()) + torch.log(rm) + lpn,
                 -torch.sign(slope)), m)
-        mono = ((m[:, 1:] > m[:, :-1]).all(dim=1, keepdim=True)
-                & (m[:, -1:] > 0.0))
+        seg = KV[:, 0].long() + kc0
+        e, el, cq = mass_veto.knot_mass_bounds(
+            c, sc, th[:, seg], th[:, seg + 1], slope, lnpm, lpn,
+            dens_m[5])
+        if veto_details is not None:
+            veto_details.update(m=m, wide=wide, e=e, el=el, cq=cq)
+        mono = mass_veto.knot_veto(th, c, kc0, m, wide, e, el, cq, sc,
+                                   total, veto_details)
         total = torch.where(mono, total, NEG)
     elif I["mass_veto"]:
         # (P / P_0) r g (1 / n_e) n_0 sign(P_0) as a product, as ll_body
         # forms it, and in the signed log form for a row one of whose
-        # radii has n_e^2 not normal; central differences inside,
-        # one-sided at the edges
-        ne_inv, _, _, normal, q = dens_r
+        # radii has n_e^2 not normal; np.gradient's pairs: central
+        # differences inside, one-sided at the edges
+        ne_inv, _, _, normal, q, _ = dens_r
         g = cg + (b_ - cg) * sfrac
         m = p_rel * r * g * ne_inv * (torch.sign(P0) * torch.sqrt(n0sq))
         wide = (~normal).any(dim=1, keepdim=True)
@@ -522,8 +558,11 @@ def joint_ll_plain(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
             m = torch.where(wide, _signed_log_mass(
                 A["lnr"] + torch.log(g.abs()) + lnp - 0.5 * q,
                 torch.sign(P0) * torch.sign(g)), m)
-        mono = ((m[:, 2:] > m[:, :-2]).all(dim=1, keepdim=True)
-                & (m[:, 1:2] > m[:, 0:1]) & (m[:, -1:] > m[:, -2:-1]))
+        sc.update(P0=P0, a=a_, bca=bca, bmc=b_ - cg, lnrp=lnrp)
+        if veto_details is not None:
+            veto_details.update(m=m, wide=wide)
+        mono = mass_veto.gnfw_veto(th, c, m, wide, sc, total,
+                                   veto_details)
         total = torch.where(mono, total, NEG)
 
     # SZ
@@ -627,6 +666,19 @@ def joint_ll(theta: torch.Tensor, c: JointConsts) -> torch.Tensor:
 
 
 joint_ll.launches = 0
+
+
+def f64_pairs(reset: bool = False) -> int:
+    """Mass-veto pairs the float64 tier decided (``ops.mass_veto``): over
+    kernel 1's launches on the card (``csrc/joint_ll.cu``'s counter) and
+    the plain version's calls on the CPU, since the last reset (``reset``
+    clears both after reading)."""
+    from ._build import f64_pairs as card
+
+    n = card("joint_ll", reset) + mass_veto.F64_PAIRS[0]
+    if reset:
+        mass_veto.F64_PAIRS[0] = 0
+    return n
 
 
 def joint_ll_flops(c: JointConsts) -> int:

@@ -345,3 +345,13 @@ def stretch_steps(x, lp, acc, sacc, beta, db, seed: int, n_steps: int,
 stretch_steps.launches = 0
 stretch_steps.launches_tempered = 0
 stretch_steps.launches_roll = [0, 0]
+
+
+def f64_pairs(reset: bool = False) -> int:
+    """Mass-veto pairs the float64 tier decided in the step kernels (this
+    kernel, kernel 4 and kernel 6: ``csrc/stretch_step.cu``'s counter)
+    since the last reset; the plain versions count in
+    ``joint_kernel.f64_pairs``."""
+    from ._build import f64_pairs as card
+
+    return card("stretch_step", reset)

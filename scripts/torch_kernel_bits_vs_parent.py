@@ -14,25 +14,28 @@ per-half-step and per-boundary launches (``stretch_half`` / ``swap`` /
   pressure, which take the family instance;
 * one tempered step (W=1024, K=4, Philox seed 1234) from each of 20 start
   states, with the kernel's decisions and the margins of the same step run
-  in plain torch on that tree's kernel-1 likelihood;
+  in plain torch on that tree's kernel-1 likelihood, and which of its
+  proposals kernel 1 vetoes;
 * times on the card: kernel 1 (CUDA events; the flagship, and the family
   instance on the double density and on knots); device time per half-step at
   2048 rows (the cluster grid, C=4), 512 rows (K=1, W=1024) and 16 rows
   (K=1, W=32) and per tempered step at K=4, W=1024 (torch.profiler, over
   100 steps); the survey fit (``fit_survey``, C=4, W=1024, 1000 + 1000
   steps) ``sampling_s``; the hybrid mesh sampler (W=128 over four shards
-  on this card, 40 windows of 101 steps) in evals/s.
+  on this card, 40 windows of 101 steps) in evals/s; where the tree has
+  the mass veto's float64 tier, the pairs it decided over 100 K=4 steps
+  from the timed state.
 
 The two trees' outputs must agree as ``chip_smoke.py`` phases 3-4 hold a
 kernel to its plain version: kernel 1 (each of the three families) with
 identical -inf masks, apart from rows where this checkout's verdict is
 the float64 model's, and finite values within rtol=2e-4, atol=0.5; a
-step decision may differ
-only where the decision lies within MARGIN (1e-3) plus the two trees'
-threshold difference of its threshold (a change of summation order moves
-a log-posterior by float32 rounding, and so a threshold, and nothing
-else), and that difference stays within 2 beta x 0.05 + MARGIN.  Exit
-code 1 if they do not.  The trees run in the order change, parent,
+step decision may differ where the two trees' kernel 1 disagree on the
+proposal's veto (counted and printed) or where the decision lies within
+MARGIN (1e-3) plus the two trees' threshold difference of its threshold
+(a change of summation order moves a log-posterior by float32 rounding,
+and so a threshold, and nothing else), and that difference stays within
+2 beta x 0.05 + MARGIN.  Exit code 1 if they do not.  The trees run in the order change, parent,
 parent, change, so their times stand beside each other from one card and
 one call.
 
@@ -96,8 +99,14 @@ def steps(x, lp, acc, b, seed, n, step0=0):
     return sacc
 
 bits = sk.philox_stream(1234, "cuda")
-lp_k1 = lambda th: joint_ll(th, c)
-dec, m0, m1, msw, nsw = [], [], [], [], []
+fin = []
+
+def lp_k1(th):
+    out = joint_ll(th, c)
+    fin.append(torch.isfinite(out).reshape(K, H).cpu().numpy())
+    return out
+
+dec, m0, m1, msw, nsw, fin0, fin1 = [], [], [], [], [], [], []
 for s in range(20):
     x, lp, acc = state(K, W, 100 + s)
     xr, lr, ar = x, lp, acc
@@ -112,6 +121,7 @@ for s in range(20):
         sw.append(m)
     sacc = steps(x, lp, acc, beta, 1234, 1, step0=s)
     dec.append((acc > 0.5).cpu().numpy()); m0.append(ms[0].cpu().numpy()); m1.append(ms[1].cpu().numpy())
+    fin0.append(fin[-2]); fin1.append(fin[-1])
     msw.append(torch.stack(sw).cpu().numpy()); nsw.append(sacc[:K - 1].cpu().numpy())
 
 def ev_ms(fn, reps):
@@ -160,6 +170,11 @@ x, lp, acc = state(K, W, 8)
 us, wall = device_us(lambda: steps(x, lp, acc, beta, 99, n))
 t["K=4 step device us"], t["K=4 step wall us"] = us / n, wall / n
 t["K=4 step events us"] = 1e3 * ev_ms(lambda: steps(x, lp, acc, beta, 99, n), 3) / n
+if hasattr(sk, "f64_pairs"):
+    x, lp, acc = state(K, W, 8)
+    sk.f64_pairs(reset=True)
+    steps(x, lp, acc, beta, 99, n)
+    t["K=4 float64-tier pairs per 100 steps"] = sk.f64_pairs(reset=True) * 100.0 / n
 m = sess.model
 copies = pack_consts_stack(sess, stack_sz_data([m.sz_data] * 4), stack_xray_data([m.xray_data] * 4))
 x, lp, acc = state(4, W, 9)
@@ -191,7 +206,7 @@ run_hybrid_coupled_ensemble(c, p0, 40, 101, 5, mesh, thin=5, allow_small=True)
 torch.cuda.synchronize()
 t["hybrid evals/s"] = 128 * 40 * 101 / (time.perf_counter() - t0)
 print(tree, "fused" if fused else "per-launch", {k: round(v, 4) for k, v in t.items()}, flush=True)
-np.savez(out, ll=ll.cpu().numpy(), ll_double=fam_ll["double"], ll_knots=fam_ll["knots"], **{"f64_" + k: v for k, v in f64.items()}, dec=np.stack(dec), m0=np.stack(m0), m1=np.stack(m1), msw=np.stack(msw), nsw=np.stack(nsw))
+np.savez(out, ll=ll.cpu().numpy(), ll_double=fam_ll["double"], ll_knots=fam_ll["knots"], **{"f64_" + k: v for k, v in f64.items()}, dec=np.stack(dec), m0=np.stack(m0), m1=np.stack(m1), msw=np.stack(msw), nsw=np.stack(nsw), fin0=np.stack(fin0), fin1=np.stack(fin1))
 '''
 MARGIN, RTOL, ATOL, TIGHT = 1e-3, 2e-4, 0.5, 0.05
 BETAS = np.array([1.0, 0.6, 0.36, 0.216])
@@ -219,7 +234,8 @@ def compare(a, b) -> bool:
               f"rtol/atol: {close}, max |diff| {err:.4g}")
         ok &= bool(close)
     H = a["m0"].shape[-1]
-    n_dec = n_flip = n_bad = 0
+    n_dec = n_flip = n_bad = n_veto = 0
+    has_fin = "fin0" in a.files and "fin0" in b.files
     shift_max = 0.0
     for s in range(a["dec"].shape[0]):
         flipped = False
@@ -232,9 +248,15 @@ def compare(a, b) -> bool:
             shift_max = max(shift_max, float(shift.max()))
             ok &= bool(np.all(shift <= 2 * TIGHT * BETAS[:, None] + MARGIN))
             diff = da != dbb
+            # a proposal whose veto verdict the two trees' kernel 1 give
+            # differently
+            veto = (a[f"fin{which}"][s] != b[f"fin{which}"][s]) if has_fin \
+                else np.zeros_like(diff)
             n_dec += da.size
             n_flip += int(diff.sum())
-            n_bad += int((diff & ~(np.abs(ma) < MARGIN + shift)).sum())
+            n_veto += int((diff & veto).sum())
+            n_bad += int((diff & ~veto & ~(np.abs(ma) < MARGIN + shift))
+                         .sum())
             if diff.any():
                 flipped = True
                 break
@@ -244,8 +266,10 @@ def compare(a, b) -> bool:
                 a["msw"][s] - b["msw"][s])).reshape(len(diff), -1).any(1)
             n_bad += int((diff & ~near).sum())
     print(f"steps: {n_dec} half-step decisions over 20 states, {n_flip} "
-          f"differ between the trees, {n_bad} of them farther than MARGIN "
-          f"+ the trees' threshold difference from the threshold; largest "
+          f"differ between the trees, {n_veto} of them at a proposal whose "
+          f"veto verdict differs between the trees' kernel 1, "
+          f"{n_flip - n_veto} others; {n_bad} farther than MARGIN + the "
+          f"trees' threshold difference from the threshold; largest "
           f"threshold difference {shift_max:.4g}")
     return ok and n_bad == 0
 

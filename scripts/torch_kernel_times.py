@@ -5,10 +5,13 @@ compare: it needs ``joxsz_torch/`` and ``data/tables/cl1226_ctrate.npz``)
 runs in its own process, in the order A B .. B A, builds its own kernels
 and times, with CUDA events, on the synthetic CL J1226 dataset (seed
 11): kernel 1 on 4096 rows 3% around the truth (200 launches), 100 steps
-of the step kernel at K=1, W=32 (per half-step of 16 rows) and 100 steps
-at K=4, W=1024 (per step), each from a 1% cloud.  Lighter than
-``torch_kernel_bits_vs_parent.py``, which also compares the trees'
-outputs.
+of the step kernel at K=1, W=32 (per half-step of 16 rows), at K=1,
+W=1024 and at K=4, W=1024 (per step), each from a 1% cloud.  Each tree
+then prints a digest of kernel 1's output on those rows and of the
+state after 20 K=4 steps from a fresh cloud: trees whose digests agree
+computed them bit for bit alike.  Lighter than
+``torch_kernel_bits_vs_parent.py``, which compares the trees' outputs
+in detail.
 
     python3 scripts/torch_kernel_times.py . build/parent build/variant
 """
@@ -49,9 +52,19 @@ def steps(x, lp, acc, b, n):
 t = {"k1_ms": ev_ms(lambda: joint_ll(rows, c), 200)}
 x, lp, acc = state(1, 32, 7)
 t["half_us 16 rows"] = 1e3 * ev_ms(lambda: steps(x, lp, acc, beta[:1], 100), 3) / 200
+x, lp, acc = state(1, 1024, 10)
+t["K=1 step us"] = 1e3 * ev_ms(lambda: steps(x, lp, acc, beta[:1], 100), 5) / 100
 x, lp, acc = state(4, 1024, 8)
 t["K=4 step us"] = 1e3 * ev_ms(lambda: steps(x, lp, acc, beta, 100), 5) / 100
-print(tree, {k: round(v, 4) for k, v in t.items()}, flush=True)
+import hashlib
+x, lp, acc = state(4, 1024, 9)
+steps(x, lp, acc, beta, 20)
+h = hashlib.sha256()
+for v in (joint_ll(rows, c), x, lp, acc):
+    h.update(v.cpu().numpy().tobytes())
+t["digest"] = h.hexdigest()[:16]
+print(tree, {k: round(v, 4) if isinstance(v, float) else v
+             for k, v in t.items()}, flush=True)
 '''
 
 trees = sys.argv[1:]

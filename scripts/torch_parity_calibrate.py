@@ -17,7 +17,7 @@ with the walls, and writes ``<out-dir>/torch_parity_calibration_s<base>
 its schedule or box.
 
     python scripts/torch_parity_calibrate.py [--seed-bases 0 1000 2000]
-        [--out-dir results]
+        [--out-dir results] [--replicates K]
     python scripts/torch_parity_calibrate.py --cpu    # a tiny rehearsal
     python scripts/torch_parity_calibrate.py --long 40000
     python scripts/torch_parity_calibrate.py --box-scan 0.75 1 1.5 2 3 100
@@ -202,6 +202,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed-bases", type=int, nargs="+",
                     default=[0, 1000, 2000])
     ap.add_argument("--out-dir", default=str(REPO / "results"))
+    ap.add_argument("--replicates", type=int, metavar="K",
+                    help="K replicates of the referee, of its second set "
+                         "and of each arm (the schedule's k_ref, k_dev); "
+                         "the first k of them are those a run at k "
+                         "replicates draws")
     ap.add_argument("--cpu", action="store_true",
                     help="a tiny rehearsal on the CPU; writes nothing")
     ap.add_argument("--long", type=int, metavar="N",
@@ -226,6 +231,9 @@ def main(argv=None) -> int:
                   "(--cpu rehearses on the CPU)", file=sys.stderr)
             return 2
         device, card, shape, sched = "cuda", card_line(), {}, tp.SCHEDULE
+    if args.replicates:
+        sched = dataclasses.replace(sched, k_ref=args.replicates,
+                                    k_dev=args.replicates)
     print(f"card: {card}; schedule {sched}; box {tp.REFEREE_BOX}",
           flush=True)
     with tempfile.TemporaryDirectory() as tmp:

@@ -195,6 +195,8 @@ def _header_defines(name: str = "joint_ll.cuh") -> dict:
     ("PIX_PASS", consts_layout.PIX_PASS),
     ("SC_STRIDE", consts_layout.SC_STRIDE),
     ("XS_N", consts_layout.XS_N),
+    ("PAIR_CAP", consts_layout.PAIR_CAP),
+    ("KX_COLS", consts_layout.KX_COLS),
 ])
 def test_header_matches_the_packers(name, value):
     """The launch vectors, the plain mirror's sum order and the host's

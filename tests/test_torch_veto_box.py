@@ -7,16 +7,18 @@ mass passes 3.4e38, so the JAX kernels' float32 form of the likelihood
 kernel arithmetic (``joint_ll_plain``, which kernel 1 follows step for
 step) forms 1/n_e from ln n_e^2 where n_e^2 is not a normal float and
 compares the mass scaled by n_0 / |P_0|, as a signed logarithm where the
-product would leave float32's range (``csrc/joint_ll.cuh``).
+product would leave float32's range (``csrc/joint_ll.cuh``), and decides
+the pairs it cannot order for sure as float64 does (``ops/mass_veto.py``).
 
 Here production-box prior draws (``sample_prior``, ``np.random.
 default_rng(2)``) on a small dataset whose pressure grid runs from 16 to
 5008 kpc go through ``joint_ll_plain`` and the port's float64 model, for
 the flagship and the families whose density, temperature or mass veto
-differ: no row float64 keeps above ``NEGLIGIBLE_LP`` is -inf in float32
-beyond the rows whose float64 margin, min(gradient M) / max|gradient M|,
-is below MARGIN (``EXCEPTIONS`` of them: none at this seed), and the
-draws reach the densities that underflowed.  On the
+differ: no row float64 keeps above ``NEGLIGIBLE_LP`` is -inf in float32,
+near-ties included (no exemption for rows whose float64 margin, min
+(gradient M) / max|gradient M|, is small), the float32 mass veto's
+verdict is the float64 model's on every draw, and the draws reach the
+densities that underflowed.  On the
 first VERDICT_ROWS draws the port's float64 verdict is the JAX package's
 float64 ``log_like``'s.  ``chip_smoke.py`` phase 26 runs 4096 such draws
 through kernel 1 on the card.
@@ -49,11 +51,6 @@ FAMILIES = {
     "vikhlinin": ({"temperature_model": "vikhlinin"}, 1024, None),
     "knots": ({"pressure_model": "knots"}, 128, 16384),
 }
-MARGIN = 1e-4
-# rows float32 loses that float64 keeps at a margin below MARGIN: pairs
-# of masses within float32's rounding of each other, which the float32
-# comparison decides as ll_body's does (ROADMAP Queue C)
-EXCEPTIONS = {tag: 0 for tag in FAMILIES}
 VERDICT_ROWS = 256
 # n_e (cm^-3) below which n_e^2 is not a normal float32
 NE_UNDERFLOW = 1.1e-19
@@ -96,9 +93,18 @@ def test_no_float32_loss_over_the_box(dataset, tag):
     live = l64 > NEGLIGIBLE_LP
     assert live.sum() >= 0.3 * len(th), (tag, live.sum())
     lost = np.flatnonzero(live & ~np.isfinite(l32))
-    small = veto_margins(m, th[lost]) < MARGIN
-    assert small.all(), (tag, lost[~small].tolist())
-    assert lost.size == EXCEPTIONS[tag], (tag, lost.tolist())
+    assert lost.size == 0, (tag, lost.tolist(),
+                            veto_margins(m, th[lost]).tolist())
+    # the mass veto alone: float32's verdict is float64's on every draw
+    det = {}
+    joint_ll_plain(torch.tensor(th, dtype=torch.float32), pack_consts(sess),
+                   det)
+    with torch.no_grad():
+        pars = m.params.unpack(torch.tensor(th))
+        v64 = m._mass_veto_ok(pars, m.sz_data.r_press_kpc).numpy()
+    mono = det["mono"].numpy()[:, 0]
+    assert np.array_equal(mono, v64), (tag,
+                                       np.flatnonzero(mono != v64).tolist())
     # the draws reach the densities whose square underflows float32
     with torch.no_grad():
         ne = m.density(m.params.unpack(torch.tensor(th[live])),
