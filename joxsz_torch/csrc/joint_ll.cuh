@@ -1189,6 +1189,17 @@ __device__ __forceinline__ void joint_ll_tile(const LLConsts& c,
   }
   __syncthreads();
   JT_MARK(13);
+  // the pairs tier 1 left to tiers 2-3, counted once a tile (read_t2_pairs):
+  // every pair listed, those past an overflowed list's end too, as the
+  // plain version counts them.  decide_listed takes every pair of an
+  // overflowed walker, sure or not, and counts none.  A thread's pairs
+  // past its 64th (grids past 2048 radii or 65 knots) are listed before
+  // the sure vetoes are known.  Of the places measured on an H100 the
+  // tile's end cost least (0-0.4% a step by CUDA events; after the list's
+  // barrier 0.1-1%, in the last warp 0.9%); a slot a block in place of
+  // one address did not lower it.
+  if (tid == 0 && *npairs)
+    atomicAdd(&jt_t2_pairs, (unsigned long long)*npairs);
   JT_TILE_END(*npairs);
 }
 

@@ -39,9 +39,12 @@
 #define VETO_T_MAX 0.005f
 #define LN10D 2.302585092994045684
 
-// pairs that reached the float64 tier, over every launch of this library
-// (read_f64_pairs)
+// pairs that reached the float64 tier (read_f64_pairs), and the pairs
+// tier 1 was not sure of, of walkers in the prior box that no sure pair
+// vetoes (read_t2_pairs: one atomic a tile, joint_ll_tile's pair list),
+// over every launch of this library
 __device__ unsigned long long jt_f64_pairs;
+__device__ unsigned long long jt_t2_pairs;
 
 extern "C" int read_f64_pairs(unsigned long long* out, int reset) {
   cudaError_t e = cudaMemcpyFromSymbol(out, jt_f64_pairs, sizeof(*out));
@@ -49,6 +52,23 @@ extern "C" int read_f64_pairs(unsigned long long* out, int reset) {
     const unsigned long long zero = 0;
     e = cudaMemcpyToSymbol(jt_f64_pairs, &zero, sizeof(zero));
   }
+  return (int)e;
+}
+
+extern "C" int read_t2_pairs(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, jt_t2_pairs, sizeof(*out));
+}
+
+// (jt_t2_pairs, jt_f64_pairs) copied into dst[0], dst[1] on the device in
+// the order of ``stream``: a snapshot between launches that does not wait
+// for the card
+extern "C" int snap_pair_counters(unsigned long long* dst, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e = cudaMemcpyFromSymbolAsync(dst, jt_t2_pairs, sizeof(*dst), 0,
+                                            cudaMemcpyDeviceToDevice, s);
+  if (e == cudaSuccess)
+    e = cudaMemcpyFromSymbolAsync(dst + 1, jt_f64_pairs, sizeof(*dst), 0,
+                                  cudaMemcpyDeviceToDevice, s);
   return (int)e;
 }
 

@@ -128,6 +128,10 @@ def kernel_library(name: str) -> ctypes.CDLL:
         lib.kernel_error_string.restype = ctypes.c_char_p
         lib.read_f64_pairs.argtypes = [_P, _I]
         lib.read_f64_pairs.restype = ctypes.c_int
+        lib.read_t2_pairs.argtypes = [_P]
+        lib.read_t2_pairs.restype = ctypes.c_int
+        lib.snap_pair_counters.argtypes = [_P, _P]
+        lib.snap_pair_counters.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 
@@ -144,6 +148,37 @@ def f64_pairs(name: str, reset: bool = False) -> int:
     check_launch(lib.read_f64_pairs(ctypes.byref(out), int(reset)),
                  f"read_f64_pairs of {name}")
     return int(out.value)
+
+
+def tier2_pairs(name: str) -> int:
+    """The mass-veto pairs tier 1 left to tiers 2-3 (``jt_t2_pairs``: of
+    walkers in the prior box that no sure pair vetoes) over every launch
+    of ``csrc/<name>.cu``'s kernels in this process: 0 when the library
+    is not loaded.  Synchronises with the current card."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        return 0
+    out = ctypes.c_ulonglong(0)
+    check_launch(lib.read_t2_pairs(ctypes.byref(out)),
+                 f"read_t2_pairs of {name}")
+    return int(out.value)
+
+
+def snap_pair_counters(name: str, out) -> bool:
+    """Copy ``csrc/<name>.cu``'s (``jt_t2_pairs``, ``jt_f64_pairs``) into
+    ``out`` ((2,) int64 on the current card) in the current stream's
+    order, without waiting for the card; False (``out`` untouched) when
+    the library is not loaded."""
+    import torch
+
+    lib = _LIBS.get(name)
+    if lib is None:
+        return False
+    check_launch(lib.snap_pair_counters(
+        ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)),
+        f"snap_pair_counters of {name}")
+    return True
 
 
 def launch_checked(kind: str, fn, *args, what: str | None = None):

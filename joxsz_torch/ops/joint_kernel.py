@@ -681,6 +681,15 @@ def f64_pairs(reset: bool = False) -> int:
     return n
 
 
+def tier2_pairs() -> int:
+    """Mass-veto pairs tier 1 left to tiers 2-3 (``ops.mass_veto``), over
+    kernel 1's launches (a partial tile's padding rows, copies of its
+    first, counted too) and the plain version's calls, never reset."""
+    from ._build import tier2_pairs as card
+
+    return card("joint_ll") + mass_veto.T2_PAIRS[0]
+
+
 def joint_ll_flops(c: JointConsts) -> int:
     """Floating-point operations one walker's evaluation needs (FMA = 2,
     a transcendental ~4), counted from the shapes and the family's

@@ -28,8 +28,9 @@ A pair that tier 1 is not sure of is decided by tiers 2-3 unless the
 walker is already vetoed by a sure pair or lies outside the prior box
 (its log-posterior is -inf either way), so the verdict is the float64
 model's and every decision the parent took on a sure pair is unchanged.
-``F64_PAIRS`` counts the pairs that reached tier 3 on the CPU (the
-kernels count theirs on the card: ``ops.joint_kernel.f64_pairs``).
+``T2_PAIRS`` counts the pairs tier 1 left to tiers 2-3 (``cand``) and
+``F64_PAIRS`` those that reached tier 3, on the CPU (the kernels count
+theirs on the card: ``ops.joint_kernel.tier2_pairs`` and ``f64_pairs``).
 
 Bounds are first-order in u = 2^-24, in units of u, with float32
 library errors of 2 ulp (expf, rsqrtf), 1 ulp (logf, log1pf, expm1f)
@@ -51,7 +52,9 @@ LN10 = float(np.log(10.0))
 # a walker whose pair tolerance would pass this takes tiers 2-3 for every
 # pair (the product form's test folds T^2 into 1 % of T below it)
 T_MAX = 0.005
-# pairs the float64 tier decided on the CPU since the last reset
+# pairs tier 1 left to tiers 2-3 on the CPU (never reset), and pairs the
+# float64 tier decided there since the last reset
+T2_PAIRS = [0]
 F64_PAIRS = [0]
 
 
@@ -456,6 +459,7 @@ def gnfw_veto(th, c, m, slow, sc: dict, total,
     sure_bad, unsure = tier1_pairs(m, lo, hi, wb, slow)
     bad = sure_bad.any(dim=1, keepdim=True)
     cand = unsure & ~bad & torch.isfinite(total)
+    T2_PAIRS[0] += int(cand.sum())
     if details is not None:
         details.update(wb=wb, sure_bad=sure_bad, unsure=unsure, cand=cand,
                        lo=lo, hi=hi)
@@ -530,6 +534,7 @@ def knot_veto(th, c, kc0: int, m, wide, e, el, cq, sc: dict, total,
         | (~by_sign & sure_n1).any(dim=1, keepdim=True)
     unsure = ~by_sign & ~sure_g1 & ~sure_n1
     cand = unsure & ~bad & torch.isfinite(total)
+    T2_PAIRS[0] += int(cand.sum())
     if details is not None:
         details.update(unsure=unsure, cand=cand)
         sel = ~by_sign

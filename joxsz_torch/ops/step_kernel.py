@@ -355,3 +355,26 @@ def f64_pairs(reset: bool = False) -> int:
     from ._build import f64_pairs as card
 
     return card("stretch_step", reset)
+
+
+def tier2_pairs() -> int:
+    """Mass-veto pairs tier 1 left to tiers 2-3 in the step kernels (one
+    count a tile, ``csrc/joint_ll.cuh``), never reset; the plain versions
+    count in ``joint_kernel.tier2_pairs``.  Synchronises with the card."""
+    from ._build import tier2_pairs as card
+
+    return card("stretch_step")
+
+
+def pair_counts(device) -> torch.Tensor:
+    """The step kernels' (tier-2, float64-tier) pair counts on the card
+    ``device`` as a (2,) int64 tensor there, copied in the current
+    stream's order: it does not wait for the card (zeros before the
+    first launch)."""
+    from ._build import snap_pair_counters
+
+    out = torch.empty(2, dtype=torch.int64, device=device)
+    with torch.cuda.device(out.device):
+        if not snap_pair_counters("stretch_step", out):
+            out.zero_()
+    return out

@@ -29,11 +29,18 @@ On CPU tensors the same loops run the kernels' plain versions (the
 ``--cpu`` path).  Each chunk of steps draws one Philox seed from the
 caller's numpy generator; the step counter restarts at 0 per chunk, as
 the TPU kernel's loop index did per call.
+
+The routes carry the program's spans (``utils.timing``): ``sampler.lp0``,
+``sampler.steps`` (one a call, not one a chunk) and ``sampler.fetch``;
+the survey's ``survey.start`` (``survey.pack``, ``survey.init``),
+``survey.burn``, ``survey.sample`` and ``sampler.fetch``.  While a
+profiler records, each phase also counts its steps and the mass veto's
+pairs (``_count_phase``: snapshots of the card's counters copied in
+stream order at the phase boundaries, read once the last phase ends).
 """
 
 from __future__ import annotations
 
-import time
 import warnings
 
 import numpy as np
@@ -46,6 +53,8 @@ from ..ops.joint_kernel import (JointConsts, JointConstsStack, joint_ll,
 from ..ops.multicluster_kernel import (multicluster_ll,
                                        stretch_steps_multicluster)
 from ..ops.step_kernel import stretch_steps
+from ..utils import timing
+from ..utils.timing import trace_annotation
 
 _CHUNK_STEPS = 100      # steps per Philox seed
 
@@ -72,6 +81,42 @@ def min_walkers_per_device(ndim: int) -> int:
     the sampler's fallback test (``_sharded_layout_ok``) and the sharded
     runners' hard guard (``parallel.kernel_sharded``)."""
     return 2 * ndim + 2
+
+
+def _veto_counts(devices) -> list:
+    """The mass veto's (tier-2, float64-tier) pair counts so far: on each
+    card of ``devices`` (once each; another process's shards not) the
+    step kernels' counters as a (2,) tensor there, copied in stream order
+    without waiting for the card; else the plain versions' counts."""
+    from ..ops import mass_veto, step_kernel
+
+    cards = {torch.cuda.current_device() if d.index is None else d.index
+             for d in devices if getattr(d, "type", None) == "cuda"}
+    if not cards:
+        return [torch.tensor([mass_veto.T2_PAIRS[0],
+                              mass_veto.F64_PAIRS[0]])]
+    return [step_kernel.pair_counts(torch.device("cuda", d))
+            for d in sorted(cards)]
+
+
+def _snapshot(devices):
+    """``_veto_counts`` at a phase boundary while a profiler records, else
+    None (nothing read)."""
+    return _veto_counts(devices) if timing.recording() else None
+
+
+def _count_phase(phase: str, n_steps: int, before, after):
+    """Count a phase (``burn`` or ``sample``) of ``n_steps`` sampler steps
+    between the snapshots ``before`` and ``after`` (None where no profiler
+    recorded: nothing is counted): ``steps.<phase>``, ``tier2_pairs.
+    <phase>`` and ``f64_pairs.<phase>``.  Reading the snapshots waits for
+    their cards; the library counters are never reset."""
+    if before is None or after is None:
+        return
+    t2, f64 = sum(a.cpu() - b.cpu() for a, b in zip(after, before)).tolist()
+    timing.count(f"steps.{phase}", n_steps)
+    timing.count(f"tier2_pairs.{phase}", t2)
+    timing.count(f"f64_pairs.{phase}", f64)
 
 
 def rung_differences(betas) -> list[float]:
@@ -132,14 +177,17 @@ class KernelSampler:
                                device=dev)
         frame = 0
         chunks = chain_chunk_schedule(n_steps, thin)
-        for n_inner, seed in zip(chunks, _seeds(rng, len(chunks))):
-            n_keep = n_inner // thin if store_chain else 0
-            stretch_steps(x, lp, acc, sacc, beta, db, seed, n_inner,
-                          self.consts, thin=thin if store_chain else 0,
-                          out=(chain[frame:frame + n_keep],
-                               chain_lp[frame:frame + n_keep]),
-                          partner=partner or self.partner)
-            frame += n_keep
+        with trace_annotation("sampler.steps"):
+            before = _snapshot([dev])
+            for n_inner, seed in zip(chunks, _seeds(rng, len(chunks))):
+                n_keep = n_inner // thin if store_chain else 0
+                stretch_steps(x, lp, acc, sacc, beta, db, seed, n_inner,
+                              self.consts, thin=thin if store_chain else 0,
+                              out=(chain[frame:frame + n_keep],
+                                   chain_lp[frame:frame + n_keep]),
+                              partner=partner or self.partner)
+                frame += n_keep
+            _count_phase("sample", n_steps, before, _snapshot([dev]))
         return chain, chain_lp, sacc[:K - 1]
 
     def run(self, p0: torch.Tensor, n_steps: int, rng: np.random.Generator,
@@ -150,14 +198,16 @@ class KernelSampler:
             raise ValueError("need an even number of walkers")
         # a copy: the steps update their state in place, never the caller's
         x = p0.to(self.device, torch.float32).reshape(1, W, D).clone()
-        lp = self.log_prob_batch(x[0]).reshape(1, W)
+        with trace_annotation("sampler.lp0"):
+            lp = self.log_prob_batch(x[0]).reshape(1, W)
         acc = torch.zeros((1, W), dtype=torch.float32, device=self.device)
         chain, chain_lp, _ = self._steps(x, lp, acc, np.ones(1), n_steps,
                                          rng, thin, store_chain)
-        return EnsembleResult(
-            chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
-            acceptance_fraction=(acc[0] / max(n_steps, 1)).cpu().numpy(),
-            final_state=(x[0], lp[0]))
+        with trace_annotation("sampler.fetch"):
+            return EnsembleResult(
+                chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
+                acceptance_fraction=(acc[0] / max(n_steps, 1)).cpu().numpy(),
+                final_state=(x[0], lp[0]))
 
     def run_tempered(self, p0: torch.Tensor, betas, n_steps: int,
                      rng: np.random.Generator,
@@ -273,17 +323,19 @@ def run_tempered_kernel(sampler: KernelSampler, p0: torch.Tensor, betas,
     _, W, D = x.shape
     if W % 2:
         raise ValueError("need an even number of walkers")
-    lp = sampler.log_prob_batch(x.reshape(K * W, D)).reshape(K, W)
+    with trace_annotation("sampler.lp0"):
+        lp = sampler.log_prob_batch(x.reshape(K * W, D)).reshape(K, W)
     acc = torch.zeros((K, W), dtype=torch.float32, device=sampler.device)
     chain, chain_lp, sacc = sampler._steps(x, lp, acc, betas, n_steps, rng,
                                            thin, store_chain=store_chain,
                                            partner=partner)
     n = max(n_steps, 1)
-    return TemperedResult(
-        chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
-        acceptance_fraction=(acc / n).cpu().numpy(),
-        swap_acceptance=sacc.cpu().numpy().astype(float) / float(n * W),
-        final_state=(x, lp))
+    with trace_annotation("sampler.fetch"):
+        return TemperedResult(
+            chain=chain.cpu().numpy(), log_prob=chain_lp.cpu().numpy(),
+            acceptance_fraction=(acc / n).cpu().numpy(),
+            swap_acceptance=sacc.cpu().numpy().astype(float) / float(n * W),
+            final_state=(x, lp))
 
 
 def make_kernel_sampler(sess) -> KernelSampler:
@@ -309,25 +361,32 @@ def run_multicluster_steps(stack: JointConstsStack, x: torch.Tensor,
 
 
 def multicluster_start(session, sz_stack, xray_stack, centers,
-                       n_walkers: int, seed: int, init_spread: float):
+                       n_walkers: int, seed: int, init_spread: float,
+                       timings: dict | None = None):
     """The kernel route's start, the same on every process of a job: the
     constants of every cluster on the session's device, the walkers drawn
     from a generator seeded by ``seed`` (finite by kernel 1, per cluster)
     and their log-posteriors.  Returns ``(stack, x (C, W, D), lp (C, W),
-    acc (C, W) zeros)``."""
+    acc (C, W) zeros)``; puts the spans ``survey.pack``'s and
+    ``survey.init``'s seconds in ``timings`` (``pack_s``, ``init_s``)
+    where one is given."""
     from .batched import batched_init
 
     dev = session.device
-    stack = pack_consts_stack(session, sz_stack, xray_stack, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    x = batched_init(lambda th: multicluster_ll(th, stack), centers,
-                     n_walkers, gen, device=dev, dtype=torch.float32,
-                     spread=init_spread).contiguous()
-    lp = multicluster_ll(x, stack)
-    acc = torch.zeros(lp.shape, dtype=torch.float32, device=dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    with trace_annotation("survey.pack", timed=True) as pack:
+        stack = pack_consts_stack(session, sz_stack, xray_stack, device=dev)
+    with trace_annotation("survey.init", timed=True) as init:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        x = batched_init(lambda th: multicluster_ll(th, stack), centers,
+                         n_walkers, gen, device=dev, dtype=torch.float32,
+                         spread=init_spread).contiguous()
+        lp = multicluster_ll(x, stack)
+        acc = torch.zeros(lp.shape, dtype=torch.float32, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    if timings is not None:
+        timings.update(pack_s=pack.seconds, init_s=init.seconds)
     return stack, x, lp, acc
 
 
@@ -341,40 +400,52 @@ def fit_multicluster_kernel(session, sz_stack, xray_stack, centers, *,
     after the burn.  Over a mesh with more than one ``cluster`` shard,
     shard s of n runs its cluster block on the call's seed ``* n + s``.
     Returns ``(chain (n_saved, C, W, D), lp_chain, acceptance,
-    timings)``; raises ``StackMismatch`` for a stack outside the
-    specialisation."""
+    timings)``: ``setup_s`` the span ``survey.start``'s seconds (its parts
+    ``pack_s``, ``init_s``: ``multicluster_start``), ``sampling_s`` those
+    of ``survey.burn``, ``survey.sample`` and ``sampler.fetch``; raises
+    ``StackMismatch`` for a stack outside the specialisation."""
     from .stretch import validate_schedule
 
     validate_schedule(n_steps, thin, n_walkers)
-    t0 = time.time()
-    stack, x, lp, acc = multicluster_start(session, sz_stack, xray_stack,
-                                           centers, n_walkers, seed,
-                                           init_spread)
-    t_setup = time.time() - t0
+    timings = {}
+    with trace_annotation("survey.start", timed=True) as start:
+        stack, x, lp, acc = multicluster_start(
+            session, sz_stack, xray_stack, centers, n_walkers, seed,
+            init_spread, timings=timings)
 
-    t0 = time.time()
     n_dev = mesh.shape.get("cluster", 1) if mesh is not None else 1
+    devices = mesh.devices if n_dev > 1 else [x.device]
     if n_dev > 1:
         from ..parallel.kernel_sharded import make_sharded_multicluster_step
 
         def seeds(s):
             return [s * n_dev + d for d in range(n_dev)]
 
-        if n_burn:
+    with trace_annotation("survey.burn", timed=True) as burn:
+        s0 = _snapshot(devices)
+        if n_dev > 1 and n_burn:
             x, lp, _ = make_sharded_multicluster_step(
                 stack, mesh, n_burn)(x, lp, acc, seeds(2 * seed + 1))
-        x, lp, acc, chain, chain_lp = make_sharded_multicluster_step(
-            stack, mesh, n_steps, thin=thin)(x, lp, torch.zeros_like(acc),
-                                             seeds(2 * seed + 2))
-    else:
-        if n_burn:
+        elif n_burn:
             run_multicluster_steps(stack, x, lp, acc, n_burn, 2 * seed + 1)
             acc.zero_()
-        chain, chain_lp = run_multicluster_steps(stack, x, lp, acc, n_steps,
-                                                 2 * seed + 2, thin=thin)
-    chain = chain.permute(1, 0, 2, 3).cpu().numpy()
-    chain_lp = chain_lp.permute(1, 0, 2).cpu().numpy()
-    acc = (acc / float(n_steps)).cpu().numpy()
-    t_sampling = time.time() - t0
-    return chain, chain_lp, acc, {"setup_s": t_setup,
-                                  "sampling_s": t_sampling}
+        s1 = _snapshot(devices)
+    with trace_annotation("survey.sample", timed=True) as sample:
+        if n_dev > 1:
+            x, lp, acc, chain, chain_lp = make_sharded_multicluster_step(
+                stack, mesh, n_steps, thin=thin)(
+                    x, lp, torch.zeros_like(acc), seeds(2 * seed + 2))
+        else:
+            chain, chain_lp = run_multicluster_steps(
+                stack, x, lp, acc, n_steps, 2 * seed + 2, thin=thin)
+        s2 = _snapshot(devices)
+        # read after the sampling's launch: no wait between the phases
+        _count_phase("burn", n_burn, s0, s1)
+        _count_phase("sample", n_steps, s1, s2)
+    with trace_annotation("sampler.fetch", timed=True) as fetch:
+        chain = chain.permute(1, 0, 2, 3).cpu().numpy()
+        chain_lp = chain_lp.permute(1, 0, 2).cpu().numpy()
+        acc = (acc / float(n_steps)).cpu().numpy()
+    timings.update(setup_s=start.seconds,
+                   sampling_s=burn.seconds + sample.seconds + fetch.seconds)
+    return chain, chain_lp, acc, timings

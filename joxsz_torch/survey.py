@@ -97,7 +97,7 @@ class SurveyResult:
     medians: np.ndarray          # (C, D)
     sds: np.ndarray              # (C, D)
     truths: np.ndarray | None = None    # (C, D) mock mode only
-    timings: dict | None = None  # kernel route: setup vs sampling wall (s)
+    timings: dict | None = None  # kernel route: its spans' seconds
 
     def flat_chain(self, c: int) -> np.ndarray:
         """((n_saved*W), D) posterior sample of cluster ``c``."""
@@ -137,58 +137,67 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
     batched ensembles with a warning (a mesh is then ignored, and the
     warning says so).  A kernel that fails to build or launch raises.
     ``mesh``: a mesh with a ``cluster`` axis that divides C shards the
-    kernel route over cluster blocks."""
+    kernel route over cluster blocks.  The fit is the span ``survey.fit``,
+    its summary (medians, sds) ``survey.summary`` (``utils.timing``),
+    whose seconds the kernel route's ``timings`` keep as ``summary_s``."""
     import torch
 
     from .models.multicluster import make_multicluster_log_like
     from .ops.joint_kernel import StackMismatch
     from .sampling.batched import batched_init, run_batched_ensembles
     from .sampling.kernel import fit_multicluster_kernel
+    from .utils.timing import trace_annotation
 
-    model = session.model
-    centers = np.atleast_2d(np.asarray(centers, dtype=np.float64))
-    C, D = centers.shape
-    names = list(model.params.thawed)
-    if D != len(names):
-        raise ValueError(f"centers have {D} columns but the model thaws "
-                         f"{len(names)} parameters {names}")
+    with trace_annotation("survey.fit"):
+        model = session.model
+        centers = np.atleast_2d(np.asarray(centers, dtype=np.float64))
+        C, D = centers.shape
+        names = list(model.params.thawed)
+        if D != len(names):
+            raise ValueError(f"centers have {D} columns but the model thaws "
+                             f"{len(names)} parameters {names}")
 
-    out = None
-    if step_kernel:
-        try:
-            out = fit_multicluster_kernel(
-                session, sz_stack, xray_stack, centers, n_walkers=n_walkers,
-                n_burn=n_burn, n_steps=n_steps, thin=thin, seed=seed,
-                init_spread=init_spread, mesh=mesh)
-        except StackMismatch as e:
-            warnings.warn("configuration outside the multicluster "
-                          f"step-kernel specialisation ({e}); falling back "
-                          "to the plain batched ensemble sampler"
-                          + (" (the 'cluster' mesh request is IGNORED on "
-                             "this path)" if mesh is not None else ""),
-                          stacklevel=2)
-    timings = None
-    if out is not None:
-        chain, lp_chain, acc, timings = out
-    else:
-        dev = session.device
-        batched_ll = make_multicluster_log_like(model, sz_stack, xray_stack)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(seed))
-        with torch.no_grad():
-            p0 = batched_init(batched_ll, centers, n_walkers, gen,
-                              device=dev, dtype=sz_stack.L.dtype,
-                              spread=init_spread)
-            chain, lp_chain, acc, _ = run_batched_ensembles(
-                batched_ll, p0, n_burn, n_steps, gen, thin=thin)
-    flat = np.transpose(chain, (1, 0, 2, 3)).reshape(C, -1, D)
-    return SurveyResult(
-        cluster_names=(list(cluster_names) if cluster_names is not None
-                       else [f"cluster{c}" for c in range(C)]),
-        param_names=names, chain=chain, log_prob=lp_chain, acceptance=acc,
-        medians=np.median(flat, axis=1), sds=np.std(flat, axis=1),
-        truths=None if truths is None else np.asarray(truths),
-        timings=timings)
+        out = None
+        if step_kernel:
+            try:
+                out = fit_multicluster_kernel(
+                    session, sz_stack, xray_stack, centers,
+                    n_walkers=n_walkers, n_burn=n_burn, n_steps=n_steps,
+                    thin=thin, seed=seed, init_spread=init_spread, mesh=mesh)
+            except StackMismatch as e:
+                warnings.warn("configuration outside the multicluster "
+                              f"step-kernel specialisation ({e}); falling "
+                              "back to the plain batched ensemble sampler"
+                              + (" (the 'cluster' mesh request is IGNORED "
+                                 "on this path)" if mesh is not None
+                                 else ""), stacklevel=2)
+        timings = None
+        if out is not None:
+            chain, lp_chain, acc, timings = out
+        else:
+            dev = session.device
+            batched_ll = make_multicluster_log_like(model, sz_stack,
+                                                    xray_stack)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(seed))
+            with torch.no_grad():
+                p0 = batched_init(batched_ll, centers, n_walkers, gen,
+                                  device=dev, dtype=sz_stack.L.dtype,
+                                  spread=init_spread)
+                chain, lp_chain, acc, _ = run_batched_ensembles(
+                    batched_ll, p0, n_burn, n_steps, gen, thin=thin)
+        with trace_annotation("survey.summary", timed=True) as summary:
+            flat = np.transpose(chain, (1, 0, 2, 3)).reshape(C, -1, D)
+            medians, sds = np.median(flat, axis=1), np.std(flat, axis=1)
+        if timings is not None:
+            timings["summary_s"] = summary.seconds
+        return SurveyResult(
+            cluster_names=(list(cluster_names) if cluster_names is not None
+                           else [f"cluster{c}" for c in range(C)]),
+            param_names=names, chain=chain, log_prob=lp_chain,
+            acceptance=acc, medians=medians, sds=sds,
+            truths=None if truths is None else np.asarray(truths),
+            timings=timings)
 
 
 def _tensor_shapes(data) -> tuple:

@@ -1,6 +1,8 @@
-"""Utilities: wall-clock spans, throughput meters and profiler hooks
+"""Utilities: the program's spans and counters and the profiler hook
 (``timing``)."""
 
-from .timing import Timer, Throughput, trace_annotation, profile_to
+from .timing import (count, counters, profile_to, recording,
+                     reset_counters, trace_annotation)
 
-__all__ = ["Timer", "Throughput", "trace_annotation", "profile_to"]
+__all__ = ["trace_annotation", "count", "counters", "reset_counters",
+           "recording", "profile_to"]

@@ -1,18 +1,35 @@
-"""Timing / profiling utilities (the reference has none).
+"""The program's spans and counters, and its profiler hook.
 
-Torch counterpart of ``joxsz_tpu/utils/timing.py``:
+* ``trace_annotation(name, timed=False)`` — the program's one span.  With
+  no torch profiler recording it reads one attribute (the profiler's
+  flag) and enters a shared null context; asked for the time
+  (``timed=True``) it also reads ``time.perf_counter`` twice and leaves
+  the seconds in the span's ``seconds``.  While a profiler records, it
+  opens ``torch.profiler.record_function(name)``, so the span lands in
+  the profiler's trace on the kernels' timeline, nested in the spans
+  that contain it.
+* ``count(name, n)`` adds ``n`` to a process-wide counter, only while a
+  profiler records; ``counters()`` reads them, ``reset_counters()``
+  clears them.  ``recording()`` says whether a profiler records, for
+  callers whose counts cost a device read.
+* ``profile_to(logdir)`` — context manager around
+  ``torch.profiler.profile`` (the CPU, and the card where one is
+  visible) writing a Chrome trace (``trace.json``, open in
+  chrome://tracing or Perfetto) into a directory; the program's spans
+  appear in it.  The JAX package's writes a TensorBoard / xprof profile.
 
-* ``Timer`` — wall-clock context manager accumulating named spans;
-* ``Throughput`` — likelihood-evaluations-per-second meter;
-* ``trace_annotation`` — ``torch.profiler.record_function``, so hot
-  regions show up named in a profile;
-* ``profile_to`` — context manager around ``torch.profiler.profile`` (the
-  CPU, and the card where one is visible) writing a Chrome trace
-  (``trace.json``, open in chrome://tracing or Perfetto) into a
-  directory.  The JAX package's writes a TensorBoard / xprof profile.
+Host clocks do not wait for the card: a span's seconds cover device work
+only where the span ends in a synchronise (a copy to the host does).
 
-Host clocks do not wait for the card: synchronise inside a span that
-times device work.
+Spans (``PERF.md`` §3 names the metric that reads each): ``survey.fit``
+(``survey.fit_survey``) holds ``survey.start`` (``survey.pack``, the
+clusters' constants, and ``survey.init``, the walkers' start and their
+log-posteriors), ``survey.burn``, ``survey.sample``, ``sampler.fetch``
+and ``survey.summary``; the kernel sampler's phases
+(``sampling.kernel``) ``sampler.lp0``, ``sampler.steps`` and
+``sampler.fetch``.  Counters, by phase (``burn`` or ``sample``):
+``steps.<phase>``, ``f64_pairs.<phase>`` and ``tier2_pairs.<phase>``
+(the mass veto's pairs past tier 1 and those that reached float64).
 """
 
 from __future__ import annotations
@@ -20,49 +37,81 @@ from __future__ import annotations
 import contextlib
 import pathlib
 import time
-from collections import defaultdict
+
+import torch
+import torch.autograd.profiler as _prof
 
 
-class Timer:
-    def __init__(self):
-        self.spans: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
+class _Null:
+    """The span of an untimed region with no profiler recording."""
 
-    @contextlib.contextmanager
-    def span(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.spans[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    __slots__ = ()
 
-    def report(self) -> dict:
-        return {k: {"total_s": v, "calls": self.counts[k]}
-                for k, v in sorted(self.spans.items())}
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
 
 
-class Throughput:
-    """Accumulates (evals, seconds) pairs; reports evals/sec."""
+_NULL = _Null()
 
-    def __init__(self):
-        self.evals = 0
+
+class _Span:
+    """A region timed on the host clock, a ``record_function`` too while
+    a profiler records (the timed interval inside it)."""
+
+    __slots__ = ("_rf", "_timed", "_t0", "seconds")
+
+    def __init__(self, rf, timed: bool):
+        self._rf, self._timed = rf, timed
         self.seconds = 0.0
 
-    def add(self, n_evals: int, seconds: float):
-        self.evals += n_evals
-        self.seconds += seconds
+    def __enter__(self):
+        if self._rf is not None:
+            self._rf.__enter__()
+        if self._timed:
+            self._t0 = time.perf_counter()
+        return self
 
-    @property
-    def evals_per_s(self) -> float:
-        return self.evals / self.seconds if self.seconds > 0 else float("nan")
+    def __exit__(self, *exc):
+        if self._timed:
+            self.seconds = time.perf_counter() - self._t0
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
 
 
-def trace_annotation(name: str):
-    """Named region for profiles (``torch.profiler.record_function``)."""
-    import torch
+def trace_annotation(name: str, timed: bool = False):
+    """The program's span ``name`` (module docstring); ``with
+    trace_annotation(name, timed=True) as s`` leaves the region's
+    ``perf_counter`` seconds in ``s.seconds``."""
+    if not _prof._is_profiler_enabled:
+        return _Span(None, True) if timed else _NULL
+    return _Span(torch.profiler.record_function(name), timed)
 
-    return torch.profiler.record_function(name)
+
+_COUNTS: dict[str, int] = {}
+
+
+def recording() -> bool:
+    """Whether a torch profiler records in this process."""
+    return _prof._is_profiler_enabled
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to counter ``name`` while a profiler records."""
+    if _prof._is_profiler_enabled:
+        _COUNTS[name] = _COUNTS.get(name, 0) + int(n)
+
+
+def counters() -> dict:
+    """The counters counted so far (a copy)."""
+    return dict(_COUNTS)
+
+
+def reset_counters():
+    _COUNTS.clear()
 
 
 @contextlib.contextmanager
@@ -70,7 +119,6 @@ def profile_to(logdir: str):
     """Profile the block (CPU, and CUDA where a card is visible) and
     write its Chrome trace to ``<logdir>/trace.json``; yields the
     ``torch.profiler.profile`` object."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from joxsz_torch.emcee_compat import EnsembleSampler, State, _resolve_move
-from joxsz_torch.utils.timing import (Throughput, Timer, profile_to,
-                                      trace_annotation)
+from joxsz_torch.utils import timing
+from joxsz_torch.utils.timing import profile_to, trace_annotation
 from joxsz_tpu.emcee_compat import _resolve_move as jax_resolve_move
 
 from test_torch_build import single_thread  # noqa: F401
@@ -159,20 +159,32 @@ def test_reset_does_not_replay_the_stream():
 
 
 def test_timing_utilities(tmp_path):
-    t = Timer()
-    for _ in range(3):
-        with t.span("a"):
-            pass
-    rep = t.report()
-    assert rep["a"]["calls"] == 3 and rep["a"]["total_s"] >= 0
-    tp = Throughput()
-    assert np.isnan(tp.evals_per_s)
-    tp.add(100, 0.5)
-    tp.add(100, 0.5)
-    assert tp.evals_per_s == 200.0
+    """The gated span: untraced, an untimed span is one shared null
+    context and a timed one the host clock's seconds, the counters count
+    nothing; under ``profile_to`` a span lands in the Chrome trace (the
+    timed seconds inside its interval) and the counters count."""
+    timing.reset_counters()
+    assert trace_annotation("a") is trace_annotation("b")
+    with trace_annotation("joxsz_span", timed=True) as s:
+        torch.ones(64).sum()
+    assert s.seconds > 0
+    timing.count("n", 3)
+    assert timing.counters() == {} and not timing.recording()
     with profile_to(str(tmp_path / "prof")):
-        with trace_annotation("joxsz_span"):
+        assert timing.recording()
+        with trace_annotation("joxsz_span", timed=True) as s:
             torch.ones(64).sum()
+        with trace_annotation("joxsz_untimed") as u:
+            pass
+        timing.count("n", 3)
+        timing.count("n")
+    assert u.seconds == 0.0
+    assert timing.counters() == {"n": 4}
+    timing.reset_counters()
+    assert timing.counters() == {}
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
-    assert any(e.get("name") == "joxsz_span"
+    span, = [e for e in trace["traceEvents"]
+             if e.get("name") == "joxsz_span"]
+    assert 0 < s.seconds <= span["dur"] * 1e-6 + 2e-6
+    assert any(e.get("name") == "joxsz_untimed"
                for e in trace["traceEvents"])

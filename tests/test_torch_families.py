@@ -302,7 +302,8 @@ def test_survey_refuses_a_family(base_config, tmp_path):
         warnings.simplefilter("error")
         res = survey.main(["--mock", "2", "--config", path, "--cpu",
                            "--quick", "--out", str(tmp_path / "s.json")])
-    assert set(res.timings) == {"setup_s", "sampling_s"}
+    assert set(res.timings) == {"setup_s", "pack_s", "init_s",
+                                "sampling_s", "summary_s"}
     assert res.chain.shape == (30, 2, 32, FAMILIES["knots"][1])
     k = [i for i, n in enumerate(res.param_names) if n.startswith("logP_")]
     np.testing.assert_allclose(res.truths[1, k] - res.truths[0, k],

@@ -51,7 +51,8 @@ def test_survey_cli_mesh_end_to_end(base):
     assert np.all(np.isfinite(res.chain)) and np.all(np.isfinite(res.log_prob))
     acc = res.acceptance.mean(axis=1)
     assert np.all((acc > 0.05) & (acc < 0.9))
-    assert set(res.timings) == {"setup_s", "sampling_s"}
+    assert set(res.timings) == {"setup_s", "pack_s", "init_s",
+                                "sampling_s", "summary_s"}
     i = res.param_names.index("log(n_0)")
     assert np.all(np.abs(res.medians - res.truths)[:, i] / res.sds[:, i] < 5)
     # clusters that do not divide over the mesh run on one device

@@ -33,6 +33,18 @@ TOL = 1e-12
 # (module, name) -> why the port needs no counterpart; a module entry
 # has name None
 ALLOWED = {
+    ("utils/timing.py", "Timer"):
+        "named host-clock spans: the port's are utils/timing.py::"
+        "trace_annotation (timed=True), on the profiler's clock too",
+    ("utils/timing.py", "Timer.span"): "see Timer",
+    ("utils/timing.py", "Timer.report"): "see Timer",
+    ("utils/timing.py", "Throughput"):
+        "an evaluations-per-second meter no module of the port read: the "
+        "benchmark (benchmark/metrics/evals_per_s.py) times the sampler",
+    ("utils/timing.py", "Throughput.add"): "see Throughput",
+    ("utils/timing.py", "Throughput.evals_per_s"): "see Throughput",
+    ("utils/__init__.py", "Timer"): "see utils/timing.py's Timer",
+    ("utils/__init__.py", "Throughput"): "see utils/timing.py's Throughput",
     ("ops/pallas_joint.py", None):
         "the Pallas kernels: the port's are joxsz_torch/csrc/*.cu with "
         "their bindings in joxsz_torch/ops/*_kernel.py",

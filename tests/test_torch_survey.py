@@ -50,7 +50,8 @@ def test_mock_survey_end_to_end(mock_fit):
     assert np.all(np.isfinite(res.chain)) and np.all(np.isfinite(res.log_prob))
     acc = res.acceptance.mean(axis=1)
     assert np.all((acc > 0.05) & (acc < 0.9))
-    assert set(res.timings) == {"setup_s", "sampling_s"}
+    assert set(res.timings) == {"setup_s", "pack_s", "init_s",
+                                "sampling_s", "summary_s"}
     assert res.cluster_names == ["mock0", "mock1"]
     # the truths spread P_0 and beta across the clusters
     i, j = res.param_names.index("P_0"), res.param_names.index(r"\beta")

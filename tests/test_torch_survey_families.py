@@ -306,7 +306,7 @@ def test_survey_cli_mixed_families(mixed_run):
     assert [specs for _, specs in bundles] == [[0, 2], [1], [3]]
     for fres, _ in bundles:
         assert set(fres.timings) == {"groups"} or set(fres.timings) == {
-            "setup_s", "sampling_s"}
+            "setup_s", "pack_s", "init_s", "sampling_s", "summary_s"}
         assert np.all(np.isfinite(fres.log_prob))
         assert fres.chain.shape[:3] == (5, fres.chain.shape[1], 48)
     summary = json.loads(out.read_text())
@@ -358,7 +358,8 @@ def test_sz_only_mock_survey_end_to_end(base_config, tmp_path):
     assert res.chain.shape == (30, 3, 32, 10)
     assert np.all(np.isfinite(res.chain)) and np.all(np.isfinite(
         res.log_prob))
-    assert set(res.timings) == {"setup_s", "sampling_s"}
+    assert set(res.timings) == {"setup_s", "pack_s", "init_s",
+                                "sampling_s", "summary_s"}
     acc = res.acceptance.mean(axis=1)
     assert np.all((acc > 0.02) & (acc < 0.9))
     i = res.param_names.index("P_0")
