@@ -33,10 +33,13 @@ the TPU kernel's loop index did per call.
 The routes carry the program's spans (``utils.timing``): ``sampler.lp0``,
 ``sampler.steps`` (one a call, not one a chunk) and ``sampler.fetch``;
 the survey's ``survey.start`` (``survey.pack``, ``survey.init``),
-``survey.burn``, ``survey.sample`` and ``sampler.fetch``.  While a
-profiler records, each phase also counts its steps and the mass veto's
+``survey.burn``, ``survey.sample``, ``survey.summary`` (the medians and
+sds, taken on the device before the fetch) and ``sampler.fetch``.  While
+a profiler records, each phase also counts its steps and the mass veto's
 pairs (``_count_phase``: snapshots of the card's counters copied in
-stream order at the phase boundaries, read once the last phase ends).
+stream order at the phase boundaries, read once the last phase ends),
+and ``fit_multicluster_kernel`` counts its summary taken on the device
+(``survey.summary_on_device``).
 """
 
 from __future__ import annotations
@@ -360,6 +363,12 @@ def run_multicluster_steps(stack: JointConstsStack, x: torch.Tensor,
     return frames if thin is not None else None
 
 
+def _synchronize(devices):
+    for d in devices:
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
+
+
 def multicluster_start(session, sz_stack, xray_stack, centers,
                        n_walkers: int, seed: int, init_spread: float,
                        timings: dict | None = None):
@@ -383,8 +392,7 @@ def multicluster_start(session, sz_stack, xray_stack, centers,
                          spread=init_spread).contiguous()
         lp = multicluster_ll(x, stack)
         acc = torch.zeros(lp.shape, dtype=torch.float32, device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _synchronize([dev])
     if timings is not None:
         timings.update(pack_s=pack.seconds, init_s=init.seconds)
     return stack, x, lp, acc
@@ -400,10 +408,15 @@ def fit_multicluster_kernel(session, sz_stack, xray_stack, centers, *,
     after the burn.  Over a mesh with more than one ``cluster`` shard,
     shard s of n runs its cluster block on the call's seed ``* n + s``.
     Returns ``(chain (n_saved, C, W, D), lp_chain, acceptance,
-    timings)``: ``setup_s`` the span ``survey.start``'s seconds (its parts
-    ``pack_s``, ``init_s``: ``multicluster_start``), ``sampling_s`` those
-    of ``survey.burn``, ``survey.sample`` and ``sampler.fetch``; raises
-    ``StackMismatch`` for a stack outside the specialisation."""
+    timings, (medians, sds))``: ``setup_s`` the span ``survey.start``'s
+    seconds (its parts ``pack_s``, ``init_s``: ``multicluster_start``),
+    ``sampling_s`` those of ``survey.burn``, ``survey.sample`` (which
+    waits for the card) and ``sampler.fetch``; the medians and sds (C, D)
+    are ``survey.posterior_summary``'s of the chain still on the device,
+    taken before the fetch in the span ``survey.summary``
+    (``summary_s``).  Raises ``StackMismatch`` for a stack outside the
+    specialisation."""
+    from ..survey import posterior_summary
     from .stretch import validate_schedule
 
     validate_schedule(n_steps, thin, n_walkers)
@@ -442,10 +455,18 @@ def fit_multicluster_kernel(session, sz_stack, xray_stack, centers, *,
         # read after the sampling's launch: no wait between the phases
         _count_phase("burn", n_burn, s0, s1)
         _count_phase("sample", n_steps, s1, s2)
+        # the sampling's device time stays in sampling_s, out of the
+        # summary's span
+        _synchronize(devices)
+    with trace_annotation("survey.summary", timed=True) as span:
+        C, D = chain.shape[0], chain.shape[-1]
+        summary = tuple(t.cpu().numpy() for t in
+                        posterior_summary(chain.reshape(C, -1, D)))
+    timing.count("survey.summary_on_device")
     with trace_annotation("sampler.fetch", timed=True) as fetch:
         chain = chain.permute(1, 0, 2, 3).cpu().numpy()
         chain_lp = chain_lp.permute(1, 0, 2).cpu().numpy()
         acc = (acc / float(n_steps)).cpu().numpy()
-    timings.update(setup_s=start.seconds,
+    timings.update(setup_s=start.seconds, summary_s=span.seconds,
                    sampling_s=burn.seconds + sample.seconds + fetch.seconds)
-    return chain, chain_lp, acc, timings
+    return chain, chain_lp, acc, timings, summary

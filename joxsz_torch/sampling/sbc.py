@@ -268,7 +268,7 @@ def run_sbc(session, n_reps: int, *, n_walkers: int = 64,
                 "past float32's precision against their errors); SBC on "
                 "the kernels would not calibrate this prior; narrow the "
                 "prior box or run on the CPU")
-        chain, _, acc, _ = fit_multicluster_kernel(
+        chain, _, acc, _, _ = fit_multicluster_kernel(
             session, survey.sz_stack, survey.xray_stack, thetas_true,
             n_walkers=n_walkers, n_burn=n_burn, n_steps=n_steps, thin=thin,
             seed=seed, init_spread=init_spread)

@@ -121,6 +121,40 @@ class SurveyResult:
         return out
 
 
+def posterior_summary(chain):
+    """Per-cluster medians and standard deviations of a cluster-major
+    torch tensor ``chain`` (C, N, D), on the device that holds it: two
+    (C, D) tensors of the chain's dtype.  The medians are ``np.median``'s
+    of the same values, bit for bit: the middle order statistic for odd
+    N, the mean of the two middle ones (in the chain's dtype) for even N,
+    NaN where a column holds one.  The standard deviations are the
+    population ones (ddof 0), two passes accumulated in float64."""
+    import torch
+
+    N = chain.shape[1]
+    srt = torch.sort(chain, dim=1).values
+    med = srt[:, N // 2]
+    if N % 2 == 0:
+        med = (srt[:, N // 2 - 1] + med) / 2
+    med = torch.where(torch.isnan(srt[:, -1]), srt[:, -1], med)
+    del srt
+    x = chain.to(torch.float64, memory_format=torch.contiguous_format)
+    dev = x - x.mean(dim=1, keepdim=True)
+    del x
+    sds = dev.square_().mean(dim=1).sqrt_().to(chain.dtype)
+    return med, sds
+
+
+def _host_summary(chain: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``posterior_summary`` of a host chain (n_saved, C, W, D), as
+    numpy arrays."""
+    import torch
+
+    C, D = chain.shape[1], chain.shape[-1]
+    flat = torch.from_numpy(chain).permute(1, 0, 2, 3).reshape(C, -1, D)
+    return tuple(t.numpy() for t in posterior_summary(flat))
+
+
 def fit_survey(session, sz_stack, xray_stack, centers, *,
                cluster_names=None, n_walkers=64, n_burn=500, n_steps=500,
                thin=5, seed=0, init_spread=0.05, truths=None,
@@ -138,8 +172,10 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
     warning says so).  A kernel that fails to build or launch raises.
     ``mesh``: a mesh with a ``cluster`` axis that divides C shards the
     kernel route over cluster blocks.  The fit is the span ``survey.fit``,
-    its summary (medians, sds) ``survey.summary`` (``utils.timing``),
-    whose seconds the kernel route's ``timings`` keep as ``summary_s``."""
+    its summary (``posterior_summary``: medians, sds) ``survey.summary``
+    (``utils.timing``); the kernel route takes it from the chain on the
+    sampler's device before the fetch, and keeps its seconds in
+    ``timings`` as ``summary_s``."""
     import torch
 
     from .models.multicluster import make_multicluster_log_like
@@ -173,7 +209,7 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
                                  else ""), stacklevel=2)
         timings = None
         if out is not None:
-            chain, lp_chain, acc, timings = out
+            chain, lp_chain, acc, timings, (medians, sds) = out
         else:
             dev = session.device
             batched_ll = make_multicluster_log_like(model, sz_stack,
@@ -186,11 +222,8 @@ def fit_survey(session, sz_stack, xray_stack, centers, *,
                                   spread=init_spread)
                 chain, lp_chain, acc, _ = run_batched_ensembles(
                     batched_ll, p0, n_burn, n_steps, gen, thin=thin)
-        with trace_annotation("survey.summary", timed=True) as summary:
-            flat = np.transpose(chain, (1, 0, 2, 3)).reshape(C, -1, D)
-            medians, sds = np.median(flat, axis=1), np.std(flat, axis=1)
-        if timings is not None:
-            timings["summary_s"] = summary.seconds
+            with trace_annotation("survey.summary"):
+                medians, sds = _host_summary(chain)
         return SurveyResult(
             cluster_names=(list(cluster_names) if cluster_names is not None
                            else [f"cluster{c}" for c in range(C)]),
@@ -547,11 +580,9 @@ def _run_multihost_survey(args, group, info, device, suffix):
           f"{stretch_steps_multicluster.launches - n0} launches of the "
           "cluster-grid kernel")
 
-    # local (n_saved, C_loc, W, D) -> per-cluster flat posteriors
+    # local (n_saved, C_loc, W, D) -> per-cluster medians and sds
     chain = out["chain"]
-    flat = np.transpose(chain, (1, 0, 2, 3)).reshape(c1 - c0, -1, D)
-    med_loc = np.median(flat, axis=1)
-    sd_loc = np.std(flat, axis=1)
+    med_loc, sd_loc = _host_summary(chain)
     pnames = list(sess.params.thawed)
     if suffix is not None:
         from .io.checkpoint import save_chain

@@ -24,12 +24,15 @@ only where the span ends in a synchronise (a copy to the host does).
 Spans (``PERF.md`` §3 names the metric that reads each): ``survey.fit``
 (``survey.fit_survey``) holds ``survey.start`` (``survey.pack``, the
 clusters' constants, and ``survey.init``, the walkers' start and their
-log-posteriors), ``survey.burn``, ``survey.sample``, ``sampler.fetch``
-and ``survey.summary``; the kernel sampler's phases
-(``sampling.kernel``) ``sampler.lp0``, ``sampler.steps`` and
+log-posteriors), ``survey.burn``, ``survey.sample``, ``survey.summary``
+(the medians and sds) and ``sampler.fetch``; the kernel sampler's
+phases (``sampling.kernel``) ``sampler.lp0``, ``sampler.steps`` and
 ``sampler.fetch``.  Counters, by phase (``burn`` or ``sample``):
 ``steps.<phase>``, ``f64_pairs.<phase>`` and ``tier2_pairs.<phase>``
-(the mass veto's pairs past tier 1 and those that reached float64).
+(the mass veto's pairs past tier 1 and those that reached float64);
+``survey.summary_on_device``, one a kernel-route fit
+(``sampling.kernel.fit_multicluster_kernel``), whose summary is taken
+from the chain on the sampler's device, before the fetch.
 """
 
 from __future__ import annotations

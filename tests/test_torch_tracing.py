@@ -11,7 +11,9 @@ whose mass veto sends a known number of pairs past tier 1.
   counter and count nothing.
 * Under ``profile_to`` the Chrome trace holds every span, each inside
   its parent; the survey's ``timings`` are its spans' seconds; the
-  phase counters add up to the whole fit's pairs.
+  phase counters add up to the whole fit's pairs; the kernel route
+  counts its summary taken on the device, between the sampling and the
+  fetch, and the plain route counts none.
 * The plain mirror's ``T2_PAIRS`` counts the pairs ``joint_ll_plain``'s
   details send past tier 1.
 * On a card (``gpu``): kernel 1's and the step kernel's tier-2 counters
@@ -22,6 +24,7 @@ The card's test imports no JAX: ``python -m pytest --noconftest
 tests/test_torch_tracing.py -m gpu`` runs it where JAX is missing.
 """
 
+import contextlib
 import json
 
 import numpy as np
@@ -238,6 +241,50 @@ def test_phase_counters_sum_to_the_fit(traced):
     # every proposal is the near-tie row
     assert steps_t2 == ROW_PAIRS * C * W * (BURN + STEPS)
     assert counts["tier2_pairs.burn"] == ROW_PAIRS * C * W * BURN
+
+
+def test_summary_is_taken_on_the_device_between_sampling_and_fetch(traced):
+    """The kernel route counts one summary taken on the sampler's device;
+    its span ``survey.summary`` (``summary_s``) opens after
+    ``survey.sample`` and closes before ``sampler.fetch``, outside the
+    spans whose seconds make ``sampling_s``."""
+    spans, timings, counts, made = traced[0], traced[1], traced[2], traced[5]
+    assert counts["survey.summary_on_device"] == 1
+    (f0, f1), = spans["survey.fit"]
+
+    def inside(name):
+        (a, b), = [s for s in spans[name] if f0 <= s[0] and s[1] <= f1]
+        return a, b
+
+    s0, s1 = inside("survey.summary")
+    assert inside("survey.sample")[1] <= s0 and s1 <= inside(
+        "sampler.fetch")[0]
+    assert timings["summary_s"] == made["survey.summary"].seconds > 0
+    assert timings["sampling_s"] == (made["survey.burn"].seconds
+                                     + made["survey.sample"].seconds
+                                     + made["sampler.fetch"].seconds)
+
+
+@pytest.mark.parametrize("traced_fit", [False, True])
+def test_plain_route_counts_no_summary_on_device(setting, tmp_path,
+                                                 traced_fit):
+    """The plain batched ensembles summarise the fetched host chain: no
+    count, with or without a profiler recording."""
+    sess = setting[0]
+    m = sess.model
+    timing.reset_counters()
+    with (timing.profile_to(str(tmp_path)) if traced_fit
+          else contextlib.nullcontext()):
+        res = survey.fit_survey(
+            sess, stack_sz_data([m.sz_data] * C),
+            stack_xray_data([m.xray_data] * C),
+            np.tile(truth_theta(sess), (C, 1)), n_walkers=W, n_burn=BURN,
+            n_steps=STEPS, thin=THIN, seed=2, step_kernel=False)
+    counts = timing.counters()
+    timing.reset_counters()
+    assert res.timings is None
+    assert res.medians.shape == (C, res.chain.shape[-1])
+    assert "survey.summary_on_device" not in counts
 
 
 def test_plain_mirror_counts_tier2_pairs(setting):
